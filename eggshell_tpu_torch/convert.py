@@ -1,0 +1,36 @@
+"""Scenes and states of the JAX package, as numpy arrays, to the port's
+tensors.
+
+The caller turns the JAX NamedTuples into dicts of numpy arrays
+(``{k: np.asarray(v) for k, v in spec._asdict().items()}``), so this
+module needs no JAX.  Integer fields become int64, boolean fields stay
+boolean and float fields take `dtype`.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from eggshell_tpu_torch.physics.scene import SceneSpec, State
+
+
+def _tensor(x, device, dtype):
+    a = np.array(x)  # a writable copy: the JAX package's arrays are read-only
+    if a.dtype == np.bool_:
+        return torch.as_tensor(a, device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a.astype(np.int64), device=device)
+    return torch.as_tensor(a.astype(np.float64), device=device).to(dtype)
+
+
+def spec_from_numpy(fields: Mapping, *, device, dtype) -> SceneSpec:
+    return SceneSpec(**{k: _tensor(fields[k], device, dtype)
+                        for k in SceneSpec._fields})
+
+
+def state_from_numpy(fields: Mapping, *, device, dtype) -> State:
+    return State(**{k: _tensor(fields[k], device, dtype)
+                    for k in State._fields})

@@ -1,0 +1,164 @@
+"""Scene-level contact assembly for a batch of scenarios: narrowphase
+fan-out, stable compaction into K lanes, same-pair deduplication.
+
+Counterpart of `eggshell_tpu.physics.contacts`.  Candidates come in the
+reference order — ground corners body-major (8 per body), then the
+candidate pairs in order (MAX_CONTACTS_PER_PAIR lanes each) — and active
+candidates are compacted in that order, so lane k here is lane k in the
+JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from eggshell_tpu_torch.ops import collision
+from eggshell_tpu_torch.ops import quaternion as quat
+from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes
+from eggshell_tpu_torch.physics.scene import SceneSpec, State
+from eggshell_tpu_torch.utils.config import SimConfig
+
+# `_dedupe` compares every pair of lanes; the JAX package switches to a
+# windowed form at this capacity.
+_PAIRWISE_DEDUPE_MAX_K = 32 * collision.MAX_CONTACTS_PER_PAIR
+
+
+class ContactSet(NamedTuple):
+    """K contact lanes per scenario.  b0 = -1 is the ground (the body of a
+    ground contact is slot 1); idle lanes have b0 = b1 = -1."""
+
+    b0: torch.Tensor        # (B, K) int64
+    b1: torch.Tensor        # (B, K) int64
+    position: torch.Tensor  # (B, K, 3)
+    normal: torch.Tensor    # (B, K, 3)
+    depth: torch.Tensor     # (B, K)
+    active: torch.Tensor    # (B, K) bool
+
+    @property
+    def capacity(self) -> int:
+        return self.b0.shape[-1]
+
+
+def pair_inputs(spec: SceneSpec, states: State, R: torch.Tensor):
+    """The narrowphase's inputs for every candidate pair of every scenario,
+    scenario-major: (p1, R1, hs1, p2, R2, hs2) with B * P rows."""
+    B, P = states.p.shape[0], spec.num_pairs
+    pi, pj = spec.pair_i, spec.pair_j
+
+    def flat(x):
+        return x.reshape((B * P,) + x.shape[2:]).contiguous()
+
+    return (
+        flat(states.p[:, pi]), flat(R[:, pi]), flat(spec.half_extents[pi].expand(B, P, 3)),
+        flat(states.p[:, pj]), flat(R[:, pj]), flat(spec.half_extents[pj].expand(B, P, 3)),
+    )
+
+
+def _candidates(spec: SceneSpec, states: State):
+    """All candidate contacts of every scenario in reference order:
+    (b0, b1, pos, nrm, dep, act) with a candidate axis of n*8 + P*12."""
+    B, n = states.p.shape[:2]
+    device = states.p.device
+    R = states.R()                                                  # (B, n, 3, 3)
+
+    gpos, gnrm, gdep, gact = collision.collide_box_and_ground(
+        states.p, R, spec.half_extents.expand(B, n, 3)
+    )
+    gact = gact & spec.ground_enabled[None, :, None]
+    G = collision.GROUND_CONTACTS
+    g_b0 = torch.full((B, n * G), -1, dtype=torch.int64, device=device)
+    g_b1 = torch.arange(n, device=device).repeat_interleave(G).expand(B, n * G)
+
+    parts = [(g_b0, g_b1, gpos.reshape(B, n * G, 3), gnrm.reshape(B, n * G, 3),
+              gdep.reshape(B, n * G), gact.reshape(B, n * G))]
+    P = spec.num_pairs
+    if P > 0:
+        pi, pj = spec.pair_i, spec.pair_j
+        out = collide_boxes_lanes(*pair_inputs(spec, states, R))
+        C = collision.MAX_CONTACTS_PER_PAIR
+        parts.append((
+            pi.repeat_interleave(C).expand(B, P * C),
+            pj.repeat_interleave(C).expand(B, P * C),
+            out.position.reshape(B, P * C, 3), out.normal.reshape(B, P * C, 3),
+            out.depth.reshape(B, P * C), out.active.reshape(B, P * C),
+        ))
+    return tuple(torch.cat([part[i] for part in parts], dim=1) for i in range(6))
+
+
+def _compact(b0, b1, pos, nrm, dep, act, K: int) -> ContactSet:
+    """Stable compaction: active candidate number o lands in lane o; the
+    active candidates past K are dropped.  Idle lanes: b0 = b1 = -1, zero
+    geometry."""
+    B, C = act.shape
+    a = act.to(torch.int64)
+    offs = torch.cumsum(a, dim=1) - a
+    slot = torch.where(act & (offs < K), offs, torch.full_like(offs, K))  # K = discard
+
+    def scatter(vals, fill):
+        shape = (B, K + 1) + vals.shape[2:]
+        buf = torch.full(shape, fill, dtype=vals.dtype, device=vals.device)
+        idx = slot.reshape(B, C, *([1] * (vals.dim() - 2))).expand(vals.shape)
+        return buf.scatter(1, idx, vals)[:, :K]
+
+    return ContactSet(
+        b0=scatter(b0.expand(B, C), -1),
+        b1=scatter(b1.expand(B, C), -1),
+        position=scatter(pos, 0.0),
+        normal=scatter(nrm, 0.0),
+        depth=scatter(dep, 0.0),
+        active=scatter(act, False),
+    )
+
+
+def _dedupe(cs: ContactSet, cfg: SimConfig) -> ContactSet:
+    """Drop contact k when an earlier lane of the same body pair (ground
+    lanes excluded) lies closer than `min_constraint_distance`."""
+    eps2 = cfg.min_constraint_distance ** 2
+    lo_b = torch.minimum(cs.b0, cs.b1)
+    hi_b = torch.maximum(cs.b0, cs.b1)
+    ok = lo_b >= 0
+    K = cs.capacity
+    d2 = torch.sum((cs.position[:, :, None, :] - cs.position[:, None, :, :]) ** 2, dim=-1)
+    same_pair = (lo_b[:, :, None] == lo_b[:, None, :]) & (hi_b[:, :, None] == hi_b[:, None, :])
+    both_ok = ok[:, :, None] & ok[:, None, :]
+    both_act = cs.active[:, :, None] & cs.active[:, None, :]
+    lane = torch.arange(K, device=cs.b0.device)
+    earlier = lane[None, :] < lane[:, None]
+    drop = torch.any(same_pair & both_ok & both_act & earlier & (d2 < eps2), dim=2)
+    return cs._replace(active=cs.active & ~drop)
+
+
+def make_contacts_batched(spec: SceneSpec, states: State, cfg: SimConfig) -> ContactSet:
+    """Detect, compact and dedupe the contacts of B scenarios into
+    `cfg.contact_capacity` lanes each.  The box pairs of all scenarios go
+    through one narrowphase call (B * P pairs)."""
+    if spec.num_joints > 0:
+        raise NotImplementedError(
+            "joint-contact dedupe is not ported yet (ROADMAP A9: joints and broadphase scenes)"
+        )
+    if cfg.contact_capacity >= _PAIRWISE_DEDUPE_MAX_K:
+        raise NotImplementedError(
+            "windowed dedupe for large contact capacities is not ported yet "
+            "(ROADMAP A12: matrix-free large-scene tier)"
+        )
+    cs = _compact(*_candidates(spec, states), cfg.contact_capacity)
+    return _dedupe(cs, cfg)
+
+
+def effective_depth(depth: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """Depth seen by the ERP correction, saturated at
+    max_correcting_vel * dt / erp; the identity when the cap is inf."""
+    if math.isinf(cfg.max_correcting_vel):
+        return depth
+    cap = cfg.max_correcting_vel * cfg.dt / max(cfg.erp, 1e-12)
+    return torch.clamp(depth, max=cap)
+
+
+def contact_frames(cs: ContactSet) -> torch.Tensor:
+    """Rotations taking global vectors into the contact frame (z = the
+    contact normal): AlignVectors(normal, z), (..., K, 3, 3)."""
+    z = torch.tensor([0.0, 0.0, 1.0], dtype=cs.normal.dtype, device=cs.normal.device)
+    return quat.align_vectors_mat(cs.normal, z.expand(cs.normal.shape))

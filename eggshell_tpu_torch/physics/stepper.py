@@ -1,0 +1,161 @@
+"""The ODE-style velocity stepper for a batch of scenarios.
+
+Counterpart of `eggshell_tpu.physics.stepper`.  Only the unfused
+`SolverKind.JACOBI_KERNEL` branch of `step_ode_batched` is ported: the
+branch the JAX package takes under the reference's conditional CFM policy
+(`conditional_cfm=True`) with BOX friction.  Per step: contacts (SAT
+narrowphase kernel), constraints, the system matrix with conditional CFM,
+the projected-Jacobi LCP kernel, and the midpoint integration.  Every
+configuration that the JAX package would send down another branch raises
+`NotImplementedError` naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from eggshell_tpu_torch.ops import quaternion as quat
+from eggshell_tpu_torch.ops.pgs_kernel import solve_lcp_jacobi
+from eggshell_tpu_torch.physics import scene as scn
+from eggshell_tpu_torch.physics.constraints import ConstraintSystem, build_constraints
+from eggshell_tpu_torch.physics.contacts import make_contacts_batched
+from eggshell_tpu_torch.physics.scene import SceneSpec, State
+from eggshell_tpu_torch.utils.config import FrictionModel, SimConfig, SolverKind
+
+_POWER_ITERS = 12
+
+
+def _cond_bounds_exact(A):
+    eigs = torch.linalg.eigvalsh(A)
+    return eigs[..., -1], eigs[..., 0]
+
+
+def _cond_bounds_power(A):
+    """lambda_max by power iteration, lambda_min by inverse iteration
+    through one Cholesky factor.  A scenario whose factorization fails
+    (A not positive definite) gets lambda_min = 0, i.e. reads as badly
+    conditioned."""
+    B, m, _ = A.shape
+    v = torch.full((B, m), 1.0 / math.sqrt(m), dtype=A.dtype, device=A.device)
+
+    def normalized(w):
+        return w / torch.clamp(torch.linalg.vector_norm(w, dim=-1, keepdim=True), min=1e-300)
+
+    def av(x):
+        return torch.einsum("bij,bj->bi", A, x)
+
+    for _ in range(_POWER_ITERS):
+        v = normalized(av(v))
+    lam_max = torch.sum(v * av(v), dim=-1)
+
+    L, info = torch.linalg.cholesky_ex(A)
+    u = v
+    for _ in range(_POWER_ITERS):
+        u = normalized(torch.cholesky_solve(u[..., None], L)[..., 0])
+    lam_min = torch.sum(u * av(u), dim=-1)
+    ok = (info == 0) & torch.isfinite(lam_min)
+    lam_min = torch.where(ok, lam_min, torch.zeros_like(lam_min))
+    return lam_max, lam_min
+
+
+def system_matrix(spec: SceneSpec, states: State, sys: ConstraintSystem,
+                  cfg: SimConfig) -> torch.Tensor:
+    """A = J M^-1 J^T (B, m, m) with CFM on active rows and, on idle rows,
+    a diagonal equal to the largest active diagonal (which keeps cond(A)
+    that of the active block).  With `conditional_cfm`, cfg.cfm is added
+    only where the estimated condition number exceeds
+    cfg.good_condition_number (or A is not positive definite)."""
+    B, m = sys.err.shape
+    Minv = scn.inv_mass_blocks(spec, states)                       # (B, n, 6, 6)
+    JM = torch.einsum("bmnk,bnkl->bmnl", sys.J, Minv)
+    A = torch.einsum("bmnl,bonl->bmo", JM, sys.J)
+
+    zero = torch.zeros((), dtype=A.dtype, device=A.device)
+    diag = torch.diagonal(A, dim1=-2, dim2=-1)
+    diag_scale = torch.amax(torch.where(sys.row_active, diag, zero), dim=-1, keepdim=True)
+    diag_scale = torch.where(diag_scale > 0, diag_scale, torch.ones_like(diag_scale))
+    A = A + torch.diag_embed(torch.where(sys.row_active, zero, diag_scale))
+
+    if cfg.conditional_cfm:
+        if cfg.cond_estimator == "exact":
+            lam_max, lam_min = _cond_bounds_exact(A)
+        else:
+            lam_max, lam_min = _cond_bounds_power(A)
+        bad = (lam_min <= 0) | (
+            lam_max / torch.clamp(lam_min, min=1e-300) > cfg.good_condition_number
+        )
+        cfm = torch.where(bad, torch.full_like(lam_max, cfg.cfm), torch.zeros_like(lam_max))
+    else:
+        cfm = torch.full((B,), cfg.cfm_always, dtype=A.dtype, device=A.device)
+    return A + torch.diag_embed(torch.where(sys.row_active, cfm[:, None], zero))
+
+
+def _post_solve(states: State, cfg: SimConfig, sys: ConstraintSystem, lam, u, Minv, F) -> State:
+    """v_dot = M^-1 (F + J^T lambda); midpoint position update and
+    exp-map orientation update."""
+    dt = cfg.dt
+    JTlam = torch.einsum("bmnk,bm->bnk", sys.J, lam)
+    vdot = torch.einsum("bnij,bnj->bni", Minv, F + JTlam)
+    u_new = u + dt * vdot
+    u_mid = 0.5 * (u + u_new)
+    p_new = states.p + dt * u_mid[..., :3]
+    q_new = quat.integrate_quat(states.q, u_mid[..., 3:], dt)
+    return State(p=p_new, v=u_new[..., :3], q=q_new, w=u_new[..., 3:])
+
+
+def check_supported(spec: SceneSpec, cfg: SimConfig) -> None:
+    """Raise NotImplementedError for every configuration that the JAX
+    package's `step_ode_batched` sends down a branch not ported yet."""
+    if cfg.solver == SolverKind.MATRIX_FREE:
+        raise NotImplementedError(
+            "SolverKind.MATRIX_FREE is not ported yet (ROADMAP A12: matrix-free large-scene tier)")
+    if cfg.solver == SolverKind.DIRECT:
+        raise NotImplementedError(
+            "SolverKind.DIRECT is not ported yet (ROADMAP A10: differentiable step and direct solvers)")
+    if cfg.solver != SolverKind.JACOBI_KERNEL:
+        raise NotImplementedError(
+            f"SolverKind.{cfg.solver.name} is not ported yet (ROADMAP A6: PGS, SOR and XLA Jacobi sweeps)")
+    if cfg.friction_model in (FrictionModel.BOX, FrictionModel.COULOMB_PYRAMID) \
+            and not cfg.conditional_cfm:
+        raise NotImplementedError(
+            "conditional_cfm=False takes the fused kernel chain, not ported yet "
+            "(ROADMAP B: the fused chain B1, B3, B4, B5, B6, B7)")
+    if cfg.friction_model != FrictionModel.BOX:
+        raise NotImplementedError(
+            f"{cfg.friction_model.name} friction is not ported yet "
+            "(ROADMAP A5: the other friction models of physics/constraints.py)")
+    if cfg.pair_capacity > 0:
+        raise NotImplementedError(
+            "pair_capacity > 0 (broadphase) is not ported yet (ROADMAP A9: joints and broadphase scenes)")
+    if spec.num_joints > 0:
+        raise NotImplementedError(
+            "scenes with joints are not ported yet (ROADMAP A9: joints and broadphase scenes)")
+
+
+def _pre_solve(spec: SceneSpec, states: State, cfg: SimConfig):
+    """Everything up to the lambda solve: contacts, constraints, the rhs
+    -erp/dt^2 err - J (u/dt + M^-1 F) and the system matrix."""
+    dt = cfg.dt
+    cs = make_contacts_batched(spec, states, cfg)
+    sys = build_constraints(spec, states, cs, cfg)
+    u = scn.pack_velocity(states)                                   # (B, n, 6)
+    Minv = scn.inv_mass_blocks(spec, states)
+    F = scn.external_forces(spec, states, cfg.gravity)
+    MinvF = torch.einsum("bnij,bnj->bni", Minv, F)
+    rhs = -cfg.erp / dt / dt * sys.err - torch.einsum("bmnk,bnk->bm", sys.J, u / dt + MinvF)
+    A = system_matrix(spec, states, sys, cfg)
+    return sys, A, rhs, u, Minv, F
+
+
+def step_ode_batched(spec: SceneSpec, states: State, cfg: SimConfig) -> State:
+    """One step of B scenarios of one scene; states (B, n, ...)."""
+    check_supported(spec, cfg)
+    sys, A, rhs, u, Minv, F = _pre_solve(spec, states, cfg)
+    lam = solve_lcp_jacobi(
+        A.contiguous(), rhs.contiguous(), sys.is_eq.contiguous(), sys.lo.contiguous(),
+        sys.hi.contiguous(), iters=cfg.solver_iters, omega=cfg.jacobi_omega,
+        beta=cfg.jacobi_beta,
+    )
+    return _post_solve(states, cfg, sys, lam, u, Minv, F)

@@ -1,0 +1,72 @@
+"""Port parity: quaternion / SO(3) primitives of `eggshell_tpu_torch`
+against `eggshell_tpu.ops.quaternion`, float64, same numpy inputs.
+Tolerance 1e-12: the same formulas in the same order, so only the last
+bits of library sqrt/sin/cos may differ."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eggshell_tpu.ops import quaternion as jq
+from eggshell_tpu_torch.ops import quaternion as tq
+
+TOL = 1e-12
+
+
+def _close(want, got):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(0)
+    return {
+        "q1": rng.normal(size=(64, 4)),
+        "q2": rng.normal(size=(64, 4)),
+        "v": rng.normal(size=(64, 3)),
+        "phi": np.concatenate([rng.normal(size=(60, 3)), 1e-8 * rng.normal(size=(4, 3))]),
+    }
+
+
+@pytest.mark.parametrize("name", ["quat_to_mat", "quat_normalize", "quat_mul",
+                                  "quat_from_scaled_axis", "cross_mat", "integrate_quat"])
+def test_quaternion_op_matches_jax(data, name):
+    q1, q2, v, phi = data["q1"], data["q2"], data["v"], data["phi"]
+    args = {
+        "quat_to_mat": (q1,),
+        "quat_normalize": (q1,),
+        "quat_mul": (q1, q2),
+        "quat_from_scaled_axis": (phi,),
+        "cross_mat": (v,),
+        "integrate_quat": (jq.quat_normalize(jnp.asarray(q1)), v, 1e-3),
+    }[name]
+    want = getattr(jq, name)(*[jnp.asarray(a) if not isinstance(a, float) else a for a in args])
+    got = getattr(tq, name)(*[torch.tensor(np.asarray(a)) if not isinstance(a, float) else a
+                              for a in args])
+    _close(want, got)
+
+
+def test_align_vectors_matches_jax_including_antiparallel(data):
+    """Stacked boxes give normals antiparallel to +z: the w < 1e-8 branch,
+    whose axis is the argmin of |a| with ties going to the first index."""
+    v = data["v"]
+    special = np.array([[0.0, 0.0, -1.0], [0.0, 0.0, -2.5], [1.0, 1.0, 0.0],
+                        [-1.0, 0.0, 0.0], [0.0, 0.0, 1.0], [0.0, 0.0, 0.0]])
+    a = np.concatenate([v, special])
+    b = np.broadcast_to([0.0, 0.0, 1.0], a.shape).copy()
+    want = jq.align_vectors_mat(jnp.asarray(a), jnp.asarray(b))
+    got = tq.align_vectors_mat(torch.as_tensor(a), torch.as_tensor(b))
+    _close(want, got)
+    # R maps a-hat onto +z (zero vectors map to the identity-free fallback)
+    ah = a[:-1] / np.linalg.norm(a[:-1], axis=1, keepdims=True)
+    np.testing.assert_allclose(np.einsum("nij,nj->ni", got.numpy()[:-1], ah),
+                               b[:-1], atol=1e-12)
+
+
+def test_box_inertia_matches_jax(data):
+    rng = np.random.default_rng(1)
+    m = rng.uniform(0.5, 2.0, 16)
+    s = rng.uniform(0.1, 1.0, (16, 3))
+    _close(jq.box_inertia(jnp.asarray(m), jnp.asarray(s)),
+           tq.box_inertia(torch.as_tensor(m), torch.as_tensor(s)))
