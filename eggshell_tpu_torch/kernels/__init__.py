@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 The sources in `eggshell_tpu_torch/csrc/` are compiled at first use with
-`nvcc` into one shared library with a plain C interface, loaded with
-`ctypes`.  The library lands in `eggshell_tpu_torch/kernels/_build/`
-(listed in `.gitignore`) under a name that carries a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is loaded
-as it is.  Nothing here runs at import time.
+`nvcc`, one process per source, all started together, and linked into one
+shared library with a plain C interface, loaded with `ctypes`.  The
+library lands in `eggshell_tpu_torch/kernels/_build/` (listed in
+`.gitignore`) under a name that carries a hash of the sources and flags,
+so an edited source is rebuilt and an unchanged one is loaded as it is.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -19,24 +20,38 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("narrowphase.cu", "jacobi.cu")
+SOURCES = ("narrowphase.cu", "jacobi.cu", "prep.cu", "jassembly.cu", "amat.cu",
+           "jacobi_packed.cu", "integrate.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --fmad=false: every product and sum is rounded on its own, as in the
 # plain torch versions (see the note in csrc/narrowphase.cu).
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-c")
 
 _P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # p1, R1, hs1, p2, R2, hs2, pos, nrm, dep, act, code, idep, iax, n, stream
-    "eggshell_narrowphase_f32": [_P] * 13 + [ctypes.c_int64, _P],
+    "eggshell_narrowphase_f32": [_P] * 13 + [_I64, _P],
     # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, beta, stream
-    "eggshell_jacobi_f32": [_P] * 6 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_float, ctypes.c_float, _P],
-    "eggshell_cuda_error_string": [ctypes.c_int],
+    "eggshell_jacobi_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _P],
+    # q, v, w, ext, inv_mass, Ib, invIb, uhat, invIg, F, B, n, inv_dt, gx, gy, gz, stream
+    "eggshell_prep_f32": [_P] * 10 + [_I64, _I, _F, _F, _F, _F, _P],
+    # b0, b1, pos, pos1, nrm, dep, act, eq, p, uhat, Jc, rhs, B, K, n, erp_dt2, stream
+    "eggshell_jassembly_f32": [_P] * 12 + [_I64, _I, _I, _F, _P],
+    # Jc, b0, b1, act, inv_mass, invIg, A, diag, B, K, n, mp, cfm, stream
+    "eggshell_amat_f32": [_P] * 8 + [_I64, _I, _I, _I, _F, _P],
+    # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, stream
+    "eggshell_jacobi_packed_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _P],
+    # Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, p_out, q_out, v_out, w_out,
+    # B, K, n, lam_stride, dt, stream
+    "eggshell_integrate_f32": [_P] * 15 + [_I64, _I, _I, _I, _F, _P],
+    "eggshell_cuda_error_string": [_I],
 }
 
 
@@ -51,7 +66,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libeggshell_kernels_{h.hexdigest()[:16]}.so"
@@ -59,25 +74,32 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless a library of the same hash exists.
-    The library is written to a temporary name and renamed, so a process
-    never loads a half-written file."""
+    Each source is compiled by its own nvcc, all at once; the objects are
+    linked into a temporary name that is then renamed, so a process never
+    loads a half-written file."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        procs = [
+            subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", obj, str(CSRC / s)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, obj in zip(SOURCES, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [f"{s} ({p.returncode}):\n{log}"
+                  for s, p, log in zip(SOURCES, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        so = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+        os.replace(so, out)
     return out
 
 
@@ -103,6 +125,18 @@ def check_arg(name: str, x, shape: tuple, dtype, device) -> None:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def launch(fn_name: str, device, *args) -> None:
+    """Call the C entry point `fn_name` on the current stream of `device`
+    (tensors go as their data pointers, None as a null pointer) and raise
+    if the launch was refused."""
+    lib = load()
+    raw = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = getattr(lib, fn_name)(*raw, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: {error_string(err)}")
 
 
 def error_string(code: int) -> str:

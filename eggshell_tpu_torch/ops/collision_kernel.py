@@ -36,17 +36,8 @@ def collide_boxes_lanes(p1, R1, hs1, p2, R2, hs2) -> PairContacts:
     code = torch.empty((N,), dtype=torch.int32, device=dev)
     idep = torch.empty((N,), dtype=torch.float32, device=dev)
     iax = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    lib = kernels.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.eggshell_narrowphase_f32(
-            p1.data_ptr(), R1.data_ptr(), hs1.data_ptr(), p2.data_ptr(),
-            R2.data_ptr(), hs2.data_ptr(), pos.data_ptr(), nrm.data_ptr(),
-            dep.data_ptr(), act.data_ptr(), code.data_ptr(), idep.data_ptr(),
-            iax.data_ptr(), N, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"narrowphase kernel launch failed: {kernels.error_string(err)}")
+    kernels.launch("eggshell_narrowphase_f32", dev, p1, R1, hs1, p2, R2, hs2, pos, nrm, dep, act,
+                   code, idep, iax, N)
     collide_boxes_lanes.launches += 1
     return PairContacts(
         position=pos,

@@ -1,0 +1,98 @@
+"""Post-solve integration of the fused chain: the hand-written CUDA kernel
+and its wrapper.
+
+Counterpart of `eggshell_tpu.ops.integrate_kernel.integrate_step`, in the
+port's scenario-major layout.  Per body: J^T lambda from the compact blocks
+(the lanes whose slot body is this body; the ground, -1, is no body),
+vdot = [inv_mass rhs_lin; invIg rhs_ang] with rhs = F + J^T lambda, the
+midpoint position update and the normalised exp-map quaternion update.  On
+a CUDA tensor the wrapper launches `csrc/integrate.cu`; on a CPU tensor it
+runs the plain version.  A CUDA input that the kernel does not take raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def integrate_step_plain(Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, dt: float):
+    """Plain torch version of the kernel, in the kernel's order of
+    operations.  Jc (B, 3K, 12); lam (B, L) with L >= 3K, of which the first
+    3K are read; b0 / b1 (B, K) int64; p / v / w (B, n, 3); q (B, n, 4);
+    inv_mass (n,); invIg (B, n, 3, 3); F (B, n, 6).
+    Returns (p, q, v, w) of the next step."""
+    B, K = b0.shape
+    n = p.shape[1]
+    J = Jc.reshape(B, K, 3, 12)
+    lm = lam[:, :3 * K].reshape(B, K, 3)
+    bodies = torch.arange(n, device=p.device)
+    jtl = torch.zeros((B, n, 6), dtype=p.dtype, device=p.device)
+    for k in range(K):
+        for s, bsel in enumerate((b0, b1)):
+            Js = J[:, k, :, 6 * s:6 * s + 6]                                  # (B, 3, 6)
+            contrib = (lm[:, k, 0, None] * Js[:, 0] + lm[:, k, 1, None] * Js[:, 1]
+                       + lm[:, k, 2, None] * Js[:, 2])                         # (B, 6)
+            hit = (bsel[:, k, None] == bodies)[..., None]                       # (B, n, 1)
+            jtl = jtl + torch.where(hit, contrib[:, None, :], torch.zeros_like(jtl))
+    rhs = F + jtl
+    vdot_lin = inv_mass[:, None] * rhs[..., :3]
+    vdot_ang = (invIg[..., 0] * rhs[..., 3:4] + invIg[..., 1] * rhs[..., 4:5]
+                + invIg[..., 2] * rhs[..., 5:6])
+    vdot = torch.cat([vdot_lin, vdot_ang], -1)
+    u = torch.cat([v, w], -1)
+    u_new = u + dt * vdot
+    u_mid = 0.5 * (u + u_new)
+    p_new = p + dt * u_mid[..., :3]
+
+    phi = dt * u_mid[..., 3:]
+    p0, p1, p2 = phi.unbind(-1)
+    t2 = p0 * p0 + p1 * p1 + p2 * p2
+    small = t2 < 1e-12
+    safe_t = torch.sqrt(torch.where(small, torch.ones_like(t2), t2))
+    kfac = torch.where(small, 0.5 - t2 / 48.0, torch.sin(0.5 * safe_t) / safe_t)
+    dw = torch.where(small, 1.0 - t2 / 8.0, torch.cos(0.5 * safe_t))
+    dx, dy, dz = kfac * p0, kfac * p1, kfac * p2
+    qw, qx, qy, qz = q.unbind(-1)
+    nw = dw * qw - dx * qx - dy * qy - dz * qz
+    nx = dw * qx + dx * qw + dy * qz - dz * qy
+    ny = dw * qy - dx * qz + dy * qw + dz * qx
+    nz = dw * qz + dx * qy - dy * qx + dz * qw
+    norm = torch.sqrt(nw * nw + nx * nx + ny * ny + nz * nz)
+    inv = 1.0 / torch.where(norm > 0, norm, torch.ones_like(norm))
+    q_new = torch.stack([nw * inv, nx * inv, ny * inv, nz * inv], -1)
+    return p_new, q_new, u_new[..., :3], u_new[..., 3:]
+
+
+def integrate_step(Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, dt: float):
+    """(p, q, v, w) of the next step; see `integrate_step_plain` for the
+    arguments."""
+    if p.device.type == "cpu":
+        return integrate_step_plain(Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, dt)
+    if p.device.type != "cuda":
+        raise ValueError(f"unsupported device {p.device}")
+    from eggshell_tpu_torch import kernels
+
+    B, K = b0.shape
+    n = p.shape[1]
+    L = lam.shape[-1]
+    dev = p.device
+    f32 = torch.float32
+    if L < 3 * K:
+        raise ValueError(f"lam has {L} rows, fewer than 3K = {3 * K}")
+    for name, x, shape, dtype in (
+        ("Jc", Jc, (B, 3 * K, 12), f32), ("lam", lam, (B, L), f32),
+        ("b0", b0, (B, K), torch.int64), ("b1", b1, (B, K), torch.int64),
+        ("p", p, (B, n, 3), f32), ("q", q, (B, n, 4), f32), ("v", v, (B, n, 3), f32),
+        ("w", w, (B, n, 3), f32), ("inv_mass", inv_mass, (n,), f32),
+        ("invIg", invIg, (B, n, 3, 3), f32), ("F", F, (B, n, 6), f32),
+    ):
+        kernels.check_arg(name, x, shape, dtype, dev)
+    p_new, v_new, w_new = (torch.empty((B, n, 3), dtype=f32, device=dev) for _ in range(3))
+    q_new = torch.empty((B, n, 4), dtype=f32, device=dev)
+    kernels.launch("eggshell_integrate_f32", dev, Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg,
+                   F, p_new, q_new, v_new, w_new, B, K, n, L, float(dt))
+    integrate_step.launches += 1
+    return p_new, q_new, v_new, w_new
+
+
+integrate_step.launches = 0

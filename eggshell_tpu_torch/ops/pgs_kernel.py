@@ -1,11 +1,17 @@
-"""Batched projected-Jacobi LCP solve: the hand-written CUDA kernel and
-its wrapper.
+"""Batched projected-Jacobi LCP solves: the hand-written CUDA kernels and
+their wrappers.
 
-Counterpart of `eggshell_tpu.ops.pgs_kernel.solve_lcp_jacobi_pallas`
-(scalar form, block=False).  On a CUDA tensor the wrapper launches
-`csrc/jacobi.cu`; on a CPU tensor it runs the plain version
-`solve_lcp_jacobi_plain`.  A CUDA input that the kernel does not take
-raises; there is no fallback.
+- `solve_lcp_jacobi`: counterpart of
+  `eggshell_tpu.ops.pgs_kernel.solve_lcp_jacobi_pallas` (scalar form,
+  block=False), with bounds given per row; kernel `csrc/jacobi.cu`.
+- `solve_lcp_jacobi_packed`: counterpart of
+  `eggshell_tpu.ops.pgs_kernel.solve_lcp_jacobi_packed` (block=False,
+  pyramid_mu=0), the fused chain's solve, with box-friction bounds built
+  from the lane masks; kernel `csrc/jacobi_packed.cu`.
+
+On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
+its plain version.  A CUDA input that the kernel does not take raises;
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -13,16 +19,12 @@ from __future__ import annotations
 import torch
 
 from eggshell_tpu_torch.ops import lcp
+from eggshell_tpu_torch.ops.amat_kernel import ROW_BLOCK, padded_rows, round_rows
 
-ROW_BLOCK = 8
 # Hopper: 227 KB of shared memory per block (232,448 bytes).
 MAX_SHARED_BYTES = 232_448
 # Stand-in for hi = inf, as the TPU kernel has it.
 HI_INF = 3.4e38
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 def _shared_bytes(mp: int) -> int:
@@ -37,7 +39,7 @@ def solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, iters: int, omega: float,
     (unit diagonal, zero rhs, equality), hi = inf replaced by 3.4e38,
     x0 = proj(b), then `iters` heavy-ball sweeps.  Returns x (B, m)."""
     B, m = b.shape
-    mp = _round_up(m, ROW_BLOCK)
+    mp = round_rows(m)
     if mp != m:
         pad = mp - m
         A = torch.nn.functional.pad(A, (0, pad, 0, pad))
@@ -71,7 +73,7 @@ def solve_lcp_jacobi(A, b, is_eq, lo, hi, iters: int, omega: float,
 
     B, m = b.shape
     dev = A.device
-    mp = _round_up(m, ROW_BLOCK)
+    mp = round_rows(m)
     if _shared_bytes(mp) > MAX_SHARED_BYTES:
         raise ValueError(
             f"m = {m} needs {_shared_bytes(mp)} bytes of shared memory per "
@@ -85,18 +87,105 @@ def solve_lcp_jacobi(A, b, is_eq, lo, hi, iters: int, omega: float,
         kernels.check_arg(name, x, shape, dtype, dev)
     hi = torch.where(torch.isinf(hi), torch.full_like(hi, HI_INF), hi)
     out = torch.empty((B, m), dtype=torch.float32, device=dev)
-    lib = kernels.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.eggshell_jacobi_f32(
-            A.data_ptr(), b.data_ptr(), is_eq.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), out.data_ptr(), B, m, mp, int(iters), float(omega),
-            float(beta), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"Jacobi kernel launch failed: {kernels.error_string(err)}")
+    kernels.launch("eggshell_jacobi_f32", dev, A, b, is_eq, lo, hi, out, B, m, mp, int(iters),
+                   float(omega), float(beta))
     solve_lcp_jacobi.launches += 1
     return out
 
 
 solve_lcp_jacobi.launches = 0
+
+
+def _packed_bounds(act, eq, K: int, mp: int, mu: float, dtype):
+    """Per-row (active, lo, hi), each (B, mp), of the fused chain's LCP:
+    equality lanes free, tangential rows (row % 3 < 2) in [-mu, mu], normal
+    rows in [0, 3.4e38]; inactive lanes and padding rows inactive."""
+    B = act.shape[0]
+    dev = act.device
+    m = 3 * K
+    pad = mp - m
+    active = torch.nn.functional.pad(act.repeat_interleave(3, dim=1), (0, pad))
+    tangential = (torch.arange(m, device=dev) % 3 < 2).expand(B, m)
+    lo = torch.where(tangential, torch.full((), -mu, dtype=dtype, device=dev),
+                     torch.zeros((), dtype=dtype, device=dev))
+    hi = torch.where(tangential, torch.full((), mu, dtype=dtype, device=dev),
+                     torch.full((), HI_INF, dtype=dtype, device=dev))
+    if eq is not None:
+        eq3 = eq.repeat_interleave(3, dim=1)
+        lo = torch.where(eq3, torch.full((), -HI_INF, dtype=dtype, device=dev), lo)
+        hi = torch.where(eq3, torch.full((), HI_INF, dtype=dtype, device=dev), hi)
+    lo = torch.nn.functional.pad(lo, (0, pad))
+    hi = torch.nn.functional.pad(hi, (0, pad))
+    return active, lo, hi
+
+
+def _check_packed_options(block: bool, pyramid_mu: float) -> None:
+    if block:
+        raise NotImplementedError(
+            "block-Jacobi on the fused chain is not ported yet (ROADMAP B6: block and pyramid)")
+    if pyramid_mu > 0.0:
+        raise NotImplementedError(
+            "Coulomb-pyramid bounds on the fused chain are not ported yet "
+            "(ROADMAP B6: block and pyramid)")
+
+
+def solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K: int, mu: float, iters: int,
+                                  omega: float, beta: float, block: bool = False,
+                                  pyramid_mu: float = 0.0):
+    """Plain torch version of the kernel.  A (B, mp, mp) with its diagonal
+    diag (B, mp), rhs (B, 3K), act (B, K) bool, eq None or (B, K) bool.
+    x0 = proj(b), then `iters` heavy-ball sweeps.  Returns x (B, mp)."""
+    _check_packed_options(block, pyramid_mu)
+    mp = A.shape[-1]
+    active, lo, hi = _packed_bounds(act, eq, K, mp, mu, A.dtype)
+    b = torch.nn.functional.pad(rhs, (0, mp - 3 * K))
+    not_eq = torch.zeros_like(active)
+
+    def proj(x):
+        return torch.where(active, lcp.project(x, not_eq, lo, hi), x)
+
+    inv_diag = 1.0 / diag
+    x = proj(b)
+    xp = x
+    for _ in range(iters):
+        r = b - torch.einsum("bij,bj->bi", A, x) + diag * x
+        x, xp = proj((1.0 - omega) * x + omega * r * inv_diag + beta * (x - xp)), x
+    return x
+
+
+def solve_lcp_jacobi_packed(A, diag, rhs, act, eq, K: int, mu: float, iters: int,
+                            omega: float, beta: float, block: bool = False,
+                            pyramid_mu: float = 0.0):
+    """x (B, mp) of the fused chain's LCP; see `solve_lcp_jacobi_packed_plain`
+    for the arguments.  `block=True` and `pyramid_mu > 0` raise."""
+    if A.device.type == "cpu":
+        return solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K, mu, iters, omega, beta,
+                                             block, pyramid_mu)
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    _check_packed_options(block, pyramid_mu)
+    from eggshell_tpu_torch import kernels
+
+    B, mp = diag.shape
+    dev = A.device
+    if mp != padded_rows(K):
+        raise ValueError(f"diag has {mp} rows, expected 3K = {3 * K} rounded up to {ROW_BLOCK}")
+    if _shared_bytes(mp) > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"K = {K} needs {_shared_bytes(mp)} bytes of shared memory per "
+            f"block, more than the {MAX_SHARED_BYTES} an H100 block has"
+        )
+    args = [("A", A, (B, mp, mp), torch.float32), ("diag", diag, (B, mp), torch.float32),
+            ("rhs", rhs, (B, 3 * K), torch.float32), ("act", act, (B, K), torch.bool)]
+    if eq is not None:
+        args.append(("eq", eq, (B, K), torch.bool))
+    for name, x, shape, dtype in args:
+        kernels.check_arg(name, x, shape, dtype, dev)
+    out = torch.empty((B, mp), dtype=torch.float32, device=dev)
+    kernels.launch("eggshell_jacobi_packed_f32", dev, A, diag, rhs, act, eq, out, B, K, mp,
+                   int(iters), float(mu), float(omega), float(beta))
+    solve_lcp_jacobi_packed.launches += 1
+    return out
+
+
+solve_lcp_jacobi_packed.launches = 0

@@ -91,7 +91,8 @@ def _candidates(spec: SceneSpec, states: State):
 def _compact(b0, b1, pos, nrm, dep, act, K: int) -> ContactSet:
     """Stable compaction: active candidate number o lands in lane o; the
     active candidates past K are dropped.  Idle lanes: b0 = b1 = -1, zero
-    geometry."""
+    geometry.  Every field is contiguous, as the fused chain's kernels
+    take them."""
     B, C = act.shape
     a = act.to(torch.int64)
     offs = torch.cumsum(a, dim=1) - a
@@ -101,7 +102,7 @@ def _compact(b0, b1, pos, nrm, dep, act, K: int) -> ContactSet:
         shape = (B, K + 1) + vals.shape[2:]
         buf = torch.full(shape, fill, dtype=vals.dtype, device=vals.device)
         idx = slot.reshape(B, C, *([1] * (vals.dim() - 2))).expand(vals.shape)
-        return buf.scatter(1, idx, vals)[:, :K]
+        return buf.scatter(1, idx, vals)[:, :K].contiguous()
 
     return ContactSet(
         b0=scatter(b0.expand(B, C), -1),

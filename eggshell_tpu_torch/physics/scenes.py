@@ -1,7 +1,9 @@
 """Canonical scenarios, counterpart of `eggshell_tpu.physics.scenes`.
 
 Each builder draws its numbers with numpy exactly as the JAX package's
-builder does, so the same arguments give the same arrays.
+builder does, so the same arguments give the same arrays.  The tensors go
+to the card unless the caller passes another `device`; without a CUDA
+device the default raises as torch does.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from eggshell_tpu_torch.physics.scene import make_scene
 
 def cairn(num_rocks: int = 4, x_bound=(-0.2, 0.2), y_bound=(-0.2, 0.2),
           z_bound=(1.0, 8.0), seed: int = 0, max_init_v: float = 1.0,
-          max_init_w: float = 1.0, *, device="cpu", dtype=torch.float64):
+          max_init_w: float = 1.0, *, device="cuda", dtype=torch.float64):
     """Random falling boxes with I = 0.1 I3."""
     rng = np.random.default_rng(seed)
     lo = np.array([x_bound[0], y_bound[0], z_bound[0]])
@@ -29,14 +31,14 @@ def cairn(num_rocks: int = 4, x_bound=(-0.2, 0.2), y_bound=(-0.2, 0.2),
                       inertias=inertia, ground=True, device=device, dtype=dtype)
 
 
-def box_drop(height: float = 0.5, *, device="cpu", dtype=torch.float64):
+def box_drop(height: float = 0.5, *, device="cuda", dtype=torch.float64):
     """One box above the ground plane."""
     return make_scene([[0.0, 0.0, height]], ground=True, device=device,
                       dtype=dtype)
 
 
 def box_stack(num_boxes: int = 8, jitter: float = 0.0, seed: int = 0, *,
-              device="cpu", dtype=torch.float64):
+              device="cuda", dtype=torch.float64):
     """A vertical stack of unit boxes of side 0.3 resting on the ground."""
     rng = np.random.default_rng(seed)
     side = 0.3

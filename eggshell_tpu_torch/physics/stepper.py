@@ -1,13 +1,19 @@
 """The ODE-style velocity stepper for a batch of scenarios.
 
-Counterpart of `eggshell_tpu.physics.stepper`.  Only the unfused
-`SolverKind.JACOBI_KERNEL` branch of `step_ode_batched` is ported: the
-branch the JAX package takes under the reference's conditional CFM policy
-(`conditional_cfm=True`) with BOX friction.  Per step: contacts (SAT
-narrowphase kernel), constraints, the system matrix with conditional CFM,
-the projected-Jacobi LCP kernel, and the midpoint integration.  Every
-configuration that the JAX package would send down another branch raises
-`NotImplementedError` naming the ROADMAP item that ports it.
+Counterpart of `eggshell_tpu.physics.stepper`.  Two branches of
+`step_ode_batched` with `SolverKind.JACOBI_KERNEL` and BOX friction are
+ported:
+
+- the fused chain (`conditional_cfm=False`, the bench configuration),
+  counterpart of `_fused_step_packed`: contacts (SAT narrowphase kernel),
+  then the body-prep, Jacobian-block, A-formation, packed-Jacobi and
+  integrate kernels on compact 3x12 blocks;
+- the unfused branch (`conditional_cfm=True`, the reference's CFM policy):
+  contacts, dense constraints, the system matrix with conditional CFM, the
+  projected-Jacobi LCP kernel and the midpoint integration.
+
+Every configuration that the JAX package would send down another branch
+raises `NotImplementedError` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -17,10 +23,14 @@ import math
 import torch
 
 from eggshell_tpu_torch.ops import quaternion as quat
-from eggshell_tpu_torch.ops.pgs_kernel import solve_lcp_jacobi
+from eggshell_tpu_torch.ops.amat_kernel import contact_system_matrix
+from eggshell_tpu_torch.ops.integrate_kernel import integrate_step
+from eggshell_tpu_torch.ops.jassembly_kernel import contact_jacobian_blocks
+from eggshell_tpu_torch.ops.pgs_kernel import solve_lcp_jacobi, solve_lcp_jacobi_packed
+from eggshell_tpu_torch.ops.prep_kernel import prep_bodies
 from eggshell_tpu_torch.physics import scene as scn
 from eggshell_tpu_torch.physics.constraints import ConstraintSystem, build_constraints
-from eggshell_tpu_torch.physics.contacts import make_contacts_batched
+from eggshell_tpu_torch.physics.contacts import effective_depth, make_contacts_batched
 from eggshell_tpu_torch.physics.scene import SceneSpec, State
 from eggshell_tpu_torch.utils.config import FrictionModel, SimConfig, SolverKind
 
@@ -105,6 +115,14 @@ def _post_solve(states: State, cfg: SimConfig, sys: ConstraintSystem, lam, u, Mi
     return State(p=p_new, v=u_new[..., :3], q=q_new, w=u_new[..., 3:])
 
 
+def _is_fused(cfg: SimConfig) -> bool:
+    """The JAX package's dispatch (`stepper.py:767-773`): the fused chain
+    for JACOBI_KERNEL with BOX or pyramid friction and always-on CFM."""
+    return (cfg.solver == SolverKind.JACOBI_KERNEL
+            and cfg.friction_model in (FrictionModel.BOX, FrictionModel.COULOMB_PYRAMID)
+            and not cfg.conditional_cfm)
+
+
 def check_supported(spec: SceneSpec, cfg: SimConfig) -> None:
     """Raise NotImplementedError for every configuration that the JAX
     package's `step_ode_batched` sends down a branch not ported yet."""
@@ -117,11 +135,13 @@ def check_supported(spec: SceneSpec, cfg: SimConfig) -> None:
     if cfg.solver != SolverKind.JACOBI_KERNEL:
         raise NotImplementedError(
             f"SolverKind.{cfg.solver.name} is not ported yet (ROADMAP A6: PGS, SOR and XLA Jacobi sweeps)")
-    if cfg.friction_model in (FrictionModel.BOX, FrictionModel.COULOMB_PYRAMID) \
-            and not cfg.conditional_cfm:
+    if _is_fused(cfg) and cfg.friction_model == FrictionModel.COULOMB_PYRAMID:
         raise NotImplementedError(
-            "conditional_cfm=False takes the fused kernel chain, not ported yet "
-            "(ROADMAP B: the fused chain B1, B3, B4, B5, B6, B7)")
+            "Coulomb-pyramid friction on the fused chain is not ported yet "
+            "(ROADMAP B6: block and pyramid)")
+    if _is_fused(cfg) and cfg.jacobi_block:
+        raise NotImplementedError(
+            "jacobi_block=True on the fused chain is not ported yet (ROADMAP B6: block and pyramid)")
     if cfg.friction_model != FrictionModel.BOX:
         raise NotImplementedError(
             f"{cfg.friction_model.name} friction is not ported yet "
@@ -134,7 +154,14 @@ def check_supported(spec: SceneSpec, cfg: SimConfig) -> None:
             "scenes with joints are not ported yet (ROADMAP A9: joints and broadphase scenes)")
 
 
-def _pre_solve(spec: SceneSpec, states: State, cfg: SimConfig):
+def _batched_ext(ext_forces, states: State):
+    """Control wrenches (n, 6) or (B, n, 6) as a contiguous (B, n, 6), or None."""
+    if ext_forces is None:
+        return None
+    return ext_forces.expand(states.p.shape[:2] + (6,)).contiguous()
+
+
+def _pre_solve(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None):
     """Everything up to the lambda solve: contacts, constraints, the rhs
     -erp/dt^2 err - J (u/dt + M^-1 F) and the system matrix."""
     dt = cfg.dt
@@ -143,16 +170,57 @@ def _pre_solve(spec: SceneSpec, states: State, cfg: SimConfig):
     u = scn.pack_velocity(states)                                   # (B, n, 6)
     Minv = scn.inv_mass_blocks(spec, states)
     F = scn.external_forces(spec, states, cfg.gravity)
+    if ext_forces is not None:
+        F = F + ext_forces
     MinvF = torch.einsum("bnij,bnj->bni", Minv, F)
     rhs = -cfg.erp / dt / dt * sys.err - torch.einsum("bmnk,bnk->bm", sys.J, u / dt + MinvF)
     A = system_matrix(spec, states, sys, cfg)
     return sys, A, rhs, u, Minv, F
 
 
-def step_ode_batched(spec: SceneSpec, states: State, cfg: SimConfig) -> State:
-    """One step of B scenarios of one scene; states (B, n, ...)."""
+def _run(name, fn, args):
+    return fn(*args)
+
+
+def _fused_step(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
+                call=_run) -> State:
+    """Counterpart of the JAX package's `_fused_step_packed`: contacts,
+    then B1 (body prep), B4 (Jacobian blocks), B5 (A = J M^-1 J^T with
+    cfm_always), B6 (packed heavy-ball Jacobi) and B7 (integrate) on the
+    compact (B, 3K, 12) blocks.  No dense Jacobian and no CFM check.
+
+    Each phase runs as `call(name, fn, args)`, by default fn(*args), with
+    name one of "contacts", "prep", "jassembly", "amat", "jacobi_packed",
+    "integrate": `chip_smoke.py` records each kernel's arguments through
+    it, and `profile_step` times each phase."""
+    states = State(*(x.contiguous() for x in states))
+    cs = call("contacts", make_contacts_batched, (spec, states, cfg))
+    K = cs.capacity
+    uhat, invIg, F = call("prep", prep_bodies, (
+        states.q, states.v, states.w, spec.inv_mass, spec.inertia_body, spec.inv_inertia_body,
+        cfg.dt, cfg.gravity, _batched_ext(ext_forces, states)))
+    Jc, rhs = call("jassembly", contact_jacobian_blocks, (
+        cs.b0, cs.b1, cs.position, cs.position, cs.normal, effective_depth(cs.depth, cfg),
+        cs.active, None, states.p, uhat, float(cfg.erp / cfg.dt / cfg.dt)))
+    A, diag = call("amat", contact_system_matrix, (
+        Jc, cs.b0, cs.b1, cs.active, spec.inv_mass, invIg, K, cfg.cfm_always))
+    lam = call("jacobi_packed", solve_lcp_jacobi_packed, (
+        A, diag, rhs, cs.active, None, K, cfg.friction_bound, cfg.solver_iters,
+        cfg.jacobi_omega, cfg.jacobi_beta))
+    p, q, v, w = call("integrate", integrate_step, (
+        Jc, lam, cs.b0, cs.b1, states.p, states.q, states.v, states.w, spec.inv_mass, invIg, F,
+        cfg.dt))
+    return State(p=p, v=v, q=q, w=w)
+
+
+def step_ode_batched(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None) -> State:
+    """One step of B scenarios of one scene; states (B, n, ...).
+    `ext_forces` (n, 6) or (B, n, 6) adds control wrenches [force; torque]
+    per body on top of gravity and the gyroscopic torque."""
     check_supported(spec, cfg)
-    sys, A, rhs, u, Minv, F = _pre_solve(spec, states, cfg)
+    if _is_fused(cfg):
+        return _fused_step(spec, states, cfg, ext_forces)
+    sys, A, rhs, u, Minv, F = _pre_solve(spec, states, cfg, _batched_ext(ext_forces, states))
     lam = solve_lcp_jacobi(
         A.contiguous(), rhs.contiguous(), sys.is_eq.contiguous(), sys.lo.contiguous(),
         sys.hi.contiguous(), iters=cfg.solver_iters, omega=cfg.jacobi_omega,

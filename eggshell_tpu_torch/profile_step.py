@@ -1,0 +1,110 @@
+"""Where the time of one batched step goes, on the card.
+
+    python -m eggshell_tpu_torch.profile_step
+
+On B = 4096 scenarios of `box_stack(4)` with the bench's jitter, float32:
+
+1. the fused step (bench configuration, bench.py:80-94) phase by phase,
+   host clock with a synchronise after each phase, the median over REPS
+   steps: contacts, prep, Jacobian blocks, A, packed Jacobi, integrate;
+2. one torch.profiler window of REPS steps for each branch (fused, and
+   the unfused conditional-CFM branch): device operations per step, device
+   time per step, host clock per step over the window, the device's busy
+   share, and the kernels that take the most device time;
+3. the host clock per step of REPS steps outside any profiler.
+
+Prints one line per result and a JSON line.  It needs a CUDA device; it
+never falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+import time
+
+import torch
+
+from eggshell_tpu_torch.physics import scenes
+from eggshell_tpu_torch.physics.scene import State
+from eggshell_tpu_torch.physics.stepper import _fused_step, step_ode_batched
+from eggshell_tpu_torch.utils.config import BENCH
+from eggshell_tpu_torch.utils.profiling import device_window
+
+B = 4096
+REPS = 10
+UNFUSED = BENCH.replace(conditional_cfm=True, cond_estimator="power")
+
+
+def jittered_stack(B: int, dev):
+    spec, st = scenes.box_stack(4, device=dev, dtype=torch.float32)
+    states = State(*[x.expand((B,) + x.shape).clone() for x in st])
+    jitter = torch.linspace(0, 1e-3, B, device=dev, dtype=torch.float32)
+    return spec, states._replace(p=states.p + jitter[:, None, None])
+
+
+def fused_phases(spec, st, cfg, reps: int) -> dict:
+    """Host ms per phase of the fused step, synchronised after each: the
+    median over `reps` steps, so that one stall of a shared host does not
+    stand for the phase."""
+    times: dict = {}
+
+    def timed(name, fn, args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    step_ode_batched(spec, st, cfg)             # warm-up
+    for _ in range(reps):
+        _fused_step(spec, st, cfg, call=timed)
+    return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def host_ms_per_step(spec, st, cfg, reps: int) -> float:
+    step_ode_batched(spec, st, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step_ode_batched(spec, st, cfg)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    spec, st = jittered_stack(B, dev)
+    result = {"B": B, "reps": REPS, "card": torch.cuda.get_device_name(0)}
+
+    phases = fused_phases(spec, st, BENCH, REPS)
+    total = sum(phases.values())
+    print(f"[phases fused] synchronised after each phase, medians summing to {total:.4f} ms "
+          f"a step:")
+    for name, ms in phases.items():
+        print(f"  {name}: {ms:.4f} ms ({100 * ms / total:.1f} %)")
+    result["phases_fused_ms"] = phases
+
+    for tag, cfg in (("fused", BENCH), ("unfused", UNFUSED)):
+        w = device_window(lambda: step_ode_batched(spec, st, cfg), REPS)
+        host = host_ms_per_step(spec, st, cfg, REPS)
+        top = sorted(w["by_name"].items(), key=lambda kv: -kv[1][0])[:12]
+        print(f"[profile {tag}] {w['launches']:.1f} device operations a step, device time "
+              f"{w['device_ms']:.4f} ms, host clock {w['wall_ms']:.4f} ms a step in the window "
+              f"(busy {100 * w['busy']:.1f} %); {host:.4f} ms a step unprofiled")
+        for name, (ms, n) in top:
+            print(f"  {ms:.4f} ms, {n:.1f} a step: {name[:110]}")
+        result[tag] = {k: w[k] for k in ("launches", "device_ms", "wall_ms", "busy")}
+        result[tag]["unprofiled_ms"] = host
+        result[tag]["top"] = [(name[:110], ms, n) for name, (ms, n) in top]
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

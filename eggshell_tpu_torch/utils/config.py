@@ -84,3 +84,10 @@ class SimConfig:
         d["solver"] = SolverKind(d["solver"])
         d["gravity"] = tuple(d["gravity"])
         return SimConfig(**d)
+
+
+# The bench configuration (bench.py:80-94), which takes the fused contact
+# chain: 16 heavy-ball Jacobi sweeps, always-on CFM, 20 contact lanes.
+BENCH = SimConfig(solver=SolverKind.JACOBI_KERNEL, solver_iters=16, solver_tol=0.0,
+                  jacobi_omega=0.3, jacobi_beta=0.45, conditional_cfm=False, cfm_always=0.01,
+                  contact_capacity=20)

@@ -6,21 +6,32 @@ skip without one.  Run them on a GPU machine with
     python -m pytest tests/test_torch_kernels.py -q -m cuda --noconftest -o addopts=""
 
 The kernels are float32; tolerances are those of float32 arithmetic
-summed in a different order (relative 1e-4 for the Jacobi solve, absolute
-1e-4 for narrowphase positions and depths of O(1) boxes).
+summed in a different order (relative 1e-4 for the Jacobi solves, absolute
+1e-4 for narrowphase positions and depths of O(1) boxes).  The fused
+chain's straight-line kernels (prep, Jacobian blocks, A, integrate) keep
+their plain versions' order of operations and are built with
+--fmad=false, so they are held to 1e-5 relative to the output's scale
+(sinf, cosf and the reduction order of A's sums differ by an ulp or so).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from eggshell_tpu_torch.ops.amat_kernel import contact_system_matrix, contact_system_matrix_plain
 from eggshell_tpu_torch.ops.collision import collide_boxes
 from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes
-from eggshell_tpu_torch.ops.pgs_kernel import solve_lcp_jacobi, solve_lcp_jacobi_plain
+from eggshell_tpu_torch.ops.integrate_kernel import integrate_step, integrate_step_plain
+from eggshell_tpu_torch.ops.jassembly_kernel import (contact_jacobian_blocks,
+                                                     contact_jacobian_blocks_plain)
+from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi, solve_lcp_jacobi_packed,
+                                               solve_lcp_jacobi_packed_plain,
+                                               solve_lcp_jacobi_plain)
+from eggshell_tpu_torch.ops.prep_kernel import prep_bodies, prep_bodies_plain
 from eggshell_tpu_torch.parallel.rollout import rollout_batched
 from eggshell_tpu_torch.physics import scenes
 from eggshell_tpu_torch.physics.scene import State
-from eggshell_tpu_torch.utils.config import SimConfig, SolverKind
+from eggshell_tpu_torch.utils.config import BENCH, SimConfig, SolverKind
 
 pytestmark = pytest.mark.cuda
 
@@ -88,6 +99,23 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     v = torch.zeros(2, 300, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         solve_lcp_jacobi(A, v, v > 0, v, v, 4, 0.3)
+    d = _fused_inputs(dev, B=8)
+    with pytest.raises(TypeError):
+        prep_bodies(d["q"].double(), d["v"], d["w"], d["inv_mass"], d["Ib"], d["invIb"], 1e-3,
+                    (0.0, 0.0, -9.8))
+    with pytest.raises(ValueError, match="contiguous"):
+        contact_jacobian_blocks(d["b0"], d["b1"], d["pos"], d["pos1"],
+                                d["nrm"].transpose(0, 1).contiguous().transpose(0, 1), d["dep"],
+                                d["act"], d["eq"], d["p"], torch.zeros(8, 4, 6, device=dev), 2e5)
+    Jc = torch.zeros(8, 60, 12, device=dev)
+    with pytest.raises(ValueError, match="fewer than"):
+        integrate_step(Jc, torch.zeros(8, 30, device=dev), d["b0"], d["b1"], d["p"], d["q"],
+                       d["v"], d["w"], d["inv_mass"], torch.zeros(8, 4, 3, 3, device=dev),
+                       torch.zeros(8, 4, 6, device=dev), 1e-3)
+    A64 = torch.eye(64, device=dev).expand(8, 64, 64).contiguous()
+    with pytest.raises(NotImplementedError, match="ROADMAP B6"):
+        solve_lcp_jacobi_packed(A64, torch.ones(8, 64, device=dev), torch.zeros(8, 60, device=dev),
+                                d["act"], None, 20, 1.0, 4, 0.3, 0.45, block=True)
 
 
 def test_slice_goes_through_both_kernels(dev):
@@ -100,4 +128,84 @@ def test_slice_goes_through_both_kernels(dev):
     out = rollout_batched(spec, states, cfg, 5)
     torch.cuda.synchronize()
     assert collide_boxes_lanes.launches - n0 == 5 and solve_lcp_jacobi.launches - j0 == 5
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+
+
+def _close(got, want, rel=1e-5):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = max(float(w.abs().max()), 1.0)
+        assert float((g - w).abs().max()) <= rel * scale
+
+
+def _fused_inputs(dev, B=256, K=20, n=4, seed=0):
+    """Random bodies and K lanes per scenario: normals +-z and generic,
+    ground, equality, inactive and idle lanes."""
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+    i = lambda x: torch.as_tensor(x, dtype=torch.int64, device=dev).contiguous()
+    q = rng.normal(size=(B, n, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    G = rng.normal(size=(n, 3, 3))
+    Ib = G @ G.transpose(0, 2, 1) + np.eye(3)
+    nrm = rng.normal(size=(B, K, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    nrm[:, 0::4] = [0.0, 0.0, 1.0]
+    nrm[:, 1::4] = [0.0, 0.0, -1.0]
+    b0 = rng.integers(-1, n, size=(B, K))
+    b1 = (np.maximum(b0, 0) + rng.integers(1, n, size=(B, K))) % n
+    act = rng.uniform(size=(B, K)) < 0.8
+    idle = rng.uniform(size=(B, K)) < 0.1
+    b0[idle] = b1[idle] = -1
+    act[idle] = False
+    pos = rng.normal(size=(B, K, 3))
+    return dict(
+        q=f(q), v=f(rng.normal(size=(B, n, 3))), w=f(rng.normal(size=(B, n, 3))),
+        p=f(rng.normal(size=(B, n, 3))), inv_mass=f(rng.uniform(0.5, 2, n)), Ib=f(Ib),
+        invIb=f(np.linalg.inv(Ib)), ext=f(rng.normal(size=(B, n, 6))),
+        b0=i(b0), b1=i(b1), pos=f(pos), pos1=f(pos + 0.05 * rng.normal(size=(B, K, 3))),
+        nrm=f(nrm), dep=f(rng.uniform(0, 0.01, (B, K))),
+        act=torch.as_tensor(act, device=dev), eq=torch.as_tensor(rng.uniform(size=(B, K)) < 0.1,
+                                                                  device=dev), K=K)
+
+
+def test_fused_chain_kernels_match_plain(dev):
+    d = _fused_inputs(dev)
+    K = d["K"]
+    before = [f.launches for f in (prep_bodies, contact_jacobian_blocks, contact_system_matrix,
+                                   solve_lcp_jacobi_packed, integrate_step)]
+    body = (d["q"], d["v"], d["w"], d["inv_mass"], d["Ib"], d["invIb"], 1e-3, (0.0, 0.0, -9.8),
+            d["ext"])
+    prep = prep_bodies(*body)
+    _close(prep, prep_bodies_plain(*body))
+    uhat, invIg, F = prep
+    lanes = (d["b0"], d["b1"], d["pos"], d["pos1"], d["nrm"], d["dep"], d["act"], d["eq"],
+             d["p"], uhat, 2e5)
+    blocks = contact_jacobian_blocks(*lanes)
+    _close(blocks, contact_jacobian_blocks_plain(*lanes))
+    Jc, rhs = blocks
+    amat = (Jc, d["b0"], d["b1"], d["act"], d["inv_mass"], invIg, K, 0.01)
+    A, diag = contact_system_matrix(*amat)
+    _close((A, diag), contact_system_matrix_plain(*amat))
+    lcp = (A, diag, rhs, d["act"], d["eq"], K, 1.0, 16, 0.3, 0.45)
+    lam = solve_lcp_jacobi_packed(*lcp)
+    _close((lam,), (solve_lcp_jacobi_packed_plain(*lcp),), rel=1e-4)
+    step = (Jc, lam, d["b0"], d["b1"], d["p"], d["q"], d["v"], d["w"], d["inv_mass"], invIg, F,
+            1e-3)
+    _close(integrate_step(*step), integrate_step_plain(*step))
+    torch.cuda.synchronize()
+    after = [f.launches for f in (prep_bodies, contact_jacobian_blocks, contact_system_matrix,
+                                  solve_lcp_jacobi_packed, integrate_step)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 1]
+
+
+def test_fused_slice_goes_through_the_fused_kernels(dev):
+    spec, st = scenes.box_stack(4, device=dev, dtype=torch.float32)
+    states = State(*[x.expand((64,) + x.shape).clone() for x in st])
+    wrappers = (collide_boxes_lanes, prep_bodies, contact_jacobian_blocks, contact_system_matrix,
+                solve_lcp_jacobi_packed, integrate_step, solve_lcp_jacobi)
+    before = [f.launches for f in wrappers]
+    out = rollout_batched(spec, states, BENCH, 5)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [5, 5, 5, 5, 5, 5, 0]
     assert all(bool(torch.isfinite(x).all()) for x in out)

@@ -131,7 +131,7 @@ def test_oracle_gate_f32():
 
 
 UNSUPPORTED = {
-    "fused_chain_box": dict(conditional_cfm=False, cfm_always=0.01),
+    "fused_chain_block": dict(conditional_cfm=False, jacobi_block=True),
     "fused_chain_pyramid": dict(conditional_cfm=False,
                                 friction_model=FrictionModel.COULOMB_PYRAMID),
     "pyramid_unfused": dict(friction_model=FrictionModel.COULOMB_PYRAMID),
