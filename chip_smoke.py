@@ -6,23 +6,32 @@
 Builds the CUDA kernels from `eggshell_tpu_torch/csrc/` and holds each one
 against its plain PyTorch version on the card, on seeded random inputs and
 on the inputs of its path's first step, with the bound printed beside the
-error.  Then it drives both ported paths through `rollout_batched` on
-B=4096 `box_stack(4)` scenarios with the bench's jitter:
+error, the device times of kernel and plain version, and the kernel's
+bound.  Then it drives the ported paths through `rollout_batched` at
+B=4096, H=50:
 
 - the fused chain under the bench configuration (bench.py:80-94,
-  `conditional_cfm=False`): narrowphase, prep, Jacobian blocks, A, packed
-  Jacobi and integrate kernels (phases `[oracle_fused]`, `[slice_fused]`);
+  `conditional_cfm=False`) on `box_stack(4)` with the bench's jitter: packed
+  narrowphase, compaction, prep, Jacobian blocks, A, packed Jacobi and
+  integrate kernels (phases `[oracle_fused]`, `[slice_fused]`);
 - the unfused conditional-CFM branch: narrowphase and Jacobi kernels
-  (phases `[oracle]`, `[slice]`).
+  (phases `[oracle]`, `[slice]`);
+- the four BASELINE scenes of bench.py:148-176 on the fused chain, with
+  their contact capacities and jitters (phases `[scene_box_drop]`,
+  `[scene_pendulum_chain6]`, `[scene_box_stack8]`, `[scene_living_room]`):
+  the ground-only compaction where a scene has no pairs, the streamed
+  Jacobi where the solve has 72 rows or more.
 
 Each path's oracle gate holds the unjittered stack to the DIRECT/f64
 trajectory in tests/data/oracle_stack4_f64.npz (bound 1e-3 at every stored
-checkpoint).  Each slice sets every launch counter to 0 just before its
-timed run and checks just after that each kernel of its path launched
-once per step and no other kernel launched.  Any failed phase exits
-nonzero.  The last three lines of standard output are the card's name and
-power limit, one JSON line of per-kernel results, and one JSON line with
-"ok".
+checkpoint).  Each rollout phase sets every launch counter to 0 just before
+its timed run and checks just after that each kernel of its path launched
+once per step and no other kernel launched, and checks one physical
+property with a stated bound.  Each scene phase also holds 8 of its
+scenarios, 30 steps on the card in float32, against the port's plain path
+on the CPU in float64.  Any failed phase exits nonzero.  The last three
+lines of standard output are the card's name and power limit, one JSON line
+of per-kernel results, and one JSON line with "ok".
 
 It needs a CUDA device and imports neither JAX nor the JAX package.
 """
@@ -136,18 +145,6 @@ def bound(nbytes: int, flops: float) -> dict:
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
-
-
-def slice_states(B: int, dev):
-    """box_stack(4) broadcast to B scenarios with the bench's jitter: every
-    coordinate of scenario b shifted by b * 1e-3 / (B - 1)."""
-    from eggshell_tpu_torch.physics import scenes
-    from eggshell_tpu_torch.physics.scene import State
-
-    spec, st = scenes.box_stack(4, device=dev, dtype=torch.float32)
-    states = State(*[x.expand((B,) + x.shape).clone() for x in st])
-    jitter = torch.linspace(0, 1e-3, B, device=dev, dtype=torch.float32)
-    return spec, states._replace(p=states.p + jitter[:, None, None])
 
 
 def _rotations(rng, n):
@@ -269,28 +266,32 @@ def phase_jacobi(dev, main_lcp):
 
 def main_path_inputs(dev):
     """The slice-1 kernels' inputs at the first step of the unfused slice."""
-    from eggshell_tpu_torch.physics import contacts, stepper
+    from eggshell_tpu_torch.ops.collision_kernel import gather_pairs
+    from eggshell_tpu_torch.physics import scenes, stepper
 
-    spec, states = slice_states(B_SLICE, dev)
-    nargs = contacts.pair_inputs(spec, states, states.R())
+    spec, states, _ = scenes.baseline_batch("box_stack4", B_SLICE, device=dev)
+    nargs = gather_pairs(states.p, states.R(), spec.half_extents, spec.pair_i, spec.pair_j)
     sys_, A, rhs, _, _, _ = stepper._pre_solve(spec, states, slice_cfg())
     lcp = tuple(x.contiguous() for x in (A, rhs, sys_.is_eq, sys_.lo, sys_.hi))
     return nargs, lcp
 
 
-def fused_inputs(dev):
-    """Each fused-chain kernel's arguments at the first step of the fused
-    slice, recorded from one call of the stepper's `_fused_step`."""
+def fused_inputs(dev, name="box_stack4"):
+    """Each fused-chain kernel's arguments at the first step of B_SLICE
+    scenarios of the BASELINE scene `name` (bench configuration, the
+    scene's capacity and jitter), recorded from one call of the stepper's
+    `_fused_step`, keyed by phase name."""
+    from eggshell_tpu_torch.physics import scenes
     from eggshell_tpu_torch.physics.stepper import _fused_step
 
     args = {}
 
-    def record(name, fn, a):
-        args[name] = a
+    def record(phase, fn, a):
+        args[phase] = a
         return fn(*a)
 
-    spec, st = slice_states(B_SLICE, dev)
-    _fused_step(spec, st, bench_cfg(), call=record)
+    spec, st, cfg = scenes.baseline_batch(name, B_SLICE, device=dev)
+    _fused_step(spec, st, cfg, call=record)
     torch.cuda.synchronize()
     return args
 
@@ -420,6 +421,245 @@ def phase_fused_kernel(name, cases):
     return {"max_abs_err": err_abs, **t, **b}
 
 
+def _pair_list(n):
+    i, j = np.triu_indices(n, 1)
+    return i.astype(np.int64), j.astype(np.int64)
+
+
+def random_bodies(rng, B, n, xy=(-0.4, 0.4), z=(-0.4, 0.4)):
+    """Seeded random poses of n boxes in B scenarios, float64 numpy: p with
+    x and y in `xy`, z in `z`, unit q, half extents (n, 3) in [0.1, 0.3]."""
+    p = rng.uniform(*xy, (B, n, 3))
+    p[..., 2] = rng.uniform(*z, (B, n))
+    q = rng.normal(size=(B, n, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    return p, q, rng.uniform(0.1, 0.3, (n, 3))
+
+
+def packed_pair_agreement(what, got, want):
+    """Hold the packed narrowphase's lanes against the plain version's.
+    The contact normal must agree within 1e-4 on at least 99 % of the
+    pairs, and the activity flags on at least 99 % of those pairs' lanes:
+    exactly tied SAT axes and clip vertices on a clip plane are decided by
+    rounding, as in `[narrowphase]` (there is no contact code to compare
+    here).  On pairs whose normal and 12 flags all agree, positions and
+    depths of the active lanes within 1e-4."""
+    pos, nrm, dep, act = got
+    wpos, wnrm, wdep, wact = want
+    normal_ok = (nrm - wnrm).abs().amax(-1) <= 1e-4
+    frac_n = float(normal_ok.float().mean())
+    frac_l = float((act == wact)[normal_ok].float().mean())
+    full = normal_ok & (act == wact).all(-1)
+    lanes = act & full[..., None]
+    err_pos = float((pos - wpos).abs().amax(-1)[lanes].max()) if bool(lanes.any()) else 0.0
+    err_dep = float((dep - wdep).abs()[lanes].max()) if bool(lanes.any()) else 0.0
+    err = max(err_pos, err_dep)
+    print(f"[narrowphase_packed] {what}: normal agreement {frac_n:.6f}, flag agreement "
+          f"{frac_l:.6f}, all 12 flags and the normal on {float(full.float().mean()):.6f} of "
+          f"the pairs, {int(act.sum())} active lanes; there max |dpos| {err_pos:.3e}, "
+          f"|ddepth| {err_dep:.3e} (bound 1e-4)")
+    check(frac_n >= 0.99, f"narrowphase_packed normal agreement {frac_n} on {what}")
+    check(frac_l >= 0.99, f"narrowphase_packed flag agreement {frac_l} on {what}")
+    check(err <= 1e-4, f"narrowphase_packed max abs error {err} on {what}")
+    check(all(bool(torch.isfinite(x).all()) for x in (pos, nrm, dep)),
+          f"narrowphase_packed output not finite on {what}")
+    return err
+
+
+def phase_narrowphase_packed(dev, firsts):
+    """B2p: seeded random bodies (8 boxes in [-1, 1]^3, half extents 0.05
+    to 0.6, all 28 pairs, B=4096) and the first-step inputs of each path
+    with pairs; on each, the kernel against its plain version, and against
+    the lanes entry (B2) on the same gathered pairs, which runs the same
+    device function and must agree bit for bit."""
+    from eggshell_tpu_torch.ops.collision_kernel import (collide_boxes_lanes,
+                                                        collide_boxes_lanes_packed,
+                                                        collide_boxes_lanes_packed_plain,
+                                                        gather_pairs)
+    from eggshell_tpu_torch.ops.quaternion import quat_to_mat
+
+    rng = np.random.default_rng(SEED + 2)
+    p, q, _ = random_bodies(rng, 4096, 8, xy=(-1.0, 1.0), z=(-1.0, 1.0))
+    hs = rng.uniform(0.05, 0.6, (8, 3))
+    pi, pj = _pair_list(8)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+    i = lambda x: torch.as_tensor(x, dtype=torch.int64, device=dev).contiguous()
+    cases = [("seeded random, B=4096, 8 boxes, 28 pairs", (f(p), f(q), f(hs), i(pi), i(pj)))]
+    cases += [(f"first-step inputs of {tag}", a) for tag, a in firsts]
+    err = 0.0
+    for what, args in cases:
+        got = collide_boxes_lanes_packed(*args)
+        err = max(err, packed_pair_agreement(what, got, collide_boxes_lanes_packed_plain(*args)))
+        pp, qq, hh, ii, jj = args
+        B, P = pp.shape[0], ii.shape[0]
+        lanes = collide_boxes_lanes(*gather_pairs(pp, quat_to_mat(qq), hh, ii, jj))
+        same = (torch.equal(got[0], lanes.position.reshape(B, P, 12, 3))
+                and torch.equal(got[1], lanes.normal[:, 0].reshape(B, P, 3))
+                and torch.equal(got[2], lanes.depth.reshape(B, P, 12))
+                and torch.equal(got[3], lanes.active.reshape(B, P, 12)))
+        print(f"[narrowphase_packed] {what}: bit for bit the lanes entry's on the gathered "
+              f"pairs: {same}")
+        check(same, f"narrowphase_packed differs from the lanes entry on {what}")
+    main_args = cases[1][1]
+    t = timings("narrowphase_packed_kernel", lambda: collide_boxes_lanes_packed(*main_args),
+                lambda: collide_boxes_lanes_packed_plain(*main_args))
+    pairs = main_args[0].shape[0] * main_args[3].shape[0]
+    # the SAT of csrc/narrowphase.cu, about 2,000 flops a pair, and R from q
+    b = bound(moved_bytes(main_args, collide_boxes_lanes_packed(*main_args)), 2060.0 * pairs)
+    print(f"[narrowphase_packed] main-path shapes ({pairs} pairs): {timing_text(t)}, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes)")
+    return {"max_abs_err": err, **t, **b}
+
+
+def random_compact_cases(dev, B=4096, n=4):
+    """Seeded random inputs of B3 at the bench widths (n=4 bodies, 6 pairs):
+    more active candidates than K; clusters of near-coincident lanes of one
+    pair with min_constraint_distance raised to 0.05, so the dedupe drops
+    lanes; a finite depth cap; and the ground-only variant (K=8).  One body
+    has ground contacts disabled."""
+    rng = np.random.default_rng(SEED + 3)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+    i = lambda x: torch.as_tensor(x, dtype=torch.int64, device=dev).contiguous()
+    p, q, hs = random_bodies(rng, B, n, z=(0.0, 0.3))
+    gen = torch.tensor([True, True, False, True], device=dev)
+    pi, pj = _pair_list(n)
+    P = len(pi)
+    nrm = rng.normal(size=(B, P, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    body = (f(p), f(q), f(hs), gen)
+    ids = (i(pi), i(pj))
+
+    def lanes(pos, dep, act):
+        return (f(pos), f(nrm), f(dep), torch.as_tensor(act, device=dev))
+
+    spread = rng.normal(size=(B, P, 12, 3))
+    clustered = rng.normal(size=(B, P, 1, 3)) + 0.01 * spread
+    dep = rng.uniform(0.0, 0.01, (B, P, 12))
+    return [
+        ("seeded random, overflow (K=20)",
+         (*body, lanes(spread, dep, rng.uniform(size=(B, P, 12)) < 0.5), *ids, 20, 1e-12, None)),
+        ("seeded random, dedupe (K=32, min distance 0.05)",
+         (*body, lanes(clustered, dep, rng.uniform(size=(B, P, 12)) < 0.4), *ids, 32, 0.05 ** 2,
+          None)),
+        ("seeded random, depth cap 0.005 (K=20)",
+         (*body, lanes(spread, dep, rng.uniform(size=(B, P, 12)) < 0.3), *ids, 20, 1e-12, 0.005)),
+        ("seeded random, ground only (K=8)", (*body, None, *ids, 8, 1e-12, None)),
+    ]
+
+
+def compare_lanes(tag, what, got, want) -> float:
+    """B3's ids and active flags must be identical to the plain version's,
+    and its positions, normals and depths within 1e-6."""
+    same = all(torch.equal(getattr(got, k), getattr(want, k)) for k in ("b0", "b1", "active"))
+    err = max(float((getattr(got, k) - getattr(want, k)).abs().max())
+              for k in ("position", "normal", "depth"))
+    filled = int((want.b1 != -1).sum())          # b1 is -1 on never-filled lanes only
+    print(f"[{tag}] {what}: ids and active identical {same}; {int(want.active.sum())} active "
+          f"lanes ({filled} filled); max |d| geometry {err:.3e} (bound 1e-6)")
+    check(same, f"{tag} ids or active flags differ on {what}")
+    check(err <= 1e-6, f"{tag} geometry error {err} on {what}")
+    return err
+
+
+def compact_bytes(args, cs) -> int:
+    """Bytes B3 must move on these inputs: the bodies' state, every output,
+    the activity flag of each pair candidate scanned before K lanes are
+    filled, and the 28 bytes of position, normal and depth of each pair
+    candidate that lands in a lane."""
+    from eggshell_tpu_torch.physics import contacts
+
+    p, q, hs, gen, pair, pi, pj, K = args[:8]
+    nb = moved_bytes((p, q, hs, gen), tuple(cs))
+    if pair is None:
+        return nb
+    B, n = p.shape[:2]
+    act = torch.cat([contacts.ground_candidates(p, q, hs, gen)[5],
+                     pair[3].reshape(B, -1)], 1).to(torch.int32)
+    full = torch.cumsum(act, 1) >= K
+    scanned = torch.where(full.any(1), full.to(torch.int32).argmax(1) + 1,
+                          torch.full_like(full[:, 0], act.shape[1], dtype=torch.int64))
+    flags = int((scanned - 8 * n).clamp(min=0).sum())
+    return nb + flags + int((cs.b0 >= 0).sum()) * 28 + pi.nbytes + pj.nbytes
+
+
+def phase_compact(dev, firsts):
+    """B3 and its ground-only variant B3g against their plain version."""
+    from eggshell_tpu_torch.ops.compact_kernel import compact_contacts, compact_contacts_plain
+
+    res = {}
+    cases = random_compact_cases(dev) + [(f"first-step inputs of {tag}", a) for tag, a in firsts]
+    errs = {"compact": 0.0, "compact_ground": 0.0}
+    for what, args in cases:
+        name = "compact" if args[4] is not None else "compact_ground"
+        errs[name] = max(errs[name], compare_lanes(name, what, compact_contacts(*args),
+                                                   compact_contacts_plain(*args)))
+    mains = {"compact": ("compact_kernel", firsts[0]), "compact_ground": ("compact_ground_kernel",
+                                                                           firsts[-1])}
+    for name, (kname, (tag, args)) in mains.items():
+        t = timings(kname, lambda: compact_contacts(*args), lambda: compact_contacts_plain(*args))
+        B, n = args[0].shape[:2]
+        K = args[7]
+        P = 0 if args[4] is None else args[5].shape[0]
+        b = bound(compact_bytes(args, compact_contacts(*args)),
+                  B * (40.0 * 8 * n + 5.0 * K * K + 2.0 * 12 * P))
+        print(f"[{name}] inputs of {tag}: {timing_text(t)}, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}: {b['bytes']} bytes)")
+        res[name] = {"max_abs_err": errs[name], **t, **b}
+    return res
+
+
+def random_lcp(dev, B, K, seed):
+    """A seeded SPD system with the A kernel's padding at K lanes: rhs,
+    active (80 %) and equality (10 %) lanes."""
+    from eggshell_tpu_torch.ops.amat_kernel import padded_rows
+
+    rng = np.random.default_rng(seed)
+    mp = padded_rows(K)
+    Gm = torch.as_tensor(rng.normal(size=(B, mp, 24)), dtype=torch.float32, device=dev)
+    A = (Gm @ Gm.transpose(-1, -2) / 24 + torch.eye(mp, device=dev)).contiguous()
+    diag = torch.diagonal(A, dim1=-2, dim2=-1).contiguous()
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+    act = torch.as_tensor(rng.uniform(size=(B, K)) < 0.8, device=dev)
+    eq = torch.as_tensor(rng.uniform(size=(B, K)) < 0.1, device=dev)
+    return (A, diag, f(rng.normal(size=(B, 3 * K))), act, eq, K, 1.0, 16, 0.3, 0.45)
+
+
+def phase_jacobi_packed_stream(dev, firsts):
+    """B6b against its plain version on a seeded SPD system at K=32
+    (mp=96) and on the first-step inputs of the streamed paths (relative
+    bound 1e-4, as B6); then B6b and the resident B6 (`stream=False`) timed
+    on box_stack8's first-step inputs."""
+    from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi_packed,
+                                                   solve_lcp_jacobi_packed_plain,
+                                                   solve_lcp_jacobi_packed_stream)
+
+    cases = [("seeded random SPD (4096, 96, 96)", random_lcp(dev, 4096, 32, SEED + 4))]
+    cases += [(f"first-step inputs of {tag}", a) for tag, a in firsts]
+    err = 0.0
+    for what, args in cases:
+        got = solve_lcp_jacobi_packed_stream(*args)
+        want = solve_lcp_jacobi_packed_plain(*args)
+        resident = solve_lcp_jacobi_packed(*args, stream=False)
+        e = float((got - want).abs().max())
+        rel = e / max(1.0, float(want.abs().max()))
+        err = max(err, e)
+        print(f"[jacobi_packed_stream] {what}: max |dx| {e:.3e}, relative to scale {rel:.3e} "
+              f"(bound 1e-4); bit for bit the resident kernel's: {torch.equal(got, resident)}")
+        check(bool(torch.isfinite(got).all()), f"jacobi_packed_stream output not finite on {what}")
+        check(rel <= 1e-4, f"jacobi_packed_stream relative error {rel} on {what}")
+    tag, main_args = firsts[0]
+    t = timings("jacobi_packed_stream_kernel", lambda: solve_lcp_jacobi_packed_stream(*main_args),
+                lambda: solve_lcp_jacobi_packed_plain(*main_args))
+    tr = timings("jacobi_packed_kernel", lambda: solve_lcp_jacobi_packed(*main_args, stream=False),
+                 lambda: solve_lcp_jacobi_packed_plain(*main_args))
+    b = bound(moved_bytes(main_args, solve_lcp_jacobi_packed_stream(*main_args)),
+              _fused_flops("jacobi_packed", main_args))
+    print(f"[jacobi_packed_stream] inputs of {tag}, A {tuple(main_args[0].shape)}: "
+          f"{timing_text(t)}; resident B6 on the same inputs {tr['ms']:.4f} ms; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes, {b['flops']:.4g} flops)")
+    return {"max_abs_err": err, **t, **b, "resident_ms": tr["ms"]}
+
+
 def phase_oracle(dev, cfg, tag):
     from eggshell_tpu_torch.parallel.rollout import rollout_batched
     from eggshell_tpu_torch.physics import scenes
@@ -441,21 +681,69 @@ def phase_oracle(dev, cfg, tag):
 
 
 def launch_counters():
-    from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes
-    from eggshell_tpu_torch.ops.pgs_kernel import solve_lcp_jacobi
+    from eggshell_tpu_torch.ops.collision_kernel import (collide_boxes_lanes,
+                                                        collide_boxes_lanes_packed)
+    from eggshell_tpu_torch.ops.compact_kernel import compact_contacts
+    from eggshell_tpu_torch.ops.pgs_kernel import solve_lcp_jacobi, solve_lcp_jacobi_packed_stream
 
-    out = {"narrowphase": collide_boxes_lanes, "jacobi": solve_lcp_jacobi}
+    out = {"narrowphase": collide_boxes_lanes, "narrowphase_packed": collide_boxes_lanes_packed,
+           "compact": compact_contacts, "jacobi": solve_lcp_jacobi,
+           "jacobi_packed_stream": solve_lcp_jacobi_packed_stream}
     out.update({name: fused_wrapper(name)[0] for name in FUSED_KERNELS})
     return out
 
 
-def phase_slice(dev, cfg, tag, path):
-    """Roll B_SLICE scenarios H_SLICE steps once to warm up, then once
-    timed with every launch counter set to 0 just before; the kernels of
-    `path` must each have launched once a step and no other kernel at all."""
-    from eggshell_tpu_torch.parallel.rollout import rollout_batched
+def lowest_corners(spec, st):
+    """z of each box's lowest corner, (B, n)."""
+    from eggshell_tpu_torch.ops.quaternion import quat_to_mat
 
-    spec, states = slice_states(B_SLICE, dev)
+    R = quat_to_mat(st.q)
+    return st.p[..., 2] - (R[..., 2, :].abs() * spec.half_extents).sum(-1)
+
+
+def stands(spec, start, final):
+    """Every box of the stack within 1 cm of its start."""
+    moved = float((final.p - start.p).abs().max())
+    check(moved < 1e-2, f"a box of the stack moved {moved} m")
+    return f"largest move {moved:.3e} m (bound 1e-2)"
+
+
+def rests(spec, start, final):
+    """The dropped box rests: its bottom within 1 mm of the ground, |v| below 1 mm/s."""
+    gap = float(lowest_corners(spec, final).abs().max())
+    speed = float(final.v.abs().max())
+    check(gap < 1e-3 and speed < 1e-3, f"box does not rest: gap {gap} m, |v| {speed} m/s")
+    return f"bottom {gap:.3e} m from the ground (bound 1e-3), max |v| {speed:.3e} m/s (bound 1e-3)"
+
+
+def joints_hold(spec, start, final):
+    """Every ball joint's two anchors within 1 mm of each other."""
+    from eggshell_tpu_torch.physics.stepper import _joint_anchors
+
+    a0, a1 = _joint_anchors(spec, final)
+    sep = float((a0 - a1).norm(dim=-1).max())
+    check(sep < 1e-3, f"joint separation {sep} m")
+    return f"max joint separation {sep:.3e} m (bound 1e-3)"
+
+
+def above_floor(spec, start, final):
+    """The free bodies' lowest corners no more than 1 cm below the floor."""
+    low = float(lowest_corners(spec, final)[:, spec.inv_mass > 0].min())
+    check(low > -1e-2, f"a free body sank to {low} m")
+    return f"lowest corner of a free body at {low:.3e} m (bound -1e-2)"
+
+
+def phase_rollout(dev, tag, scene, path, physical, cfg=None):
+    """Roll B_SLICE scenarios of the BASELINE scene `scene` H_SLICE steps
+    once to warm up, then once timed with every launch counter set to 0
+    just before; the kernels of `path` must each have launched once a step
+    and no other kernel at all.  `cfg` replaces the scene's bench
+    configuration; `physical(spec, start, final)` checks the outcome."""
+    from eggshell_tpu_torch.parallel.rollout import rollout_batched
+    from eggshell_tpu_torch.physics import scenes
+
+    spec, states, scene_cfg = scenes.baseline_batch(scene, B_SLICE, device=dev)
+    cfg = scene_cfg if cfg is None else cfg
     warm = rollout_batched(spec, states, cfg, H_SLICE)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(warm.p).all()), f"{tag} warm-up rollout not finite")
@@ -471,22 +759,65 @@ def phase_slice(dev, cfg, tag, path):
 
     finite = all(bool(torch.isfinite(x).all()) for x in final)
     shapes = [tuple(x.shape) for x in final]
-    print(f"[{tag}] B={B_SLICE} H={H_SLICE}: {dt:.4f} s, {B_SLICE / dt:.1f} rollouts/s, "
-          f"{B_SLICE * H_SLICE / dt:.1f} steps/s; launches {launches}; finite {finite}; "
-          f"shapes {shapes}")
+    n = spec.num_bodies
+    print(f"[{tag}] {scene} B={B_SLICE} H={H_SLICE} K={cfg.contact_capacity}: {dt:.4f} s, "
+          f"{B_SLICE / dt:.1f} rollouts/s, {B_SLICE * H_SLICE / dt:.1f} steps/s; launches "
+          f"{launches}; finite {finite}; shapes {shapes}")
     check(finite, f"{tag} output not finite")
-    check(shapes == [(B_SLICE, 4, 3), (B_SLICE, 4, 3), (B_SLICE, 4, 4), (B_SLICE, 4, 3)],
+    check(shapes == [(B_SLICE, n, 3), (B_SLICE, n, 3), (B_SLICE, n, 4), (B_SLICE, n, 3)],
           f"{tag} output shapes {shapes}")
     want = {name: H_SLICE if name in path else 0 for name in counters}
     check(launches == want, f"{tag} kernel launches {launches}, expected {want}")
-    # the stack stays standing: top box within 1 cm of its start height
-    top = final.p[:, 3, 2] - states.p[:, 3, 2]
-    check(bool(top.abs().max() < 1e-2), f"{tag}: top box moved {float(top.abs().max())} m")
+    print(f"[{tag}] {physical.__doc__.strip()} {physical(spec, states, final)}")
     return launches, B_SLICE / dt
 
 
-FUSED_PATH = ("narrowphase", "prep", "jassembly", "amat", "jacobi_packed", "integrate")
+AGREE_STEPS = 30
+AGREE_BOUND = 2e-3
+
+
+def phase_agreement(dev, tag, scene):
+    """8 of the scene's B_SLICE scenarios, spread over the batch, rolled
+    AGREE_STEPS steps on the card in float32 and by the plain path on the
+    CPU in float64 from the same start: positions and quaternions within
+    AGREE_BOUND.  Velocities are printed beside their scale: under 16
+    Jacobi sweeps the 8-box stack's contact impulses amplify rounding, and
+    its velocities differ between float32 and float64 by up to their own
+    size while positions stay within 1 mm."""
+    from eggshell_tpu_torch.parallel.rollout import rollout_batched
+    from eggshell_tpu_torch.physics import scenes
+    from eggshell_tpu_torch.physics.scene import State
+
+    spec, states, cfg = scenes.baseline_batch(scene, B_SLICE, device=dev)
+    idx = torch.linspace(0, B_SLICE - 1, 8, device=dev).round().long()
+    start = State(*[x[idx].contiguous() for x in states])
+    got = rollout_batched(spec, start, cfg, AGREE_STEPS)
+    spec64, _ = scenes.BASELINE[scene][0](device="cpu", dtype=torch.float64)
+    want = rollout_batched(spec64, State(*[x.double().cpu() for x in start]), cfg, AGREE_STEPS)
+    err = {k: float((getattr(got, k).double().cpu() - getattr(want, k)).abs().max()) for k in "pqvw"}
+    scale = {k: float(getattr(want, k).abs().max()) for k in "vw"}
+    print(f"[{tag}] card f32 against CPU f64 plain path, 8 scenarios, {AGREE_STEPS} steps: "
+          f"max |dp| {err['p']:.3e}, |dq| {err['q']:.3e} (bound {AGREE_BOUND:.0e}); |dv| "
+          f"{err['v']:.3e} of |v| up to {scale['v']:.3e}, |dw| {err['w']:.3e} of |w| up to "
+          f"{scale['w']:.3e}")
+    check(err["p"] <= AGREE_BOUND and err["q"] <= AGREE_BOUND,
+          f"{tag} disagrees with the plain path: {err}")
+    return err
+
+
+FUSED_PATH = ("narrowphase_packed", "compact", "prep", "jassembly", "amat", "jacobi_packed",
+              "integrate")
 UNFUSED_PATH = ("narrowphase", "jacobi")
+SCENES = {
+    # scene: (kernels of its path, physical check)
+    "box_drop": (("compact", "prep", "jassembly", "amat", "jacobi_packed", "integrate"), rests),
+    "pendulum_chain6": (("compact", "prep", "jassembly", "amat", "jacobi_packed", "integrate"),
+                        joints_hold),
+    "box_stack8": (("narrowphase_packed", "compact", "prep", "jassembly", "amat",
+                    "jacobi_packed_stream", "integrate"), stands),
+    "living_room": (("narrowphase_packed", "compact", "prep", "jassembly", "amat",
+                     "jacobi_packed_stream", "integrate"), above_floor),
+}
 
 
 def main() -> int:
@@ -505,20 +836,50 @@ def main() -> int:
 
     nargs, lcp = main_path_inputs(dev)
     res = {"narrowphase": phase_narrowphase(dev, nargs), "jacobi": phase_jacobi(dev, lcp)}
-    first, rand = fused_inputs(dev), random_fused_inputs(dev)
+    first = {name: fused_inputs(dev, name) for name in ("box_stack4", *SCENES)}
+    rand = random_fused_inputs(dev)
     for name in FUSED_KERNELS:
-        res[name] = phase_fused_kernel(name, [("seeded random inputs", rand[name]),
-                                              ("first-step inputs of [slice_fused]", first[name])])
+        res[name] = phase_fused_kernel(name, [
+            ("seeded random inputs", rand[name]),
+            ("first-step inputs of [slice_fused]", first["box_stack4"][name])])
+    res["narrowphase_packed"] = phase_narrowphase_packed(dev, [
+        (f"[{tag}]", first[name]["narrowphase"])
+        for tag, name in (("slice_fused", "box_stack4"), ("scene_box_stack8", "box_stack8"),
+                          ("scene_living_room", "living_room"))])
+    res.update(phase_compact(dev, [
+        (f"[{tag}]", first[name]["compact"])
+        for tag, name in (("slice_fused", "box_stack4"), ("scene_box_stack8", "box_stack8"),
+                          ("scene_living_room", "living_room"), ("scene_box_drop", "box_drop"))]))
+    res["jacobi_packed_stream"] = phase_jacobi_packed_stream(dev, [
+        (f"[{tag}]", first[name]["jacobi_packed_stream"])
+        for tag, name in (("scene_box_stack8", "box_stack8"),
+                          ("scene_living_room", "living_room"))])
 
     phase_oracle(dev, bench_cfg(), "oracle_fused")
-    fused_launches, _ = phase_slice(dev, bench_cfg(), "slice_fused", FUSED_PATH)
+    fused_launches, _ = phase_rollout(dev, "slice_fused", "box_stack4", FUSED_PATH, stands)
     phase_oracle(dev, slice_cfg(), "oracle")
-    unfused_launches, _ = phase_slice(dev, slice_cfg(), "slice", UNFUSED_PATH)
+    unfused_launches, _ = phase_rollout(dev, "slice", "box_stack4", UNFUSED_PATH, stands,
+                                        cfg=slice_cfg())
+    scene_launches = {}
+    for scene, (path, physical) in SCENES.items():
+        scene_launches[scene], _ = phase_rollout(dev, f"scene_{scene}", scene, path, physical)
+        phase_agreement(dev, f"scene_{scene}", scene)
 
     rows = [("narrowphase", "eggshell_tpu_torch/csrc/narrowphase.cu",
-             "eggshell_tpu/ops/collision_kernel.py:58", "fused", fused_launches["narrowphase"]),
+             "eggshell_tpu/ops/collision_kernel.py:58", "unfused", unfused_launches["narrowphase"]),
+            ("narrowphase_packed", "eggshell_tpu_torch/csrc/narrowphase.cu",
+             "eggshell_tpu/ops/collision_kernel.py:444", "fused",
+             fused_launches["narrowphase_packed"]),
+            ("compact", "eggshell_tpu_torch/csrc/compact.cu",
+             "eggshell_tpu/ops/compact_kernel.py:259", "fused", fused_launches["compact"]),
+            ("compact_ground", "eggshell_tpu_torch/csrc/compact.cu",
+             "eggshell_tpu/ops/compact_kernel.py:306", "scene_box_drop",
+             scene_launches["box_drop"]["compact"]),
             ("jacobi", "eggshell_tpu_torch/csrc/jacobi.cu", "eggshell_tpu/ops/pgs_kernel.py:47",
-             "unfused", unfused_launches["jacobi"])]
+             "unfused", unfused_launches["jacobi"]),
+            ("jacobi_packed_stream", "eggshell_tpu_torch/csrc/jacobi_packed_stream.cu",
+             "eggshell_tpu/ops/pgs_kernel.py:355", "scene_box_stack8",
+             scene_launches["box_stack8"]["jacobi_packed_stream"])]
     rows += [(name, FUSED_KERNELS[name][3], FUSED_KERNELS[name][4], "fused",
               fused_launches[name]) for name in FUSED_KERNELS]
     print(card_line())
@@ -526,7 +887,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, "path": path,
          "launches": launches, "max_abs_err": res[name]["max_abs_err"], "ms": res[name]["ms"],
          "plain_ms": res[name]["plain_ms"], "bound_ms": res[name]["bound_ms"],
-         "bound_by": res[name]["bound_by"], "library_ms": None}
+         "bound_by": res[name]["bound_by"], "library_ms": None,
+         **({"resident_ms": res[name]["resident_ms"]} if "resident_ms" in res[name] else {})}
         for name, source, replaces, path, launches in rows
     ]}))
     print(json.dumps({"ok": True, "device": {

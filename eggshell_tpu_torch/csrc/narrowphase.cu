@@ -1,8 +1,14 @@
 // SAT box-box narrowphase for a batch of box pairs, float32.
 //
 // Replaces the TPU kernel `_narrowphase_kernel` of
-// eggshell_tpu/ops/collision_kernel.py (reached through
-// `collide_boxes_lanes` / `collide_boxes_lanes_diff`).  Same semantics as
+// eggshell_tpu/ops/collision_kernel.py, through both of its entries:
+// `collide_boxes_lanes` / `collide_boxes_lanes_diff` (kernel
+// `narrowphase_kernel`, gathered pairs in, every output of the pair) and
+// `collide_boxes_lanes_packed` (kernel `narrowphase_packed_kernel`, the
+// fused chain's entry: (B, n) body state and the scene's pair lists in, the
+// bodies gathered and R formed from q in the kernel, and only what the
+// compaction kernel csrc/compact.cu reads written out).  Both run the one
+// SAT device function `sat_contacts`.  Same semantics as
 // the plain version `eggshell_tpu_torch.ops.collision.collide_boxes`:
 // 15 separating axes, contact codes 1-16, the incident face clipped by the
 // six halfspaces of the reference box into at most MAX_POLY points, the
@@ -12,12 +18,16 @@
 // reads 30 floats and writes 66 floats plus 12 flags, against a few
 // thousand floating-point operations (the clip alone is six passes over a
 // 12-vertex polygon with a 12x12 one-hot emission).  The design: one
-// thread per pair, every intermediate in registers, every loop statically
+// thread per pair (per scenario and pair on the packed entry), every
+// intermediate in registers, every loop statically
 // unrolled so that the polygon arrays stay in registers (no dynamic
 // indexing, no local memory), and the same branchless selection logic as
 // the TPU kernel.  Outputs are written pair-major in the `PairContacts`
 // layout (pos (N,12,3), normal (N,3), depth (N,12), active (N,12), code,
-// info_depth, separating axis), so no relayout follows the launch.  Those
+// info_depth, separating axis), so no relayout follows the launch; the
+// packed entry writes pos (B,P,12,3), normal (B,P,3), depth and active
+// (B,P,12), and its gathers of p and q (28 bytes a body, the n bodies of a
+// scenario read by its P threads) come from L1 after the first.  Those
 // stores are strided across a warp; coalescing them through shared memory
 // is work for a later change.
 //
@@ -42,33 +52,13 @@ __device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
 
-__global__ void __launch_bounds__(128) narrowphase_kernel(
-    const float* __restrict__ gp1, const float* __restrict__ gr1,
-    const float* __restrict__ gh1, const float* __restrict__ gp2,
-    const float* __restrict__ gr2, const float* __restrict__ gh2,
-    float* __restrict__ out_pos, float* __restrict__ out_nrm,
-    float* __restrict__ out_dep, uint8_t* __restrict__ out_act,
-    int32_t* __restrict__ out_code, float* __restrict__ out_idep,
-    float* __restrict__ out_iax, int64_t n) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-
-  float p1[3], p2[3], H1[3], H2[3], R1[3][3], R2[3][3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    p1[c] = gp1[3 * t + c];
-    p2[c] = gp2[3 * t + c];
-    H1[c] = gh1[3 * t + c];
-    H2[c] = gh2[3 * t + c];
-  }
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      R1[r][c] = gr1[9 * t + 3 * r + c];
-      R2[r][c] = gr2[9 * t + 3 * r + c];
-    }
-
+// The contacts of one box pair: pos (12, 3), depth and active (12) on the
+// clipped polygon's lanes, the contact normal, the contact code (0 =
+// separated), the depth along the best axis and that axis.
+__device__ __forceinline__ void sat_contacts(
+    const float p1[3], const float R1[3][3], const float H1[3], const float p2[3],
+    const float R2[3][3], const float H2[3], float pos[MAX_POLY][3], float dep[MAX_POLY],
+    bool act[MAX_POLY], float nrm[3], int* code, float* idep, float iax[3]) {
   // box2 in box1's frame: R = R1^T R2, p = R1^T (p2 - p1)
   float R[3][3], Q[3][3], d[3], p[3];
 #pragma unroll
@@ -331,36 +321,134 @@ __global__ void __launch_bounds__(128) narrowphase_kernel(
   bool any_face = false;
 #pragma unroll
   for (int i = 0; i < MAX_POLY; ++i) {
-    float pos[3];
+    float fpos[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) pos[c] = Rc[c] + RR0[c] * px[i] + RR1[c] * py[i];
-    const float dep = -(dot3(Afn, pos) + Ad);
-    any_face = any_face || ((i < cnt) && (fabsf(dep) > TOL || aacount >= 2));
+    for (int c = 0; c < 3; ++c) fpos[c] = Rc[c] + RR0[c] * px[i] + RR1[c] * py[i];
+    const float fdep = -(dot3(Afn, fpos) + Ad);
+    any_face = any_face || ((i < cnt) && (fabsf(fdep) > TOL || aacount >= 2));
   }
   const bool use_ee = (aacount == 0) && !best_is_FN;
   const float fb_depth = -sepFN;
 
 #pragma unroll
   for (int i = 0; i < MAX_POLY; ++i) {
-    float pos[3];
+    float fpos[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) pos[c] = Rc[c] + RR0[c] * px[i] + RR1[c] * py[i];
-    const float fdep = -(dot3(Afn, pos) + Ad);
+    for (int c = 0; c < 3; ++c) fpos[c] = Rc[c] + RR0[c] * px[i] + RR1[c] * py[i];
+    const float fdep = -(dot3(Afn, fpos) + Ad);
     const bool keep = (i < cnt) && (fabsf(fdep) > TOL || aacount >= 2);
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      out_pos[t * (3 * MAX_POLY) + 3 * i + c] = use_ee ? ee_pos[c] : (any_face ? pos[c] : p2[c]);
-    out_dep[t * MAX_POLY + i] = use_ee ? ee_depth : (any_face ? fdep : fb_depth);
-    const bool act = use_ee ? (i == 0) : (any_face ? keep : (i == 0));
-    out_act[t * MAX_POLY + i] = (act && !separated) ? 1 : 0;
+      pos[i][c] = use_ee ? ee_pos[c] : (any_face ? fpos[c] : p2[c]);
+    dep[i] = use_ee ? ee_depth : (any_face ? fdep : fb_depth);
+    const bool lane_act = use_ee ? (i == 0) : (any_face ? keep : (i == 0));
+    act[i] = lane_act && !separated;
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    out_nrm[3 * t + c] = use_ee ? axEE[c] : axFN[c];
-    out_iax[3 * t + c] = best_is_FN ? axFN[c] : axEE[c];
+    nrm[c] = use_ee ? axEE[c] : axFN[c];
+    iax[c] = best_is_FN ? axFN[c] : axEE[c];
   }
-  out_code[t] = separated ? 0 : (use_ee ? codeEE : (any_face ? codeFN : 16));
-  out_idep[t] = separated ? 0.f : info_depth;
+  *code = separated ? 0 : (use_ee ? codeEE : (any_face ? codeFN : 16));
+  *idep = separated ? 0.f : info_depth;
+}
+
+// Row-major R of a unit quaternion (w, x, y, z): the expressions of
+// eggshell_tpu_torch.ops.quaternion.quat_to_mat, term for term.
+__device__ __forceinline__ void quat_rows(const float* q, float R[3][3]) {
+  const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
+  const float xx = qx * qx, yy = qy * qy, zz = qz * qz;
+  const float xy = qx * qy, xz = qx * qz, yz = qy * qz;
+  const float wx = qw * qx, wy = qw * qy, wz = qw * qz;
+  R[0][0] = 1.f - 2.f * (yy + zz); R[0][1] = 2.f * (xy - wz); R[0][2] = 2.f * (xz + wy);
+  R[1][0] = 2.f * (xy + wz); R[1][1] = 1.f - 2.f * (xx + zz); R[1][2] = 2.f * (yz - wx);
+  R[2][0] = 2.f * (xz - wy); R[2][1] = 2.f * (yz + wx); R[2][2] = 1.f - 2.f * (xx + yy);
+}
+
+__global__ void __launch_bounds__(128) narrowphase_kernel(
+    const float* __restrict__ gp1, const float* __restrict__ gr1,
+    const float* __restrict__ gh1, const float* __restrict__ gp2,
+    const float* __restrict__ gr2, const float* __restrict__ gh2,
+    float* __restrict__ out_pos, float* __restrict__ out_nrm,
+    float* __restrict__ out_dep, uint8_t* __restrict__ out_act,
+    int32_t* __restrict__ out_code, float* __restrict__ out_idep,
+    float* __restrict__ out_iax, int64_t n) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+
+  float p1[3], p2[3], H1[3], H2[3], R1[3][3], R2[3][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    p1[c] = gp1[3 * t + c];
+    p2[c] = gp2[3 * t + c];
+    H1[c] = gh1[3 * t + c];
+    H2[c] = gh2[3 * t + c];
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      R1[r][c] = gr1[9 * t + 3 * r + c];
+      R2[r][c] = gr2[9 * t + 3 * r + c];
+    }
+
+  float pos[MAX_POLY][3], dep[MAX_POLY], nrm[3], iax[3], idep;
+  bool act[MAX_POLY];
+  int code;
+  sat_contacts(p1, R1, H1, p2, R2, H2, pos, dep, act, nrm, &code, &idep, iax);
+#pragma unroll
+  for (int i = 0; i < MAX_POLY; ++i) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) out_pos[t * (3 * MAX_POLY) + 3 * i + c] = pos[i][c];
+    out_dep[t * MAX_POLY + i] = dep[i];
+    out_act[t * MAX_POLY + i] = act[i] ? 1 : 0;
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    out_nrm[3 * t + c] = nrm[c];
+    out_iax[3 * t + c] = iax[c];
+  }
+  out_code[t] = code;
+  out_idep[t] = idep;
+}
+
+// One thread per (scenario, pair): t = scenario * P + pair.
+__global__ void __launch_bounds__(128) narrowphase_packed_kernel(
+    const float* __restrict__ gp, const float* __restrict__ gq, const float* __restrict__ ghs,
+    const int64_t* __restrict__ pair_i, const int64_t* __restrict__ pair_j,
+    float* __restrict__ out_pos, float* __restrict__ out_nrm, float* __restrict__ out_dep,
+    uint8_t* __restrict__ out_act, int64_t total, int n, int P) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int64_t s = t / P;
+  const int k = (int)(t % P);
+  const int64_t i = pair_i[k], j = pair_j[k];
+  const int64_t bi = s * n + i, bj = s * n + j;
+
+  float p1[3], p2[3], H1[3], H2[3], R1[3][3], R2[3][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    p1[c] = gp[3 * bi + c];
+    p2[c] = gp[3 * bj + c];
+    H1[c] = ghs[3 * i + c];
+    H2[c] = ghs[3 * j + c];
+  }
+  quat_rows(gq + 4 * bi, R1);
+  quat_rows(gq + 4 * bj, R2);
+
+  float pos[MAX_POLY][3], dep[MAX_POLY], nrm[3], iax[3], idep;
+  bool act[MAX_POLY];
+  int code;
+  sat_contacts(p1, R1, H1, p2, R2, H2, pos, dep, act, nrm, &code, &idep, iax);
+#pragma unroll
+  for (int l = 0; l < MAX_POLY; ++l) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) out_pos[t * (3 * MAX_POLY) + 3 * l + c] = pos[l][c];
+    out_dep[t * MAX_POLY + l] = dep[l];
+    out_act[t * MAX_POLY + l] = act[l] ? 1 : 0;
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) out_nrm[3 * t + c] = nrm[c];
 }
 
 }  // namespace
@@ -375,5 +463,18 @@ extern "C" int eggshell_narrowphase_f32(
   const int64_t blocks = (n + threads - 1) / threads;
   narrowphase_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       p1, r1, h1, p2, r2, h2, pos, nrm, dep, act, code, idep, iax, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int eggshell_narrowphase_packed_f32(
+    const float* p, const float* q, const float* hs, const int64_t* pair_i,
+    const int64_t* pair_j, float* pos, float* nrm, float* dep, uint8_t* act, int64_t B,
+    int n, int P, void* stream) {
+  const int64_t total = B * (int64_t)P;
+  if (total <= 0) return 0;
+  const int threads = 128;
+  const int64_t blocks = (total + threads - 1) / threads;
+  narrowphase_packed_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      p, q, hs, pair_i, pair_j, pos, nrm, dep, act, total, n, P);
   return (int)cudaGetLastError();
 }

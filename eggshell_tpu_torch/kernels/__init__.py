@@ -24,8 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("narrowphase.cu", "jacobi.cu", "prep.cu", "jassembly.cu", "amat.cu",
-           "jacobi_packed.cu", "integrate.cu")
+SOURCES = ("narrowphase.cu", "compact.cu", "jacobi.cu", "prep.cu", "jassembly.cu", "amat.cu",
+           "jacobi_packed.cu", "jacobi_packed_stream.cu", "integrate.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --fmad=false: every product and sum is rounded on its own, as in the
 # plain torch versions (see the note in csrc/narrowphase.cu).
@@ -38,6 +38,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # p1, R1, hs1, p2, R2, hs2, pos, nrm, dep, act, code, idep, iax, n, stream
     "eggshell_narrowphase_f32": [_P] * 13 + [_I64, _P],
+    # p, q, hs, pair_i, pair_j, pos, nrm, dep, act, B, n, P, stream
+    "eggshell_narrowphase_packed_f32": [_P] * 9 + [_I64, _I, _I, _P],
+    # p, q, hs, gen, pp_pos, pp_nrm, pp_dep, pp_act, pair_i, pair_j, b0, b1, pos, nrm, dep, act,
+    # B, n, P, K, eps2, cap, stream
+    "eggshell_compact_f32": [_P] * 16 + [_I64, _I, _I, _I, _F, _F, _P],
     # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, beta, stream
     "eggshell_jacobi_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _P],
     # q, v, w, ext, inv_mass, Ib, invIb, uhat, invIg, F, B, n, inv_dt, gx, gy, gz, stream
@@ -48,6 +53,8 @@ _SIGNATURES = {
     "eggshell_amat_f32": [_P] * 8 + [_I64, _I, _I, _I, _F, _P],
     # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, stream
     "eggshell_jacobi_packed_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _P],
+    # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, stream
+    "eggshell_jacobi_packed_stream_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _P],
     # Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, p_out, q_out, v_out, w_out,
     # B, K, n, lam_stride, dt, stream
     "eggshell_integrate_f32": [_P] * 15 + [_I64, _I, _I, _I, _F, _P],

@@ -1,8 +1,16 @@
-"""Batched SAT narrowphase: the hand-written CUDA kernel and its wrapper.
+"""Batched SAT narrowphase: the hand-written CUDA kernel's two entries and
+their wrappers.
 
-Counterpart of `eggshell_tpu.ops.collision_kernel.collide_boxes_lanes`.
-On a CUDA tensor the wrapper launches `csrc/narrowphase.cu`; on a CPU
-tensor it runs the plain version `ops.collision.collide_boxes`.  There is
+- `collide_boxes_lanes`: counterpart of
+  `eggshell_tpu.ops.collision_kernel.collide_boxes_lanes`, gathered pairs
+  in, every output of `PairContacts` out (the unfused branch).
+- `collide_boxes_lanes_packed` (B2p): counterpart of
+  `eggshell_tpu.ops.collision_kernel.collide_boxes_lanes_packed`, the fused
+  chain's entry: the (B, n) state and the scene's pair lists in, and only
+  what the compaction kernel (`ops.compact_kernel`) reads out.
+
+On a CUDA tensor a wrapper launches `csrc/narrowphase.cu`; on a CPU tensor
+it runs its plain version, built on `ops.collision.collide_boxes`.  There is
 no fallback from one to the other: a CUDA input that the kernel does not
 take raises.
 """
@@ -12,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from eggshell_tpu_torch.ops.collision import MAX_POLY, PairContacts, collide_boxes
+from eggshell_tpu_torch.ops.quaternion import quat_to_mat
 
 
 def collide_boxes_lanes(p1, R1, hs1, p2, R2, hs2) -> PairContacts:
@@ -51,3 +60,61 @@ def collide_boxes_lanes(p1, R1, hs1, p2, R2, hs2) -> PairContacts:
 
 
 collide_boxes_lanes.launches = 0
+
+
+def gather_pairs(p, R, half_extents, pair_i, pair_j):
+    """The lanes entry's inputs for every candidate pair of every scenario,
+    scenario-major: (p1, R1, hs1, p2, R2, hs2) with B * P rows, from p
+    (B, n, 3), R (B, n, 3, 3), half_extents (n, 3), pair_i / pair_j (P,)."""
+    B, P = p.shape[0], pair_i.shape[0]
+
+    def flat(x):
+        return x.reshape((B * P,) + x.shape[2:]).contiguous()
+
+    return (flat(p[:, pair_i]), flat(R[:, pair_i]), flat(half_extents[pair_i].expand(B, P, 3)),
+            flat(p[:, pair_j]), flat(R[:, pair_j]), flat(half_extents[pair_j].expand(B, P, 3)))
+
+
+def collide_boxes_lanes_packed_plain(p, q, half_extents, pair_i, pair_j):
+    """Plain torch version of the packed entry: R = quat_to_mat(q), the
+    gather of every pair's bodies (`gather_pairs`), then `collide_boxes`.
+    p (B, n, 3), q (B, n, 4), half_extents (n, 3), pair_i / pair_j (P,)
+    int64.  Returns pos (B, P, 12, 3), nrm (B, P, 3), dep (B, P, 12),
+    act (B, P, 12) bool."""
+    B, P = p.shape[0], pair_i.shape[0]
+    out = collide_boxes(*gather_pairs(p, quat_to_mat(q), half_extents, pair_i, pair_j))
+    return (out.position.reshape(B, P, MAX_POLY, 3), out.normal[:, 0].reshape(B, P, 3),
+            out.depth.reshape(B, P, MAX_POLY), out.active.reshape(B, P, MAX_POLY))
+
+
+def collide_boxes_lanes_packed(p, q, half_extents, pair_i, pair_j):
+    """(pos, nrm, dep, act) of every candidate pair of every scenario; see
+    `collide_boxes_lanes_packed_plain` for the arguments.  The kernel
+    gathers the pairs' bodies and forms R from q itself."""
+    if p.device.type == "cpu":
+        return collide_boxes_lanes_packed_plain(p, q, half_extents, pair_i, pair_j)
+    if p.device.type != "cuda":
+        raise ValueError(f"unsupported device {p.device}")
+    from eggshell_tpu_torch import kernels
+
+    B, n = p.shape[:2]
+    P = pair_i.shape[0]
+    dev = p.device
+    f32 = torch.float32
+    for name, x, shape, dtype in (
+        ("p", p, (B, n, 3), f32), ("q", q, (B, n, 4), f32),
+        ("half_extents", half_extents, (n, 3), f32), ("pair_i", pair_i, (P,), torch.int64),
+        ("pair_j", pair_j, (P,), torch.int64),
+    ):
+        kernels.check_arg(name, x, shape, dtype, dev)
+    pos = torch.empty((B, P, MAX_POLY, 3), dtype=f32, device=dev)
+    nrm = torch.empty((B, P, 3), dtype=f32, device=dev)
+    dep = torch.empty((B, P, MAX_POLY), dtype=f32, device=dev)
+    act = torch.empty((B, P, MAX_POLY), dtype=torch.bool, device=dev)
+    kernels.launch("eggshell_narrowphase_packed_f32", dev, p, q, half_extents, pair_i, pair_j,
+                   pos, nrm, dep, act, B, n, P)
+    collide_boxes_lanes_packed.launches += 1
+    return pos, nrm, dep, act
+
+
+collide_boxes_lanes_packed.launches = 0

@@ -7,7 +7,12 @@ their wrappers.
 - `solve_lcp_jacobi_packed`: counterpart of
   `eggshell_tpu.ops.pgs_kernel.solve_lcp_jacobi_packed` (block=False,
   pyramid_mu=0), the fused chain's solve, with box-friction bounds built
-  from the lane masks; kernel `csrc/jacobi_packed.cu`.
+  from the lane masks.  It takes the JAX package's resident/streamed
+  switch (`stream`, see `streams_a`): resident, kernel
+  `csrc/jacobi_packed.cu` (A copied into shared memory once); streamed,
+  `solve_lcp_jacobi_packed_stream` (B6b), kernel
+  `csrc/jacobi_packed_stream.cu` (A read from device memory in row chunks
+  on every sweep).  Both compute the same sweeps, sum for sum.
 
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 its plain version.  A CUDA input that the kernel does not take raises;
@@ -25,6 +30,18 @@ from eggshell_tpu_torch.ops.amat_kernel import ROW_BLOCK, padded_rows, round_row
 MAX_SHARED_BYTES = 232_448
 # Stand-in for hi = inf, as the TPU kernel has it.
 HI_INF = 3.4e38
+# The JAX package's switch to the streamed solve (`pgs_kernel.py:343`,
+# `:523-524`): the double-buffered A of 128 scenarios over 5 MiB of TPU
+# VMEM, i.e. mp >= 72 (K >= 22 lanes, joints counted).  It is a TPU budget,
+# kept so that the port takes the streamed kernel on the same
+# configurations; the card's own switch is ROADMAP work.
+_TPU_LANES = 128
+_VMEM_A_BUDGET = 5 * 1024 * 1024
+
+
+def streams_a(mp: int) -> bool:
+    """Whether `solve_lcp_jacobi_packed(stream=None)` streams A for mp rows."""
+    return mp * mp * _TPU_LANES * 4 * 2 > _VMEM_A_BUDGET
 
 
 def _shared_bytes(mp: int) -> int:
@@ -153,11 +170,64 @@ def solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K: int, mu: float, iter
     return x
 
 
+def _check_packed_args(A, diag, rhs, act, eq, K: int) -> None:
+    from eggshell_tpu_torch import kernels
+
+    B, mp = diag.shape
+    if mp != padded_rows(K):
+        raise ValueError(f"diag has {mp} rows, expected 3K = {3 * K} rounded up to {ROW_BLOCK}")
+    args = [("A", A, (B, mp, mp), torch.float32), ("diag", diag, (B, mp), torch.float32),
+            ("rhs", rhs, (B, 3 * K), torch.float32), ("act", act, (B, K), torch.bool)]
+    if eq is not None:
+        args.append(("eq", eq, (B, K), torch.bool))
+    for name, x, shape, dtype in args:
+        kernels.check_arg(name, x, shape, dtype, A.device)
+
+
+def solve_lcp_jacobi_packed_stream(A, diag, rhs, act, eq, K: int, mu: float, iters: int,
+                                   omega: float, beta: float):
+    """B6b: x (B, mp) of the fused chain's LCP with A streamed from device
+    memory on every sweep; the arguments and the plain version are those of
+    `solve_lcp_jacobi_packed_plain` (box friction, scalar sweeps)."""
+    if A.device.type == "cpu":
+        return solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K, mu, iters, omega, beta)
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    from eggshell_tpu_torch import kernels
+
+    _check_packed_args(A, diag, rhs, act, eq, K)
+    B, mp = diag.shape
+    out = torch.empty((B, mp), dtype=torch.float32, device=A.device)
+    kernels.launch("eggshell_jacobi_packed_stream_f32", A.device, A, diag, rhs, act, eq, out, B,
+                   K, mp, int(iters), float(mu), float(omega), float(beta))
+    solve_lcp_jacobi_packed_stream.launches += 1
+    return out
+
+
+solve_lcp_jacobi_packed_stream.launches = 0
+
+
 def solve_lcp_jacobi_packed(A, diag, rhs, act, eq, K: int, mu: float, iters: int,
                             omega: float, beta: float, block: bool = False,
-                            pyramid_mu: float = 0.0):
+                            pyramid_mu: float = 0.0, stream=None):
     """x (B, mp) of the fused chain's LCP; see `solve_lcp_jacobi_packed_plain`
-    for the arguments.  `block=True` and `pyramid_mu > 0` raise."""
+    for the arguments.  `stream` None takes the JAX package's rule
+    (`streams_a`); True goes to `solve_lcp_jacobi_packed_stream`, where, as
+    in the JAX package, `block=True` and `pyramid_mu > 0` raise ValueError.
+    On the resident kernel they raise NotImplementedError (not ported)."""
+    if stream is None:
+        stream = streams_a(padded_rows(K))
+    if stream:
+        if block:
+            raise ValueError(
+                "solve_lcp_jacobi_packed: block-Jacobi (jacobi_block=True) is not available on "
+                f"the streamed-A path (contact capacity {K}); use jacobi_block=False or reduce "
+                "contact_capacity")
+        if pyramid_mu > 0.0:
+            raise ValueError(
+                "solve_lcp_jacobi_packed: COULOMB_PYRAMID bounds are not available on the "
+                "streamed-A path; reduce contact_capacity below the stream threshold")
+        return solve_lcp_jacobi_packed_stream(A, diag, rhs, act, eq, K, mu, iters, omega, beta)
     if A.device.type == "cpu":
         return solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K, mu, iters, omega, beta,
                                              block, pyramid_mu)
@@ -166,23 +236,15 @@ def solve_lcp_jacobi_packed(A, diag, rhs, act, eq, K: int, mu: float, iters: int
     _check_packed_options(block, pyramid_mu)
     from eggshell_tpu_torch import kernels
 
+    _check_packed_args(A, diag, rhs, act, eq, K)
     B, mp = diag.shape
-    dev = A.device
-    if mp != padded_rows(K):
-        raise ValueError(f"diag has {mp} rows, expected 3K = {3 * K} rounded up to {ROW_BLOCK}")
     if _shared_bytes(mp) > MAX_SHARED_BYTES:
         raise ValueError(
             f"K = {K} needs {_shared_bytes(mp)} bytes of shared memory per "
             f"block, more than the {MAX_SHARED_BYTES} an H100 block has"
         )
-    args = [("A", A, (B, mp, mp), torch.float32), ("diag", diag, (B, mp), torch.float32),
-            ("rhs", rhs, (B, 3 * K), torch.float32), ("act", act, (B, K), torch.bool)]
-    if eq is not None:
-        args.append(("eq", eq, (B, K), torch.bool))
-    for name, x, shape, dtype in args:
-        kernels.check_arg(name, x, shape, dtype, dev)
-    out = torch.empty((B, mp), dtype=torch.float32, device=dev)
-    kernels.launch("eggshell_jacobi_packed_f32", dev, A, diag, rhs, act, eq, out, B, K, mp,
+    out = torch.empty((B, mp), dtype=torch.float32, device=A.device)
+    kernels.launch("eggshell_jacobi_packed_f32", A.device, A, diag, rhs, act, eq, out, B, K, mp,
                    int(iters), float(mu), float(omega), float(beta))
     solve_lcp_jacobi_packed.launches += 1
     return out

@@ -1,11 +1,15 @@
 """Scene-level contact assembly for a batch of scenarios: narrowphase
-fan-out, stable compaction into K lanes, same-pair deduplication.
+fan-out, stable compaction into K lanes, same-pair deduplication, and the
+joint-contact dedupe of the fused chain.
 
 Counterpart of `eggshell_tpu.physics.contacts`.  Candidates come in the
 reference order — ground corners body-major (8 per body), then the
 candidate pairs in order (MAX_CONTACTS_PER_PAIR lanes each) — and active
 candidates are compacted in that order, so lane k here is lane k in the
-JAX package.
+JAX package.  `make_contacts_batched` is the unfused branch's contact
+step; the fused chain runs the compaction kernel (`ops.compact_kernel`),
+whose plain version is built from `ground_candidates`, `pair_candidates`,
+`_compact` and `_dedupe` here.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 
 from eggshell_tpu_torch.ops import collision
 from eggshell_tpu_torch.ops import quaternion as quat
-from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes
+from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes, gather_pairs
 from eggshell_tpu_torch.physics.scene import SceneSpec, State
 from eggshell_tpu_torch.utils.config import SimConfig
 
@@ -42,21 +46,6 @@ class ContactSet(NamedTuple):
         return self.b0.shape[-1]
 
 
-def pair_inputs(spec: SceneSpec, states: State, R: torch.Tensor):
-    """The narrowphase's inputs for every candidate pair of every scenario,
-    scenario-major: (p1, R1, hs1, p2, R2, hs2) with B * P rows."""
-    B, P = states.p.shape[0], spec.num_pairs
-    pi, pj = spec.pair_i, spec.pair_j
-
-    def flat(x):
-        return x.reshape((B * P,) + x.shape[2:]).contiguous()
-
-    return (
-        flat(states.p[:, pi]), flat(R[:, pi]), flat(spec.half_extents[pi].expand(B, P, 3)),
-        flat(states.p[:, pj]), flat(R[:, pj]), flat(spec.half_extents[pj].expand(B, P, 3)),
-    )
-
-
 def _candidates(spec: SceneSpec, states: State):
     """All candidate contacts of every scenario in reference order:
     (b0, b1, pos, nrm, dep, act) with a candidate axis of n*8 + P*12."""
@@ -77,7 +66,7 @@ def _candidates(spec: SceneSpec, states: State):
     P = spec.num_pairs
     if P > 0:
         pi, pj = spec.pair_i, spec.pair_j
-        out = collide_boxes_lanes(*pair_inputs(spec, states, R))
+        out = collide_boxes_lanes(*gather_pairs(states.p, R, spec.half_extents, pi, pj))
         C = collision.MAX_CONTACTS_PER_PAIR
         parts.append((
             pi.repeat_interleave(C).expand(B, P * C),
@@ -114,21 +103,83 @@ def _compact(b0, b1, pos, nrm, dep, act, K: int) -> ContactSet:
     )
 
 
-def _dedupe(cs: ContactSet, cfg: SimConfig) -> ContactSet:
+def _dedupe(cs: ContactSet, eps2: float) -> ContactSet:
     """Drop contact k when an earlier lane of the same body pair (ground
-    lanes excluded) lies closer than `min_constraint_distance`."""
-    eps2 = cfg.min_constraint_distance ** 2
+    lanes excluded) lies closer than sqrt(eps2).  Non-cascaded: every lane
+    is judged against the active flags it came in with."""
     lo_b = torch.minimum(cs.b0, cs.b1)
     hi_b = torch.maximum(cs.b0, cs.b1)
     ok = lo_b >= 0
     K = cs.capacity
-    d2 = torch.sum((cs.position[:, :, None, :] - cs.position[:, None, :, :]) ** 2, dim=-1)
+    d = cs.position[:, :, None, :] - cs.position[:, None, :, :]
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
     same_pair = (lo_b[:, :, None] == lo_b[:, None, :]) & (hi_b[:, :, None] == hi_b[:, None, :])
     both_ok = ok[:, :, None] & ok[:, None, :]
     both_act = cs.active[:, :, None] & cs.active[:, None, :]
     lane = torch.arange(K, device=cs.b0.device)
     earlier = lane[None, :] < lane[:, None]
     drop = torch.any(same_pair & both_ok & both_act & earlier & (d2 < eps2), dim=2)
+    return cs._replace(active=cs.active & ~drop)
+
+
+def ground_candidates(p, q, half_extents, ground_enabled):
+    """The ground corners of every body, 8 per body, body-major, in the
+    compaction kernel's expressions (csrc/compact.cu): R = quat_to_mat(q),
+    c = p + R0 (sx hx) + R1 (sy hy) + R2 (sz hz) summed left to right, active
+    when cz < 0 and the body's ground_enabled.  p (B, n, 3), q (B, n, 4),
+    half_extents (n, 3), ground_enabled (n,) bool.  Returns (b0, b1, pos,
+    nrm, dep, act) with a candidate axis of 8n."""
+    B, n = p.shape[:2]
+    G = collision.GROUND_CONTACTS
+    R = quat.quat_to_mat(q)                                           # (B, n, 3, 3)
+    signs = torch.tensor(collision._CORNER_SIGNS, dtype=p.dtype, device=p.device)
+    o = signs * half_extents[:, None, :]                              # (n, 8, 3)
+    c = [p[..., r, None] + R[..., r, 0, None] * o[..., 0] + R[..., r, 1, None] * o[..., 1]
+         + R[..., r, 2, None] * o[..., 2] for r in range(3)]           # (B, n, 8) each
+    pos = torch.stack(c, -1).reshape(B, n * G, 3)
+    act = ((c[2] < 0) & ground_enabled[:, None]).reshape(B, n * G)
+    nrm = torch.zeros_like(pos)
+    nrm[..., 2] = 1.0
+    b0 = torch.full((B, n * G), -1, dtype=torch.int64, device=p.device)
+    b1 = torch.arange(n, device=p.device).repeat_interleave(G).expand(B, n * G)
+    return b0, b1, pos, nrm, -pos[..., 2], act
+
+
+def pair_candidates(pair, pair_i, pair_j):
+    """The narrowphase lanes of every candidate pair as candidates: pair
+    = (pos (B, P, 12, 3), nrm (B, P, 3), dep (B, P, 12), act (B, P, 12)), the
+    packed narrowphase's outputs.  Returns (b0, b1, pos, nrm, dep, act) with
+    a candidate axis of 12P, pair-major."""
+    pos, nrm, dep, act = pair
+    B, P, C = dep.shape
+    return (pair_i.repeat_interleave(C).expand(B, P * C),
+            pair_j.repeat_interleave(C).expand(B, P * C),
+            pos.reshape(B, P * C, 3), nrm[:, :, None, :].expand(B, P, C, 3).reshape(B, P * C, 3),
+            dep.reshape(B, P * C), act.reshape(B, P * C))
+
+
+def joint_points(a0, a1, joint_b1):
+    """Where a joint sits for the joint-contact dedupe: a0 for a joint
+    anchored to the world (joint_b1 = -1), the midpoint 1/2 (a0 + a1)
+    otherwise.  a0 / a1 (B, J, 3)."""
+    return torch.where((joint_b1 < 0)[:, None], a0, 0.5 * (a0 + a1))
+
+
+def drop_joint_contacts(cs: ContactSet, jpos, joint_b0, joint_b1, eps2: float) -> ContactSet:
+    """Joint-contact dedupe (the JAX package's `stepper.py:557-582`,
+    `contacts.py:241-266`): contact k is dropped (active cleared, ids kept)
+    when a joint joins the same unordered body pair, neither side the
+    world or the ground, and the contact lies closer than sqrt(eps2) to the
+    joint point `jpos` (B, J, 3) (see `joint_points`)."""
+    lo = torch.minimum(cs.b0, cs.b1)
+    hi = torch.maximum(cs.b0, cs.b1)
+    jlo = torch.minimum(joint_b0, joint_b1)
+    jhi = torch.maximum(joint_b0, joint_b1)
+    d = cs.position[:, :, None, :] - jpos[:, None, :, :]              # (B, K, J, 3)
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    same = ((lo[:, :, None] == jlo) & (hi[:, :, None] == jhi) & (jlo >= 0)
+            & (lo >= 0)[:, :, None])
+    drop = torch.any(same & (d2 < eps2), dim=2)
     return cs._replace(active=cs.active & ~drop)
 
 
@@ -146,16 +197,22 @@ def make_contacts_batched(spec: SceneSpec, states: State, cfg: SimConfig) -> Con
             "(ROADMAP A12: matrix-free large-scene tier)"
         )
     cs = _compact(*_candidates(spec, states), cfg.contact_capacity)
-    return _dedupe(cs, cfg)
+    return _dedupe(cs, cfg.min_constraint_distance ** 2)
+
+
+def depth_cap(cfg: SimConfig):
+    """max_correcting_vel * dt / erp, the deepest penetration the ERP
+    correction sees; None when the cap is inf."""
+    if math.isinf(cfg.max_correcting_vel):
+        return None
+    return cfg.max_correcting_vel * cfg.dt / max(cfg.erp, 1e-12)
 
 
 def effective_depth(depth: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
-    """Depth seen by the ERP correction, saturated at
-    max_correcting_vel * dt / erp; the identity when the cap is inf."""
-    if math.isinf(cfg.max_correcting_vel):
-        return depth
-    cap = cfg.max_correcting_vel * cfg.dt / max(cfg.erp, 1e-12)
-    return torch.clamp(depth, max=cap)
+    """Depth seen by the ERP correction, saturated at `depth_cap`; the
+    identity when the cap is inf."""
+    cap = depth_cap(cfg)
+    return depth if cap is None else torch.clamp(depth, max=cap)
 
 
 def contact_frames(cs: ContactSet) -> torch.Tensor:

@@ -8,10 +8,35 @@ device the default raises as torch does.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-from eggshell_tpu_torch.physics.scene import make_scene
+from eggshell_tpu_torch.ops import quaternion as quat
+from eggshell_tpu_torch.physics.scene import State, make_scene
+from eggshell_tpu_torch.utils.config import BENCH
+
+
+def chain(num_links: int = 10, anchor_position=(2.0, 2.0, 1.0), collide: bool = False, *,
+          device="cuda", dtype=torch.float64):
+    """Hanging chain of unit boxes linked corner to corner by ball joints,
+    anchored to the world at link 0's centre.  Links start collinear along
+    x at spacing sqrt(3) * 0.3 with R = Rz(0.9553166) Rx(pi/4), the pose in
+    which the corner offsets +-0.15 touch.  `collide=True` adds the ground
+    and all link-link pairs; the default has neither (joints only)."""
+    anchor = np.asarray(anchor_position, float)
+    qz = np.array([math.cos(0.95531661812451 / 2), 0, 0, math.sin(0.95531661812451 / 2)])
+    qx = np.array([math.cos(math.pi / 8), math.sin(math.pi / 8), 0, 0])
+    q0 = quat.quat_mul(torch.as_tensor(qz), torch.as_tensor(qx)).numpy()
+    positions = [anchor + np.array([math.sqrt(3.0) * 0.3 * i, 0, 0]) for i in range(num_links)]
+    c1 = np.array([0.15, -0.15, 0.15])
+    c2 = np.array([-0.15, 0.15, -0.15])
+    joints = [(i, i + 1, c1, c2) for i in range(num_links - 1)]
+    joints.append((0, -1, np.zeros(3), positions[0].copy()))
+    return make_scene(positions, quats=np.tile(q0, (num_links, 1)), joints=joints,
+                      ground=collide, pairs=None if collide else [], device=device,
+                      dtype=dtype)
 
 
 def cairn(num_rocks: int = 4, x_bound=(-0.2, 0.2), y_bound=(-0.2, 0.2),
@@ -47,3 +72,62 @@ def box_stack(num_boxes: int = 8, jitter: float = 0.0, seed: int = 0, *,
     if jitter:
         p[:, :2] += rng.uniform(-jitter, jitter, (num_boxes, 2))
     return make_scene(p, ground=True, device=device, dtype=dtype)
+
+
+def pendulum_chain(num_links: int = 6, *, device="cuda", dtype=torch.float64):
+    """A pendulum chain anchored at (0, 0, 2): joints only, no contacts."""
+    return chain(num_links, anchor_position=(0.0, 0.0, 2.0), device=device, dtype=dtype)
+
+
+def living_room(*, device="cuda", dtype=torch.float64):
+    """The living-room clutter scene as boxes: 4 static furniture boxes
+    (infinite mass, no ground contacts) and 3 free boxes dropped into the
+    room.  Position, half extents and yaw (degrees) of each box are those of
+    the JAX package's builder; only pairs with at least one free body are
+    candidate pairs (15 of 21)."""
+    def yaw_quat(deg):
+        a = math.radians(deg)
+        return [math.cos(a / 2), 0.0, 0.0, math.sin(a / 2)]
+
+    # name, pos, half extents, yaw, static
+    geoms = [
+        ("coffee_table", (0.0, 2.0, 0.3), (1.5, 0.8, 0.3), 0.0, True),
+        ("dining_table", (0.0, -3.0, 0.8), (2.5, 1.5, 0.8), 0.0, True),
+        ("tall_bookcase", (-4.0, 0.0, 2.0), (0.8, 0.4, 2.0), 90.0, True),
+        ("short_bookcase", (4.0, 0.0, 1.2), (0.8, 0.4, 1.2), -90.0, True),
+        ("plush_armchair", (-3.0, 3.0, 2.5), (1.0, 0.8, 0.8), 45.0, False),
+        ("elegant_armchair", (2.5, 2.5, 1.2), (1.0, 0.8, 0.8), -45.0, False),
+        ("table_lamp", (0.0, -3.0, 1.4), (0.3, 0.3, 0.6), 0.0, False),
+    ]
+    static = [g[4] for g in geoms]
+    n = len(geoms)
+    pairs = [(i, j) for i in range(n) for j in range(i + 1, n) if not (static[i] and static[j])]
+    spec, state = make_scene([g[1] for g in geoms], quats=[yaw_quat(g[3]) for g in geoms],
+                             half_extents=[g[2] for g in geoms], static=static, ground=True,
+                             pairs=pairs, device=device, dtype=dtype)
+    ground = torch.as_tensor([not st for st in static], device=spec.ground_enabled.device)
+    return spec._replace(ground_enabled=ground), state
+
+
+# The scenes that bench.py rolls on the fused chain (`bench.py:148-176`,
+# and the bench slice of `bench.py:80-94`): builder, contact capacity, and
+# the jitter that spreads a batch (scenario b's position + b * jitter / (B - 1)).
+BASELINE = {
+    "box_stack4": (lambda **kw: box_stack(4, **kw), 20, 1e-3),
+    "box_drop": (lambda **kw: box_drop(height=0.1495, **kw), 8, 1e-4),
+    "pendulum_chain6": (lambda **kw: pendulum_chain(6, **kw), 4, 1e-4),
+    "box_stack8": (lambda **kw: box_stack(8, **kw), 32, 1e-3),
+    "living_room": (lambda **kw: living_room(**kw), 32, 1e-3),
+}
+
+
+def baseline_batch(name: str, B: int, *, device="cuda", dtype=torch.float32):
+    """(spec, states, cfg) of B scenarios of the BASELINE scene `name`: the
+    bench's jitter on every coordinate of p, and the bench configuration
+    with the scene's contact capacity."""
+    build, capacity, jitter = BASELINE[name]
+    spec, st = build(device=device, dtype=dtype)
+    states = State(*[x.expand((B,) + x.shape).clone() for x in st])
+    shift = torch.linspace(0, jitter, B, device=device, dtype=dtype)
+    return (spec, states._replace(p=states.p + shift[:, None, None]),
+            BENCH.replace(contact_capacity=capacity))

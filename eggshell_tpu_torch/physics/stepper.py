@@ -5,9 +5,10 @@ Counterpart of `eggshell_tpu.physics.stepper`.  Two branches of
 ported:
 
 - the fused chain (`conditional_cfm=False`, the bench configuration),
-  counterpart of `_fused_step_packed`: contacts (SAT narrowphase kernel),
-  then the body-prep, Jacobian-block, A-formation, packed-Jacobi and
-  integrate kernels on compact 3x12 blocks;
+  counterpart of `_fused_step_all_kernel`: the packed narrowphase kernel,
+  the compaction-and-dedupe kernel, ball joints as equality lanes, then
+  the body-prep, Jacobian-block, A-formation, packed-Jacobi (resident or
+  streamed) and integrate kernels on compact 3x12 blocks, for any B;
 - the unfused branch (`conditional_cfm=True`, the reference's CFM policy):
   contacts, dense constraints, the system matrix with conditional CFM, the
   projected-Jacobi LCP kernel and the midpoint integration.
@@ -23,14 +24,18 @@ import math
 import torch
 
 from eggshell_tpu_torch.ops import quaternion as quat
-from eggshell_tpu_torch.ops.amat_kernel import contact_system_matrix
+from eggshell_tpu_torch.ops.amat_kernel import contact_system_matrix, padded_rows
+from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes_packed
+from eggshell_tpu_torch.ops.compact_kernel import compact_contacts
 from eggshell_tpu_torch.ops.integrate_kernel import integrate_step
 from eggshell_tpu_torch.ops.jassembly_kernel import contact_jacobian_blocks
-from eggshell_tpu_torch.ops.pgs_kernel import solve_lcp_jacobi, solve_lcp_jacobi_packed
+from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi, solve_lcp_jacobi_packed,
+                                               streams_a)
 from eggshell_tpu_torch.ops.prep_kernel import prep_bodies
 from eggshell_tpu_torch.physics import scene as scn
 from eggshell_tpu_torch.physics.constraints import ConstraintSystem, build_constraints
-from eggshell_tpu_torch.physics.contacts import effective_depth, make_contacts_batched
+from eggshell_tpu_torch.physics.contacts import (ContactSet, depth_cap, drop_joint_contacts,
+                                                 joint_points, make_contacts_batched)
 from eggshell_tpu_torch.physics.scene import SceneSpec, State
 from eggshell_tpu_torch.utils.config import FrictionModel, SimConfig, SolverKind
 
@@ -148,10 +153,11 @@ def check_supported(spec: SceneSpec, cfg: SimConfig) -> None:
             "(ROADMAP A5: the other friction models of physics/constraints.py)")
     if cfg.pair_capacity > 0:
         raise NotImplementedError(
-            "pair_capacity > 0 (broadphase) is not ported yet (ROADMAP A9: joints and broadphase scenes)")
-    if spec.num_joints > 0:
+            "pair_capacity > 0 (broadphase) is not ported yet (ROADMAP A9: broadphase scenes)")
+    if spec.num_joints > 0 and not _is_fused(cfg):
         raise NotImplementedError(
-            "scenes with joints are not ported yet (ROADMAP A9: joints and broadphase scenes)")
+            "ball joints on the unfused branch are not ported yet "
+            "(ROADMAP A5: ball-joint rows of physics/constraints.py)")
 
 
 def _batched_ext(ext_forces, states: State):
@@ -182,30 +188,90 @@ def _run(name, fn, args):
     return fn(*args)
 
 
+def _joint_anchors(spec: SceneSpec, states: State):
+    """World anchor points of the ball joints, (B, J, 3) each: a0 on body
+    b0, a1 on body b1 (the fixed world anchor joint_c1 when b1 = -1).
+    Counterpart of the JAX package's `stepper._joint_anchors`."""
+    R = quat.quat_to_mat(states.q)
+    jb0 = spec.joint_b0
+    anchored = spec.joint_b1 < 0
+    jb1 = torch.where(anchored, torch.zeros_like(spec.joint_b1), spec.joint_b1)
+    a0 = states.p[:, jb0] + torch.einsum("bjik,jk->bji", R[:, jb0], spec.joint_c0)
+    a1 = torch.where(anchored[:, None], spec.joint_c1,
+                     states.p[:, jb1] + torch.einsum("bjik,jk->bji", R[:, jb1], spec.joint_c1))
+    return a0, a1
+
+
+def _with_joint_lanes(spec: SceneSpec, states: State, cs: ContactSet, eps2: float):
+    """The joint-contact dedupe on the compacted contacts, then the joints
+    as always-active equality lanes PREPENDED to them (the XLA twin's row
+    order): b0 / b1 the joint's bodies, position a0, second anchor a1, a +z
+    frame, depth 0.  Returns (lanes, pos1, eq) with Jn + K lanes; a contact
+    lane's second anchor is its position."""
+    B = states.p.shape[0]
+    Jn = spec.num_joints
+    a0, a1 = _joint_anchors(spec, states)
+    cs = drop_joint_contacts(cs, joint_points(a0, a1, spec.joint_b1), spec.joint_b0,
+                             spec.joint_b1, eps2)
+    zhat = torch.zeros_like(a0)
+    zhat[..., 2] = 1.0
+    on = torch.ones((B, Jn), dtype=torch.bool, device=a0.device)
+
+    def cat(j, c):
+        return torch.cat([j, c], dim=1).contiguous()
+
+    lanes = ContactSet(
+        b0=cat(spec.joint_b0.expand(B, Jn), cs.b0), b1=cat(spec.joint_b1.expand(B, Jn), cs.b1),
+        position=cat(a0, cs.position), normal=cat(zhat, cs.normal),
+        depth=cat(torch.zeros_like(a0[..., 0]), cs.depth), active=cat(on, cs.active))
+    return lanes, cat(a1, cs.position), cat(on, torch.zeros_like(cs.active))
+
+
+def jacobi_phase(K: int) -> str:
+    """The fused step's solve phase for K lanes (joints counted):
+    "jacobi_packed_stream" where `solve_lcp_jacobi_packed` streams A,
+    else "jacobi_packed"."""
+    return "jacobi_packed_stream" if streams_a(padded_rows(K)) else "jacobi_packed"
+
+
 def _fused_step(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
                 call=_run) -> State:
-    """Counterpart of the JAX package's `_fused_step_packed`: contacts,
-    then B1 (body prep), B4 (Jacobian blocks), B5 (A = J M^-1 J^T with
-    cfm_always), B6 (packed heavy-ball Jacobi) and B7 (integrate) on the
-    compact (B, 3K, 12) blocks.  No dense Jacobian and no CFM check.
+    """Counterpart of the JAX package's `_fused_step_all_kernel`, for any
+    B: B2p (packed narrowphase, when the scene has pairs), B3 (compaction,
+    depth cap and dedupe), the ball joints as equality lanes, then B1 (body
+    prep), B4 (Jacobian blocks), B5 (A = J M^-1 J^T with cfm_always), B6 or
+    B6b (packed heavy-ball Jacobi, A resident or streamed) and B7
+    (integrate) on the compact (B, 3Kx, 12) blocks.  No dense Jacobian, no
+    CFM check and no torch compaction.
 
     Each phase runs as `call(name, fn, args)`, by default fn(*args), with
-    name one of "contacts", "prep", "jassembly", "amat", "jacobi_packed",
-    "integrate": `chip_smoke.py` records each kernel's arguments through
-    it, and `profile_step` times each phase."""
+    name one of "narrowphase", "compact", "prep", "jassembly", "amat",
+    "jacobi_packed" or "jacobi_packed_stream", "integrate": `chip_smoke.py`
+    records each kernel's arguments through it, and `profile_step` times
+    each phase."""
     states = State(*(x.contiguous() for x in states))
-    cs = call("contacts", make_contacts_batched, (spec, states, cfg))
-    K = cs.capacity
+    eps2 = cfg.min_constraint_distance ** 2
+    pair = None
+    if spec.num_pairs > 0:
+        pair = call("narrowphase", collide_boxes_lanes_packed, (
+            states.p, states.q, spec.half_extents, spec.pair_i, spec.pair_j))
+    cs = call("compact", compact_contacts, (
+        states.p, states.q, spec.half_extents, spec.ground_enabled, pair, spec.pair_i,
+        spec.pair_j, cfg.contact_capacity, eps2, depth_cap(cfg)))
+    pos1, eq = cs.position, None
+    if spec.num_joints > 0:
+        cs, pos1, eq = _with_joint_lanes(spec, states, cs, eps2)
+    Kx = cs.capacity
     uhat, invIg, F = call("prep", prep_bodies, (
         states.q, states.v, states.w, spec.inv_mass, spec.inertia_body, spec.inv_inertia_body,
         cfg.dt, cfg.gravity, _batched_ext(ext_forces, states)))
     Jc, rhs = call("jassembly", contact_jacobian_blocks, (
-        cs.b0, cs.b1, cs.position, cs.position, cs.normal, effective_depth(cs.depth, cfg),
-        cs.active, None, states.p, uhat, float(cfg.erp / cfg.dt / cfg.dt)))
+        cs.b0, cs.b1, cs.position, pos1, cs.normal, cs.depth, cs.active, eq, states.p, uhat,
+        float(cfg.erp / cfg.dt / cfg.dt)))
     A, diag = call("amat", contact_system_matrix, (
-        Jc, cs.b0, cs.b1, cs.active, spec.inv_mass, invIg, K, cfg.cfm_always))
-    lam = call("jacobi_packed", solve_lcp_jacobi_packed, (
-        A, diag, rhs, cs.active, None, K, cfg.friction_bound, cfg.solver_iters,
+        Jc, cs.b0, cs.b1, cs.active, spec.inv_mass, invIg, Kx, cfg.cfm_always))
+    lam = call(jacobi_phase(Kx), solve_lcp_jacobi_packed, (
+        A, diag, rhs, cs.active, eq, Kx, cfg.friction_bound, cfg.solver_iters,
         cfg.jacobi_omega, cfg.jacobi_beta))
     p, q, v, w = call("integrate", integrate_step, (
         Jc, lam, cs.b0, cs.b1, states.p, states.q, states.v, states.w, spec.inv_mass, invIg, F,

@@ -1,17 +1,23 @@
 """Where the time of one batched step goes, on the card.
 
-    python -m eggshell_tpu_torch.profile_step
+    python -m eggshell_tpu_torch.profile_step [scene ...]
 
 On B = 4096 scenarios of `box_stack(4)` with the bench's jitter, float32:
 
 1. the fused step (bench configuration, bench.py:80-94) phase by phase,
    host clock with a synchronise after each phase, the median over REPS
-   steps: contacts, prep, Jacobian blocks, A, packed Jacobi, integrate;
+   steps: packed narrowphase, compaction, prep, Jacobian blocks, A, packed
+   Jacobi, integrate;
 2. one torch.profiler window of REPS steps for each branch (fused, and
    the unfused conditional-CFM branch): device operations per step, device
    time per step, host clock per step over the window, the device's busy
-   share, and the kernels that take the most device time;
+   share, the kernels that take the most device time, and the device
+   operations a step whose name shows a cumsum or scatter;
 3. the host clock per step of REPS steps outside any profiler.
+
+Each BASELINE scene named on the command line (`physics.scenes.BASELINE`:
+box_drop, pendulum_chain6, box_stack8, living_room) gets 1 and 2 and 3 for
+its fused step too, with its capacity and jitter.
 
 Prints one line per result and a JSON line.  It needs a CUDA device; it
 never falls back to the CPU.
@@ -27,7 +33,6 @@ import time
 import torch
 
 from eggshell_tpu_torch.physics import scenes
-from eggshell_tpu_torch.physics.scene import State
 from eggshell_tpu_torch.physics.stepper import _fused_step, step_ode_batched
 from eggshell_tpu_torch.utils.config import BENCH
 from eggshell_tpu_torch.utils.profiling import device_window
@@ -35,13 +40,7 @@ from eggshell_tpu_torch.utils.profiling import device_window
 B = 4096
 REPS = 10
 UNFUSED = BENCH.replace(conditional_cfm=True, cond_estimator="power")
-
-
-def jittered_stack(B: int, dev):
-    spec, st = scenes.box_stack(4, device=dev, dtype=torch.float32)
-    states = State(*[x.expand((B,) + x.shape).clone() for x in st])
-    jitter = torch.linspace(0, 1e-3, B, device=dev, dtype=torch.float32)
-    return spec, states._replace(p=states.p + jitter[:, None, None])
+COMPACTION_OPS = ("cumsum", "scatter")
 
 
 def fused_phases(spec, st, cfg, reps: int) -> dict:
@@ -74,37 +73,52 @@ def host_ms_per_step(spec, st, cfg, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def main() -> int:
+def profile(tag, spec, st, cfg) -> dict:
+    """Items 2 and 3 of the module's description for one configuration."""
+    w = device_window(lambda: step_ode_batched(spec, st, cfg), REPS)
+    host = host_ms_per_step(spec, st, cfg, REPS)
+    top = sorted(w["by_name"].items(), key=lambda kv: -kv[1][0])[:12]
+    compaction = sum(n for name, (_, n) in w["by_name"].items()
+                     if any(op in name.lower() for op in COMPACTION_OPS))
+    print(f"[profile {tag}] {w['launches']:.1f} device operations a step, device time "
+          f"{w['device_ms']:.4f} ms, host clock {w['wall_ms']:.4f} ms a step in the window "
+          f"(busy {100 * w['busy']:.1f} %); {host:.4f} ms a step unprofiled; "
+          f"{compaction:.1f} cumsum/scatter operations a step")
+    for name, (ms, n) in top:
+        print(f"  {ms:.4f} ms, {n:.1f} a step: {name[:110]}")
+    out = {k: w[k] for k in ("launches", "device_ms", "wall_ms", "busy")}
+    out.update(unprofiled_ms=host, compaction_ops=compaction,
+               top=[(name[:110], ms, n) for name, (ms, n) in top])
+    return out
+
+
+def report_phases(tag, spec, st, cfg) -> dict:
+    phases = fused_phases(spec, st, cfg, REPS)
+    total = sum(phases.values())
+    print(f"[phases {tag}] synchronised after each phase, medians summing to {total:.4f} ms "
+          f"a step:")
+    for name, ms in phases.items():
+        print(f"  {name}: {ms:.4f} ms ({100 * ms / total:.1f} %)")
+    return phases
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    spec, st = jittered_stack(B, dev)
+    spec, st, cfg = scenes.baseline_batch("box_stack4", B, device=dev)
     result = {"B": B, "reps": REPS, "card": torch.cuda.get_device_name(0)}
-
-    phases = fused_phases(spec, st, BENCH, REPS)
-    total = sum(phases.values())
-    print(f"[phases fused] synchronised after each phase, medians summing to {total:.4f} ms "
-          f"a step:")
-    for name, ms in phases.items():
-        print(f"  {name}: {ms:.4f} ms ({100 * ms / total:.1f} %)")
-    result["phases_fused_ms"] = phases
-
-    for tag, cfg in (("fused", BENCH), ("unfused", UNFUSED)):
-        w = device_window(lambda: step_ode_batched(spec, st, cfg), REPS)
-        host = host_ms_per_step(spec, st, cfg, REPS)
-        top = sorted(w["by_name"].items(), key=lambda kv: -kv[1][0])[:12]
-        print(f"[profile {tag}] {w['launches']:.1f} device operations a step, device time "
-              f"{w['device_ms']:.4f} ms, host clock {w['wall_ms']:.4f} ms a step in the window "
-              f"(busy {100 * w['busy']:.1f} %); {host:.4f} ms a step unprofiled")
-        for name, (ms, n) in top:
-            print(f"  {ms:.4f} ms, {n:.1f} a step: {name[:110]}")
-        result[tag] = {k: w[k] for k in ("launches", "device_ms", "wall_ms", "busy")}
-        result[tag]["unprofiled_ms"] = host
-        result[tag]["top"] = [(name[:110], ms, n) for name, (ms, n) in top]
+    result["phases_fused_ms"] = report_phases("fused", spec, st, cfg)
+    for tag, c in (("fused", cfg), ("unfused", UNFUSED)):
+        result[tag] = profile(tag, spec, st, c)
+    for name in argv:
+        sspec, sst, scfg = scenes.baseline_batch(name, B, device=dev)
+        result[name] = {"phases_ms": report_phases(name, sspec, sst, scfg),
+                        **profile(name, sspec, sst, scfg)}
     print(json.dumps(result))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -17,6 +17,8 @@ package.
   float64, within 1e-8.
 - The f32 oracle gate of bench.py under the bench configuration on the CPU.
 - The builders of `physics/scenes.py` default to the card.
+- The fused step's phases, seen through its hook: the packed narrowphase,
+  the compaction kernel, then the five kernels of the solve.
 """
 
 import functools
@@ -41,11 +43,14 @@ from eggshell_tpu.utils.config import SimConfig as JaxSimConfig
 from eggshell_tpu_torch import convert
 from eggshell_tpu_torch.ops.amat_kernel import (contact_system_matrix,
                                                 contact_system_matrix_plain, padded_rows)
+from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes_packed
+from eggshell_tpu_torch.ops.compact_kernel import compact_contacts
 from eggshell_tpu_torch.ops.integrate_kernel import integrate_step, integrate_step_plain
 from eggshell_tpu_torch.ops.jassembly_kernel import (contact_jacobian_blocks,
                                                      contact_jacobian_blocks_plain)
 from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi_packed,
-                                               solve_lcp_jacobi_packed_plain)
+                                               solve_lcp_jacobi_packed_plain,
+                                               solve_lcp_jacobi_packed_stream)
 from eggshell_tpu_torch.ops.prep_kernel import prep_bodies, prep_bodies_plain
 from eggshell_tpu_torch.parallel.rollout import rollout_batched
 from eggshell_tpu_torch.physics import scenes as ts
@@ -298,8 +303,9 @@ def test_integrate_plain_matches_pallas_kernel():
 
 def test_wrappers_take_plain_versions_on_cpu():
     d, c, Jc, invig, lam, F = _integrate_inputs(8)
-    wrappers = (prep_bodies, contact_jacobian_blocks, contact_system_matrix,
-                solve_lcp_jacobi_packed, integrate_step)
+    wrappers = (collide_boxes_lanes_packed, compact_contacts, prep_bodies,
+                contact_jacobian_blocks, contact_system_matrix, solve_lcp_jacobi_packed,
+                solve_lcp_jacobi_packed_stream, integrate_step)
     before = [f.launches for f in wrappers]
     got = integrate_step(_t(Jc), _t(lam), _t(c["b0"]), _t(c["b1"]), _t(d["p"]), _t(d["q"]),
                          _t(d["v"]), _t(d["w"]), _t(d["inv_mass"]), _t(invig), _t(F), DT)
@@ -378,7 +384,8 @@ def test_fused_step_honours_ext_forces():
 
 
 def test_scene_builders_default_to_the_card():
-    for builder in (ts.cairn, ts.box_drop, ts.box_stack):
+    for builder in (ts.cairn, ts.box_drop, ts.box_stack, ts.chain, ts.pendulum_chain,
+                    ts.living_room):
         assert inspect.signature(builder).parameters["device"].default == "cuda"
 
 
@@ -395,5 +402,6 @@ def test_fused_step_runs_each_phase_through_its_hook():
 
     got = _fused_step(spec, states, BENCH, call=record)
     want = step_ode_batched(spec, states, BENCH)
-    assert names == ["contacts", "prep", "jassembly", "amat", "jacobi_packed", "integrate"]
+    assert names == ["narrowphase", "compact", "prep", "jassembly", "amat", "jacobi_packed",
+                     "integrate"]
     assert all(torch.equal(g, w) for g, w in zip(got, want))

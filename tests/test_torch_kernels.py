@@ -12,6 +12,11 @@ chain's straight-line kernels (prep, Jacobian blocks, A, integrate) keep
 their plain versions' order of operations and are built with
 --fmad=false, so they are held to 1e-5 relative to the output's scale
 (sinf, cosf and the reduction order of A's sums differ by an ulp or so).
+The packed narrowphase runs the lanes entry's device function and must
+agree with it bit for bit; the compaction kernel must give the plain
+version's ids and flags exactly and its geometry within 1e-6; the streamed
+Jacobi must agree bit for bit with the resident one (the same sums in the
+same order) and within 1e-4 relative with the plain version.
 """
 
 import numpy as np
@@ -20,13 +25,18 @@ import torch
 
 from eggshell_tpu_torch.ops.amat_kernel import contact_system_matrix, contact_system_matrix_plain
 from eggshell_tpu_torch.ops.collision import collide_boxes
-from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes
+from eggshell_tpu_torch.ops.collision_kernel import (collide_boxes_lanes,
+                                                    collide_boxes_lanes_packed,
+                                                    collide_boxes_lanes_packed_plain, gather_pairs)
+from eggshell_tpu_torch.ops.compact_kernel import compact_contacts, compact_contacts_plain
 from eggshell_tpu_torch.ops.integrate_kernel import integrate_step, integrate_step_plain
 from eggshell_tpu_torch.ops.jassembly_kernel import (contact_jacobian_blocks,
                                                      contact_jacobian_blocks_plain)
 from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi, solve_lcp_jacobi_packed,
                                                solve_lcp_jacobi_packed_plain,
+                                               solve_lcp_jacobi_packed_stream,
                                                solve_lcp_jacobi_plain)
+from eggshell_tpu_torch.ops.quaternion import quat_to_mat
 from eggshell_tpu_torch.ops.prep_kernel import prep_bodies, prep_bodies_plain
 from eggshell_tpu_torch.parallel.rollout import rollout_batched
 from eggshell_tpu_torch.physics import scenes
@@ -202,10 +212,115 @@ def test_fused_chain_kernels_match_plain(dev):
 def test_fused_slice_goes_through_the_fused_kernels(dev):
     spec, st = scenes.box_stack(4, device=dev, dtype=torch.float32)
     states = State(*[x.expand((64,) + x.shape).clone() for x in st])
-    wrappers = (collide_boxes_lanes, prep_bodies, contact_jacobian_blocks, contact_system_matrix,
-                solve_lcp_jacobi_packed, integrate_step, solve_lcp_jacobi)
+    wrappers = (collide_boxes_lanes_packed, compact_contacts, prep_bodies,
+                contact_jacobian_blocks, contact_system_matrix, solve_lcp_jacobi_packed,
+                integrate_step, collide_boxes_lanes, solve_lcp_jacobi,
+                solve_lcp_jacobi_packed_stream)
     before = [f.launches for f in wrappers]
     out = rollout_batched(spec, states, BENCH, 5)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [5, 5, 5, 5, 5, 5, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [5, 5, 5, 5, 5, 5, 5, 0, 0, 0]
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+
+
+def _jittered_scene(name, dev, B=256, seed=0):
+    """B scenarios of a BASELINE scene, positions moved by 2 mm N(0, 1)."""
+    spec, states, cfg = scenes.baseline_batch(name, B, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    noise = 2e-3 * torch.randn(states.p.shape, generator=g)
+    return spec, states._replace(p=(states.p + noise.to(dev)).contiguous()), cfg
+
+
+def test_packed_narrowphase_kernel_matches_lanes_kernel_and_plain(dev):
+    spec, st, _ = _jittered_scene("box_stack8", dev)
+    args = (st.p, st.q, spec.half_extents, spec.pair_i, spec.pair_j)
+    before = collide_boxes_lanes_packed.launches
+    got = collide_boxes_lanes_packed(*args)
+    assert collide_boxes_lanes_packed.launches == before + 1
+    B, P = st.p.shape[0], spec.num_pairs
+    lanes = collide_boxes_lanes(*gather_pairs(st.p, quat_to_mat(st.q), spec.half_extents,
+                                              spec.pair_i, spec.pair_j))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], lanes.position.reshape(B, P, 12, 3))
+    assert torch.equal(got[1], lanes.normal[:, 0].reshape(B, P, 3))
+    assert torch.equal(got[2], lanes.depth.reshape(B, P, 12))
+    assert torch.equal(got[3], lanes.active.reshape(B, P, 12))
+    want = collide_boxes_lanes_packed_plain(*args)
+    assert float((got[3] == want[3]).float().mean()) >= 0.99
+    both = got[3] & want[3]
+    assert both.any()
+    assert float((got[0] - want[0]).abs().amax(-1)[both].max()) <= 1e-4
+
+
+def _assert_same_lanes(got, want):
+    for k in ("b0", "b1", "active"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    for k in ("position", "normal", "depth"):
+        assert float((getattr(got, k) - getattr(want, k)).abs().max()) <= 1e-6, k
+
+
+@pytest.mark.parametrize("case", ["box_stack8", "box_drop", "dedupe", "depth_cap", "overflow"])
+def test_compact_kernel_matches_plain(dev, case):
+    scene = "box_drop" if case == "box_drop" else "box_stack8"
+    spec, st, cfg = _jittered_scene(scene, dev)
+    K, eps2, cap = cfg.contact_capacity, 1e-12, None
+    if case == "dedupe":
+        eps2 = 0.35 ** 2        # the corners of a face are 0.3 apart
+    if case == "depth_cap":
+        cap = 2e-4
+    if case == "overflow":
+        K = 6
+    pair = None
+    if spec.num_pairs:
+        pair = collide_boxes_lanes_packed(st.p, st.q, spec.half_extents, spec.pair_i,
+                                          spec.pair_j)
+    args = (st.p, st.q, spec.half_extents, spec.ground_enabled, pair, spec.pair_i, spec.pair_j,
+            K, eps2, cap)
+    before = compact_contacts.launches
+    got = compact_contacts(*args)
+    torch.cuda.synchronize()
+    assert compact_contacts.launches == before + 1
+    want = compact_contacts_plain(*args)
+    _assert_same_lanes(got, want)
+    assert bool(want.active.any())
+    if case == "dedupe":
+        assert bool(((want.b1 >= 0) & ~want.active).any())
+
+
+def test_streamed_jacobi_kernel_matches_plain_and_resident(dev):
+    rng = np.random.default_rng(1)
+    B, K = 256, 32
+    mp = 96
+    G = torch.as_tensor(rng.normal(size=(B, mp, 24)), dtype=torch.float32, device=dev)
+    A = (G @ G.transpose(-1, -2) / 24 + torch.eye(mp, device=dev)).contiguous()
+    diag = torch.diagonal(A, dim1=-2, dim2=-1).contiguous()
+    rhs = torch.as_tensor(rng.normal(size=(B, 3 * K)), dtype=torch.float32, device=dev)
+    act = torch.as_tensor(rng.uniform(size=(B, K)) < 0.8, device=dev)
+    eq = torch.as_tensor(rng.uniform(size=(B, K)) < 0.1, device=dev)
+    lcp = (A, diag, rhs, act, eq, K, 1.0, 16, 0.3, 0.45)
+    before = (solve_lcp_jacobi_packed_stream.launches, solve_lcp_jacobi_packed.launches)
+    got = solve_lcp_jacobi_packed(*lcp)                   # mp = 96 streams
+    resident = solve_lcp_jacobi_packed(*lcp, stream=False)
+    torch.cuda.synchronize()
+    assert (solve_lcp_jacobi_packed_stream.launches - before[0],
+            solve_lcp_jacobi_packed.launches - before[1]) == (1, 1)
+    assert torch.equal(got, resident)
+    _close((got,), (solve_lcp_jacobi_packed_plain(*lcp),), rel=1e-4)
+
+
+@pytest.mark.parametrize("name", ["box_drop", "pendulum_chain6", "box_stack8", "living_room"])
+def test_baseline_scene_goes_through_its_kernels(dev, name):
+    spec, states, cfg = scenes.baseline_batch(name, 64, device=dev)
+    wrappers = {"narrowphase_packed": collide_boxes_lanes_packed, "compact": compact_contacts,
+                "jacobi_packed": solve_lcp_jacobi_packed,
+                "jacobi_packed_stream": solve_lcp_jacobi_packed_stream,
+                "integrate": integrate_step}
+    before = {k: f.launches for k, f in wrappers.items()}
+    out = rollout_batched(spec, states, cfg, 3)
+    torch.cuda.synchronize()
+    got = {k: f.launches - before[k] for k, f in wrappers.items()}
+    pairs, streamed = spec.num_pairs > 0, cfg.contact_capacity == 32
+    assert got == {"narrowphase_packed": 3 if pairs else 0, "compact": 3,
+                   "jacobi_packed": 0 if streamed else 3,
+                   "jacobi_packed_stream": 3 if streamed else 0, "integrate": 3}
     assert all(bool(torch.isfinite(x).all()) for x in out)
