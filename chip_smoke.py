@@ -20,7 +20,19 @@ B=4096, H=50:
   their contact capacities and jitters (phases `[scene_box_drop]`,
   `[scene_pendulum_chain6]`, `[scene_box_stack8]`, `[scene_living_room]`):
   the ground-only compaction where a scene has no pairs, the streamed
-  Jacobi where the solve has 72 rows or more.
+  Jacobi where the solve has 72 rows or more;
+- the fused chain with Coulomb-pyramid friction and with block-Jacobi on
+  `box_stack(4)` (phases `[slice_pyramid]`, `[slice_block]`; the B6 forms
+  are held alone in `[jacobi_packed_pyramid]`, `[jacobi_packed_block]`),
+  and `pendulum_chain(6)`'s ball joints on the unfused branch
+  (`[slice_joints_unfused]`).
+
+The block-Jacobi solve B6c' has no stepping path: `[jacobi_block]` calls
+its entry `solve_lcp_jacobi(block=True)` on the unfused slice's first LCP.
+The 2D FDTD step B8 is held against its plain version at n = 512 and
+2048 (`[fdtd2d]`), and `fem.fdtd.simulate_2d` runs 200 steps at n = 2048
+(`[fdtd2d_rollout]`), with the example's aperture at n = 160 against the
+plain path on the CPU and a cavity's energy over 2000 steps.
 
 Each path's oracle gate holds the unjittered stack to the DIRECT/f64
 trajectory in tests/data/oracle_stack4_f64.npz (bound 1e-3 at every stored
@@ -78,6 +90,24 @@ def bench_cfg():
 def slice_cfg():
     """The unfused branch: the reference's conditional CFM policy."""
     return bench_cfg().replace(conditional_cfm=True, cond_estimator="power")
+
+
+def pyramid_cfg():
+    """The fused chain with Coulomb-pyramid friction (friction_mu 0.5)."""
+    from eggshell_tpu_torch.utils.config import FrictionModel
+
+    return bench_cfg().replace(friction_model=FrictionModel.COULOMB_PYRAMID)
+
+
+def block_cfg():
+    """The fused chain with 3x3 block-Jacobi sweeps (omega 0.3, beta 0.45:
+    on the CPU's plain path they hold box_stack(4), as the scalar sweeps do)."""
+    return bench_cfg().replace(jacobi_block=True)
+
+
+def joints_unfused_cfg():
+    """pendulum_chain6's capacity on the unfused conditional-CFM branch."""
+    return slice_cfg().replace(contact_capacity=4)
 
 
 def card_line() -> str:
@@ -226,10 +256,9 @@ def phase_narrowphase(dev, main_args):
     return {"max_abs_err": err, **t, **b}
 
 
-def phase_jacobi(dev, main_lcp):
-    from eggshell_tpu_torch.ops.pgs_kernel import solve_lcp_jacobi, solve_lcp_jacobi_plain
-
-    B, m, iters, omega, beta = 4096, 60, 16, 0.3, 0.45
+def random_spd_lcp(dev, B=4096, m=60):
+    """A seeded SPD system (4096, 60, 60) with contact-like rows: tangents
+    in [-1, 1], normals in [0, inf), every tenth row an equality."""
     g = torch.Generator(device="cpu").manual_seed(SEED)
     G = torch.randn(B, m, 24, generator=g, dtype=torch.float64)
     A = (G @ G.transpose(-1, -2) / 24 + torch.eye(m, dtype=torch.float64)).float().to(dev)
@@ -239,6 +268,14 @@ def phase_jacobi(dev, main_lcp):
     normal = (row % 3 == 2).expand(B, m)
     lo = torch.where(normal, 0.0, -1.0).float().contiguous().to(dev)
     hi = torch.where(normal, float("inf"), 1.0).float().contiguous().to(dev)
+    return A, b, is_eq, lo, hi
+
+
+def phase_jacobi(dev, main_lcp):
+    from eggshell_tpu_torch.ops.pgs_kernel import solve_lcp_jacobi, solve_lcp_jacobi_plain
+
+    iters, omega, beta = 16, 0.3, 0.45
+    A, b, is_eq, lo, hi = random_spd_lcp(dev)
 
     def compare(what, args):
         got = solve_lcp_jacobi(*args, iters, omega, beta)
@@ -276,11 +313,11 @@ def main_path_inputs(dev):
     return nargs, lcp
 
 
-def fused_inputs(dev, name="box_stack4"):
+def fused_inputs(dev, name="box_stack4", cfg=None):
     """Each fused-chain kernel's arguments at the first step of B_SLICE
     scenarios of the BASELINE scene `name` (bench configuration, the
-    scene's capacity and jitter), recorded from one call of the stepper's
-    `_fused_step`, keyed by phase name."""
+    scene's capacity and jitter, or `cfg`), recorded from one call of the
+    stepper's `_fused_step`, keyed by phase name."""
     from eggshell_tpu_torch.physics import scenes
     from eggshell_tpu_torch.physics.stepper import _fused_step
 
@@ -290,8 +327,8 @@ def fused_inputs(dev, name="box_stack4"):
         args[phase] = a
         return fn(*a)
 
-    spec, st, cfg = scenes.baseline_batch(name, B_SLICE, device=dev)
-    _fused_step(spec, st, cfg, call=record)
+    spec, st, scene_cfg = scenes.baseline_batch(name, B_SLICE, device=dev)
+    _fused_step(spec, st, scene_cfg if cfg is None else cfg, call=record)
     torch.cuda.synchronize()
     return args
 
@@ -360,8 +397,10 @@ def _fused_flops(name, args) -> float:
         same = (b[:, :, None, :, None] == b[:, None, :, None, :]) & (b[:, :, None, :, None] >= 0)
         return 12.0 * 9 * float(same.sum()) + 5.0 * Jc.numel()
     if name == "jacobi_packed":
+        # a block sweep adds three products and sums a row (y from rv)
         B, m, iters = args[2].shape[0], args[2].shape[1], args[7]
-        return B * iters * (2.0 * m * m + 10.0 * m)
+        block = len(args) > 10 and args[10]
+        return B * iters * (2.0 * m * m + (16.0 if block else 10.0) * m)
     if name == "integrate":
         b0, b1, p = args[2], args[3], args[4]
         slots = float((b0 >= 0).sum() + (b1 >= 0).sum())
@@ -637,6 +676,7 @@ def phase_jacobi_packed_stream(dev, firsts):
     cases += [(f"first-step inputs of {tag}", a) for tag, a in firsts]
     err = 0.0
     for what, args in cases:
+        args = args[:10]        # the fused step also passes block=False, pyramid_mu=0
         got = solve_lcp_jacobi_packed_stream(*args)
         want = solve_lcp_jacobi_packed_plain(*args)
         resident = solve_lcp_jacobi_packed(*args, stream=False)
@@ -648,6 +688,7 @@ def phase_jacobi_packed_stream(dev, firsts):
         check(bool(torch.isfinite(got).all()), f"jacobi_packed_stream output not finite on {what}")
         check(rel <= 1e-4, f"jacobi_packed_stream relative error {rel} on {what}")
     tag, main_args = firsts[0]
+    main_args = main_args[:10]
     t = timings("jacobi_packed_stream_kernel", lambda: solve_lcp_jacobi_packed_stream(*main_args),
                 lambda: solve_lcp_jacobi_packed_plain(*main_args))
     tr = timings("jacobi_packed_kernel", lambda: solve_lcp_jacobi_packed(*main_args, stream=False),
@@ -658,6 +699,216 @@ def phase_jacobi_packed_stream(dev, firsts):
           f"{timing_text(t)}; resident B6 on the same inputs {tr['ms']:.4f} ms; bound "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes, {b['flops']:.4g} flops)")
     return {"max_abs_err": err, **t, **b, "resident_ms": tr["ms"]}
+
+
+def phase_jacobi_packed_form(dev, tag, kernel_name, block, pyramid_mu, first):
+    """One B6 form (3x3 block sweeps, or pyramid bounds) against the plain
+    version on a seeded SPD system at K=20 (mp=64) and on the first-step
+    inputs of its rollout `first` (relative bound 1e-5 of max |x|; only
+    A x is summed in another order), then timed on the latter."""
+    from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi_packed,
+                                                   solve_lcp_jacobi_packed_plain)
+
+    cases = [("seeded random SPD (4096, 64, 64)",
+              random_lcp(dev, 4096, 20, SEED + 5) + (block, pyramid_mu)),
+             (f"first-step inputs of [{first[0]}]", first[1])]
+    err = 0.0
+    for what, args in cases:
+        check(args[10:12] == (block, pyramid_mu), f"{tag}: inputs of another form {args[10:12]}")
+        got = solve_lcp_jacobi_packed(*args)
+        want = solve_lcp_jacobi_packed_plain(*args)
+        e = float((got - want).abs().max())
+        rel = e / float(want.abs().max())
+        err = max(err, e)
+        print(f"[{tag}] {what}: max |dx| {e:.3e}, relative to max |x| {rel:.3e} (bound 1e-5); "
+              f"bit for bit {torch.equal(got, want)}")
+        check(bool(torch.isfinite(got).all()), f"{tag} output not finite on {what}")
+        check(rel <= 1e-5, f"{tag} relative error {rel} on {what}")
+    main_args = cases[1][1]
+    t = timings(kernel_name, lambda: solve_lcp_jacobi_packed(*main_args),
+                lambda: solve_lcp_jacobi_packed_plain(*main_args))
+    b = bound(moved_bytes(main_args, solve_lcp_jacobi_packed(*main_args)),
+              _fused_flops("jacobi_packed", main_args))
+    print(f"[{tag}] main-path shapes, A {tuple(main_args[0].shape)}: {timing_text(t)}, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes, {b['flops']:.4g} flops)")
+    return {"max_abs_err": err, **t, **b}
+
+
+def phase_jacobi_block(dev, main_lcp):
+    """B6c' against its plain version on the seeded SPD system and on the
+    unfused slice's first LCP (relative bound 1e-5 of max |x|), then its
+    path: one call of its entry `solve_lcp_jacobi(block=True)` with every
+    launch counter at 0 just before must launch it once and nothing else."""
+    from eggshell_tpu_torch.ops.pgs_kernel import solve_lcp_jacobi, solve_lcp_jacobi_plain
+
+    iters, omega, beta = 16, 0.3, 0.45
+    cases = [("SPD (4096, 60, 60)", random_spd_lcp(dev)),
+             (f"main-path inputs {tuple(main_lcp[0].shape)}", main_lcp)]
+    err = 0.0
+    for what, args in cases:
+        got = solve_lcp_jacobi(*args, iters, omega, beta, block=True)
+        want = solve_lcp_jacobi_plain(*args, iters, omega, block=True)
+        e = float((got - want).abs().max())
+        rel = e / float(want.abs().max())
+        err = max(err, e)
+        print(f"[jacobi_block] {what}, iters 16: max |dx| {e:.3e}, relative {rel:.3e} "
+              f"(bound 1e-5); bit for bit {torch.equal(got, want)}")
+        check(bool(torch.isfinite(got).all()), "jacobi_block output not finite")
+        check(rel <= 1e-5, f"jacobi_block relative error {rel}")
+
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = solve_lcp_jacobi(*main_lcp, iters, omega, beta, block=True)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: int(name == "jacobi_block") for name in counters}
+    print(f"[jacobi_block] one call of solve_lcp_jacobi(block=True): launches {launches}")
+    check(launches == want, f"jacobi_block launches {launches}, expected {want}")
+
+    t = timings("block_jacobi_kernel",
+                lambda: solve_lcp_jacobi(*main_lcp, iters, omega, beta, block=True),
+                lambda: solve_lcp_jacobi_plain(*main_lcp, iters, omega, block=True))
+    Bm, mm = main_lcp[1].shape
+    b = bound(moved_bytes(main_lcp, out), Bm * iters * (2.0 * mm * mm + 16.0 * mm))
+    print(f"[jacobi_block] main-path shape {tuple(main_lcp[0].shape)}: {timing_text(t)}, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes)")
+    return {"max_abs_err": err, **t, **b, "launches": launches["jacobi_block"]}
+
+
+def fdtd_grids(dev, n, seed):
+    """Seeded random Ez, Hx, Hy on an n x n grid with a relative
+    permittivity in [1, 4] and a PEC wall across column n/2 (with an
+    aperture) plus 5 % random PEC cells, as the fused step's grids."""
+    from eggshell_tpu_torch.fem.fdtd import Field2D, fused_grids
+
+    rng = np.random.default_rng(SEED + n)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    field = Field2D(f(rng.normal(size=(n, n))), f(rng.normal(size=(n, n - 1))),
+                    f(rng.normal(size=(n - 1, n))))
+    pec = rng.uniform(size=(n, n)) < 0.05
+    pec[:, n // 2] = True
+    pec[n // 2 - n // 20:n // 2 + n // 20, n // 2] = False
+    return fused_grids(field, f(rng.uniform(1.0, 4.0, (n, n))), torch.as_tensor(pec, device=dev))
+
+
+def phase_fdtd2d(dev):
+    """B8 against its plain version at n = 512 and 2048 (bit for bit
+    expected: no sums; 1e-6 of max |ez| required), timed at both; the row
+    of the kernels line is n = 2048's, the rollout's size."""
+    from eggshell_tpu_torch.fem.fdtd import courant_dt, step_2d_fused, step_2d_fused_plain
+
+    res = {}
+    for n in (512, 2048):
+        grids = fdtd_grids(dev, n, SEED)
+        dx = 1.0 / (n - 1)
+        dt = courant_dt(dx, 2, 0.7)
+        got = step_2d_fused(*grids, dt, dx)
+        want = step_2d_fused_plain(*grids, dt, dx)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        scale = float(want[0].abs().max())
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"[fdtd2d] n={n}, seeded random fields, eps_r and PEC: max |d| {err:.3e} of max "
+              f"|ez| {scale:.3e} (bound 1e-6 of it); bit for bit {same}")
+        check(all(bool(torch.isfinite(g).all()) for g in got), f"fdtd2d output not finite, n={n}")
+        check(err <= 1e-6 * scale, f"fdtd2d error {err} at n={n}")
+        t = timings("fdtd2d_kernel", lambda: step_2d_fused(*grids, dt, dx),
+                    lambda: step_2d_fused_plain(*grids, dt, dx))
+        b = bound(moved_bytes(grids, got), 15.0 * n * n)
+        print(f"[fdtd2d] n={n}: {timing_text(t)}, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}: {b['bytes']} bytes)")
+        res = {"max_abs_err": err, **t, **b}
+    return res
+
+
+def aperture_run(dev, n, steps, dtype=torch.float32, source_col=None):
+    """examples/fdtd_aperture.py's run at n: dx = 1 / (n - 1), the Courant
+    step at safety 0.7, a PEC wall across column n/2 with an aperture of
+    rows n/2 - n/20 .. n/2 + n/20, a Gaussian soft source (t0 40 dt, sigma
+    12 dt) at row n/2, column n/5 or `source_col`.  Returns (pec, final
+    field, probe trace at the aperture)."""
+    from eggshell_tpu_torch.fem.fdtd import courant_dt, init_2d, simulate_2d
+
+    dx = 1.0 / (n - 1)
+    dt = courant_dt(dx, 2, 0.7)
+    pec = torch.zeros((n, n), dtype=torch.bool, device=dev)
+    pec[:, n // 2] = True
+    pec[n // 2 - n // 20:n // 2 + n // 20, n // 2] = False
+    t0, sig = 40 * dt, 12 * dt
+    col = n // 5 if source_col is None else source_col
+    fin, trace = simulate_2d(init_2d(n, n, dtype, device=dev), steps, dt, dx, pec=pec,
+                             source_ij=(n // 2, col),
+                             source_fn=lambda t: torch.exp(-((t - t0) ** 2) / (2 * sig ** 2)),
+                             probe_ij=(n // 2, n // 2))
+    return pec, fin, trace
+
+
+FDTD_N, FDTD_STEPS = 2048, 200
+
+
+def phase_fdtd2d_rollout(dev):
+    """`simulate_2d` at n = 2048 for 200 steps, once to warm up and once
+    timed with every launch counter at 0 just before: B8 must launch once a
+    step and nothing else.  The example's wall and aperture scaled to n;
+    the source 48 cells before the wall (at column n/5 the pulse would need
+    about 1,300 steps to reach it).  Then the example itself at n = 160,
+    260 steps, on the card in float32 against the plain path on the CPU in
+    float64 (1e-4 of max |ez|), and the energy of a source-free TM11 cavity
+    (n = 512) over 2000 steps (within 5 %, as tests/test_fdtd.py)."""
+    from eggshell_tpu_torch.fem.fdtd import courant_dt, energy_2d, init_2d, simulate_2d
+
+    n, steps = FDTD_N, FDTD_STEPS
+    col = n // 2 - 48
+    aperture_run(dev, n, steps, source_col=col)
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pec, fin, trace = aperture_run(dev, n, steps, source_col=col)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    ez = fin.ez
+    on_pec = float(ez[pec].abs().max())
+    leak = float(ez[:, n // 2 + 4:].abs().max())
+    peak = float(ez.abs().max())
+    print(f"[fdtd2d_rollout] n={n}, {steps} steps: {wall:.4f} s, {n * n * steps / wall:.1f} "
+          f"cell-steps/s; launches {launches}; max |ez| {peak:.3e}, on PEC cells {on_pec:.3e} "
+          f"(bound 0), past the wall {leak:.3e} (bound > 0)")
+    check(all(bool(torch.isfinite(x).all()) for x in fin) and bool(torch.isfinite(trace).all()),
+          "fdtd2d_rollout output not finite")
+    want = {name: steps if name == "fdtd2d" else 0 for name in counters}
+    check(launches == want, f"fdtd2d_rollout launches {launches}, expected {want}")
+    check(on_pec == 0.0, f"fdtd2d_rollout |ez| {on_pec} on a PEC cell")
+    check(leak > 0.0, "fdtd2d_rollout: no field past the wall")
+
+    _, card, card_trace = aperture_run(dev, 160, 260)
+    _, cpu, cpu_trace = aperture_run(torch.device("cpu"), 160, 260, torch.float64)
+    err = max(float((card.ez.double().cpu() - cpu.ez).abs().max()),
+              float((card_trace.double().cpu() - cpu_trace).abs().max()))
+    scale = float(cpu.ez.abs().max())
+    leak160 = float(cpu.ez[:, 84:].abs().max()) / scale
+    print(f"[fdtd2d_rollout] examples/fdtd_aperture.py (n=160, 260 steps), card f32 against CPU "
+          f"f64 plain path: max |d| {err:.3e} of max |ez| {scale:.3e} (bound 1e-4 of it); leak "
+          f"ratio past the wall {leak160:.3e}")
+    check(err <= 1e-4 * scale, f"fdtd2d_rollout disagrees with the plain path: {err}")
+
+    nc = 512
+    dx = 1.0 / (nc - 1)
+    dt = courant_dt(dx, 2, 0.7)
+    x = torch.linspace(0, 1, nc, device=dev)
+    f = init_2d(nc, nc, device=dev)
+    f = f._replace(ez=(torch.sin(np.pi * x)[:, None] * torch.sin(np.pi * x)[None, :]).contiguous())
+    f1, _ = simulate_2d(f, 5, dt, dx)
+    e0 = float(energy_2d(f1, dx))
+    f2, _ = simulate_2d(f1, 2000, dt, dx)
+    e1 = float(energy_2d(f2, dx))
+    drift = abs(e1 - e0) / e0
+    print(f"[fdtd2d_rollout] TM11 cavity n={nc}, 2000 steps: energy {e0:.6e} -> {e1:.6e}, "
+          f"drift {drift:.3e} (bound 5e-2)")
+    check(drift < 5e-2, f"fdtd2d_rollout cavity energy drift {drift}")
+    return launches["fdtd2d"], n * n * steps / wall
 
 
 def phase_oracle(dev, cfg, tag):
@@ -684,11 +935,18 @@ def launch_counters():
     from eggshell_tpu_torch.ops.collision_kernel import (collide_boxes_lanes,
                                                         collide_boxes_lanes_packed)
     from eggshell_tpu_torch.ops.compact_kernel import compact_contacts
-    from eggshell_tpu_torch.ops.pgs_kernel import solve_lcp_jacobi, solve_lcp_jacobi_packed_stream
+    from eggshell_tpu_torch.fem.fdtd import step_2d_fused
+    from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi, solve_lcp_jacobi_block,
+                                                   solve_lcp_jacobi_packed_block,
+                                                   solve_lcp_jacobi_packed_pyramid,
+                                                   solve_lcp_jacobi_packed_stream)
 
     out = {"narrowphase": collide_boxes_lanes, "narrowphase_packed": collide_boxes_lanes_packed,
            "compact": compact_contacts, "jacobi": solve_lcp_jacobi,
-           "jacobi_packed_stream": solve_lcp_jacobi_packed_stream}
+           "jacobi_block": solve_lcp_jacobi_block,
+           "jacobi_packed_stream": solve_lcp_jacobi_packed_stream,
+           "jacobi_packed_block": solve_lcp_jacobi_packed_block,
+           "jacobi_packed_pyramid": solve_lcp_jacobi_packed_pyramid, "fdtd2d": step_2d_fused}
     out.update({name: fused_wrapper(name)[0] for name in FUSED_KERNELS})
     return out
 
@@ -718,9 +976,9 @@ def rests(spec, start, final):
 
 def joints_hold(spec, start, final):
     """Every ball joint's two anchors within 1 mm of each other."""
-    from eggshell_tpu_torch.physics.stepper import _joint_anchors
+    from eggshell_tpu_torch.physics.contacts import joint_anchors
 
-    a0, a1 = _joint_anchors(spec, final)
+    a0, a1 = joint_anchors(spec, final)
     sep = float((a0 - a1).norm(dim=-1).max())
     check(sep < 1e-3, f"joint separation {sep} m")
     return f"max joint separation {sep:.3e} m (bound 1e-3)"
@@ -776,10 +1034,11 @@ AGREE_STEPS = 30
 AGREE_BOUND = 2e-3
 
 
-def phase_agreement(dev, tag, scene):
+def phase_agreement(dev, tag, scene, cfg=None):
     """8 of the scene's B_SLICE scenarios, spread over the batch, rolled
-    AGREE_STEPS steps on the card in float32 and by the plain path on the
-    CPU in float64 from the same start: positions and quaternions within
+    AGREE_STEPS steps (its bench configuration, or `cfg`) on the card in
+    float32 and by the plain path on the CPU in float64 from the same
+    start: positions and quaternions within
     AGREE_BOUND.  Velocities are printed beside their scale: under 16
     Jacobi sweeps the 8-box stack's contact impulses amplify rounding, and
     its velocities differ between float32 and float64 by up to their own
@@ -788,7 +1047,8 @@ def phase_agreement(dev, tag, scene):
     from eggshell_tpu_torch.physics import scenes
     from eggshell_tpu_torch.physics.scene import State
 
-    spec, states, cfg = scenes.baseline_batch(scene, B_SLICE, device=dev)
+    spec, states, scene_cfg = scenes.baseline_batch(scene, B_SLICE, device=dev)
+    cfg = scene_cfg if cfg is None else cfg
     idx = torch.linspace(0, B_SLICE - 1, 8, device=dev).round().long()
     start = State(*[x[idx].contiguous() for x in states])
     got = rollout_batched(spec, start, cfg, AGREE_STEPS)
@@ -808,6 +1068,8 @@ def phase_agreement(dev, tag, scene):
 FUSED_PATH = ("narrowphase_packed", "compact", "prep", "jassembly", "amat", "jacobi_packed",
               "integrate")
 UNFUSED_PATH = ("narrowphase", "jacobi")
+PYRAMID_PATH = FUSED_PATH[:5] + ("jacobi_packed_pyramid", "integrate")
+BLOCK_PATH = FUSED_PATH[:5] + ("jacobi_packed_block", "integrate")
 SCENES = {
     # scene: (kernels of its path, physical check)
     "box_drop": (("compact", "prep", "jassembly", "amat", "jacobi_packed", "integrate"), rests),
@@ -835,8 +1097,12 @@ def main() -> int:
           f"({kernels.library_path().name})")
 
     nargs, lcp = main_path_inputs(dev)
-    res = {"narrowphase": phase_narrowphase(dev, nargs), "jacobi": phase_jacobi(dev, lcp)}
+    res = {"narrowphase": phase_narrowphase(dev, nargs), "jacobi": phase_jacobi(dev, lcp),
+           "jacobi_block": phase_jacobi_block(dev, lcp)}
     first = {name: fused_inputs(dev, name) for name in ("box_stack4", *SCENES)}
+    forms = {"slice_pyramid": pyramid_cfg(), "slice_block": block_cfg()}
+    first_forms = {tag: fused_inputs(dev, "box_stack4", cfg)["jacobi_packed"]
+                   for tag, cfg in forms.items()}
     rand = random_fused_inputs(dev)
     for name in FUSED_KERNELS:
         res[name] = phase_fused_kernel(name, [
@@ -855,6 +1121,14 @@ def main() -> int:
         for tag, name in (("scene_box_stack8", "box_stack8"),
                           ("scene_living_room", "living_room"))])
 
+    res["jacobi_packed_block"] = phase_jacobi_packed_form(
+        dev, "jacobi_packed_block", "jacobi_packed_block_kernel", True, 0.0,
+        ("slice_block", first_forms["slice_block"]))
+    res["jacobi_packed_pyramid"] = phase_jacobi_packed_form(
+        dev, "jacobi_packed_pyramid", "jacobi_packed_pyramid_kernel", False,
+        pyramid_cfg().friction_mu, ("slice_pyramid", first_forms["slice_pyramid"]))
+    res["fdtd2d"] = phase_fdtd2d(dev)
+
     phase_oracle(dev, bench_cfg(), "oracle_fused")
     fused_launches, _ = phase_rollout(dev, "slice_fused", "box_stack4", FUSED_PATH, stands)
     phase_oracle(dev, slice_cfg(), "oracle")
@@ -864,6 +1138,14 @@ def main() -> int:
     for scene, (path, physical) in SCENES.items():
         scene_launches[scene], _ = phase_rollout(dev, f"scene_{scene}", scene, path, physical)
         phase_agreement(dev, f"scene_{scene}", scene)
+    form_launches = {}
+    for tag, path in (("slice_pyramid", PYRAMID_PATH), ("slice_block", BLOCK_PATH)):
+        form_launches[tag], _ = phase_rollout(dev, tag, "box_stack4", path, stands,
+                                              cfg=forms[tag])
+        phase_agreement(dev, tag, "box_stack4", cfg=forms[tag])
+    phase_rollout(dev, "slice_joints_unfused", "pendulum_chain6", ("jacobi",), joints_hold,
+                  cfg=joints_unfused_cfg())
+    fdtd_launches, _ = phase_fdtd2d_rollout(dev)
 
     rows = [("narrowphase", "eggshell_tpu_torch/csrc/narrowphase.cu",
              "eggshell_tpu/ops/collision_kernel.py:58", "unfused", unfused_launches["narrowphase"]),
@@ -882,6 +1164,17 @@ def main() -> int:
              scene_launches["box_stack8"]["jacobi_packed_stream"])]
     rows += [(name, FUSED_KERNELS[name][3], FUSED_KERNELS[name][4], "fused",
               fused_launches[name]) for name in FUSED_KERNELS]
+    rows += [("jacobi_packed_block", "eggshell_tpu_torch/csrc/jacobi_packed.cu",
+              "eggshell_tpu/ops/pgs_kernel.py:265", "slice_block",
+              form_launches["slice_block"]["jacobi_packed_block"]),
+             ("jacobi_packed_pyramid", "eggshell_tpu_torch/csrc/jacobi_packed.cu",
+              "eggshell_tpu/ops/pgs_kernel.py:217", "slice_pyramid",
+              form_launches["slice_pyramid"]["jacobi_packed_pyramid"]),
+             ("jacobi_block", "eggshell_tpu_torch/csrc/jacobi.cu",
+              "eggshell_tpu/ops/pgs_kernel.py:86", "solve_lcp_jacobi(block=True), one call",
+              res["jacobi_block"]["launches"]),
+             ("fdtd2d", "eggshell_tpu_torch/csrc/fdtd2d.cu", "eggshell_tpu/fem/fdtd.py:113",
+              "fdtd2d_rollout", fdtd_launches)]
     print(card_line())
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, "path": path,

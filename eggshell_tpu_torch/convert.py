@@ -1,5 +1,5 @@
-"""Scenes and states of the JAX package, as numpy arrays, to the port's
-tensors.
+"""Scenes, states and 2D FDTD fields of the JAX package, as numpy arrays,
+to the port's tensors.
 
 The caller turns the JAX NamedTuples into dicts of numpy arrays
 (``{k: np.asarray(v) for k, v in spec._asdict().items()}``), so this
@@ -16,6 +16,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from eggshell_tpu_torch.fem.fdtd import Field2D
 from eggshell_tpu_torch.physics.scene import SceneSpec, State
 
 
@@ -36,3 +37,7 @@ def spec_from_numpy(fields: Mapping, *, device, dtype) -> SceneSpec:
 def state_from_numpy(fields: Mapping, *, device, dtype) -> State:
     return State(**{k: _tensor(fields[k], device, dtype)
                     for k in State._fields})
+
+
+def field2d_from_numpy(fields: Mapping, *, device, dtype) -> Field2D:
+    return Field2D(**{k: _tensor(fields[k], device, dtype) for k in Field2D._fields})

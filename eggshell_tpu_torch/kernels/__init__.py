@@ -25,7 +25,9 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("narrowphase.cu", "compact.cu", "jacobi.cu", "prep.cu", "jassembly.cu", "amat.cu",
-           "jacobi_packed.cu", "jacobi_packed_stream.cu", "integrate.cu")
+           "jacobi_packed.cu", "jacobi_packed_stream.cu", "integrate.cu", "fdtd2d.cu")
+# Headers the sources include; they count in the library's hash.
+HEADERS = ("block3.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --fmad=false: every product and sum is rounded on its own, as in the
 # plain torch versions (see the note in csrc/narrowphase.cu).
@@ -45,19 +47,25 @@ _SIGNATURES = {
     "eggshell_compact_f32": [_P] * 16 + [_I64, _I, _I, _I, _F, _F, _P],
     # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, beta, stream
     "eggshell_jacobi_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _P],
+    # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, stream
+    "eggshell_jacobi_block_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _P],
     # q, v, w, ext, inv_mass, Ib, invIb, uhat, invIg, F, B, n, inv_dt, gx, gy, gz, stream
     "eggshell_prep_f32": [_P] * 10 + [_I64, _I, _F, _F, _F, _F, _P],
     # b0, b1, pos, pos1, nrm, dep, act, eq, p, uhat, Jc, rhs, B, K, n, erp_dt2, stream
     "eggshell_jassembly_f32": [_P] * 12 + [_I64, _I, _I, _F, _P],
     # Jc, b0, b1, act, inv_mass, invIg, A, diag, B, K, n, mp, cfm, stream
     "eggshell_amat_f32": [_P] * 8 + [_I64, _I, _I, _I, _F, _P],
-    # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, stream
-    "eggshell_jacobi_packed_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _P],
+    # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, pyramid_mu, stream
+    "eggshell_jacobi_packed_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _P],
+    "eggshell_jacobi_packed_pyramid_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _P],
+    "eggshell_jacobi_packed_block_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _P],
     # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, stream
     "eggshell_jacobi_packed_stream_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _P],
     # Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, p_out, q_out, v_out, w_out,
     # B, K, n, lam_stride, dt, stream
     "eggshell_integrate_f32": [_P] * 15 + [_I64, _I, _I, _I, _F, _P],
+    # ez, hx, hy, inv_eps, pec_free, ez_out, hx_out, hy_out, nx, ny, c, stream
+    "eggshell_fdtd2d_f32": [_P] * 8 + [_I, _I, _F, _P],
     "eggshell_cuda_error_string": [_I],
 }
 
@@ -74,7 +82,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libeggshell_kernels_{h.hexdigest()[:16]}.so"
 

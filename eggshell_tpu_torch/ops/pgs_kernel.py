@@ -2,17 +2,23 @@
 their wrappers.
 
 - `solve_lcp_jacobi`: counterpart of
-  `eggshell_tpu.ops.pgs_kernel.solve_lcp_jacobi_pallas` (scalar form,
-  block=False), with bounds given per row; kernel `csrc/jacobi.cu`.
+  `eggshell_tpu.ops.pgs_kernel.solve_lcp_jacobi_pallas`, with bounds given
+  per row.  Scalar heavy-ball sweeps (B6c), kernel `csrc/jacobi.cu`
+  `jacobi_kernel`; with `block=True`, `solve_lcp_jacobi_block` (B6c'):
+  exact 3x3 block-Jacobi, kernel `block_jacobi_kernel` of the same file.
 - `solve_lcp_jacobi_packed`: counterpart of
-  `eggshell_tpu.ops.pgs_kernel.solve_lcp_jacobi_packed` (block=False,
-  pyramid_mu=0), the fused chain's solve, with box-friction bounds built
-  from the lane masks.  It takes the JAX package's resident/streamed
-  switch (`stream`, see `streams_a`): resident, kernel
-  `csrc/jacobi_packed.cu` (A copied into shared memory once); streamed,
-  `solve_lcp_jacobi_packed_stream` (B6b), kernel
+  `eggshell_tpu.ops.pgs_kernel.solve_lcp_jacobi_packed`, the fused chain's
+  solve, with box or Coulomb-pyramid bounds built from the lane masks.  It
+  takes the JAX package's resident/streamed switch (`stream`, see
+  `streams_a`).  Resident (B6), `csrc/jacobi_packed.cu`, A copied into
+  shared memory once: scalar sweeps with box bounds (`jacobi_packed_kernel`),
+  scalar sweeps with pyramid bounds (`solve_lcp_jacobi_packed_pyramid`,
+  `jacobi_packed_pyramid_kernel`) or 3x3 block sweeps with either
+  (`solve_lcp_jacobi_packed_block`, `jacobi_packed_block_kernel` and
+  `jacobi_packed_block_pyramid_kernel`).  Streamed (B6b, scalar sweeps
+  with box bounds only): `solve_lcp_jacobi_packed_stream`, kernel
   `csrc/jacobi_packed_stream.cu` (A read from device memory in row chunks
-  on every sweep).  Both compute the same sweeps, sum for sum.
+  on every sweep), the same sweeps sum for sum.
 
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 its plain version.  A CUDA input that the kernel does not take raises;
@@ -46,16 +52,27 @@ def streams_a(mp: int) -> bool:
 
 def _shared_bytes(mp: int) -> int:
     """Shared memory of one scenario's block: A with a row stride of
-    mp + 1 floats, and the iterate."""
-    return (mp * (mp + 1) + mp) * 4
+    mp + 1 floats, the iterate and the block sweeps' residual."""
+    return (mp * (mp + 1) + 2 * mp) * 4
+
+
+def _check_shared(mp: int, what: str) -> None:
+    if _shared_bytes(mp) > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{what} needs {_shared_bytes(mp)} bytes of shared memory per block, more than "
+            f"the {MAX_SHARED_BYTES} an H100 block has")
 
 
 def solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, iters: int, omega: float,
-                           beta: float = 0.0):
-    """Plain torch version of the kernel: rows padded to a multiple of 8
+                           beta: float = 0.0, block: bool = False):
+    """Plain torch version of the kernels: rows padded to a multiple of 8
     (unit diagonal, zero rhs, equality), hi = inf replaced by 3.4e38,
-    x0 = proj(b), then `iters` heavy-ball sweeps.  Returns x (B, m)."""
+    x0 = proj(b), then `iters` heavy-ball sweeps; with `block` (m % 3 == 0)
+    `iters` block-Jacobi sweeps x <- proj((1 - omega) x + omega y), y of
+    `lcp.block_update`, and `beta` unused.  Returns x (B, m)."""
     B, m = b.shape
+    if block and m % 3:
+        raise ValueError(f"block-Jacobi needs 3-row constraint blocks, got m = {m}")
     mp = round_rows(m)
     if mp != m:
         pad = mp - m
@@ -71,6 +88,12 @@ def solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, iters: int, omega: float,
     diag = torch.diagonal(A, dim1=-2, dim2=-1)
     inv_diag = 1.0 / diag
     x = lcp.project(b, is_eq, lo, hi)
+    if block:
+        Bc = lcp.block_rows(A, m)
+        for _ in range(iters):
+            y = lcp.block_update(A, b, x, Bc, inv_diag, m)
+            x = lcp.project((1.0 - omega) * x + omega * y, is_eq, lo, hi)
+        return x[:, :m]
     xp = x
     for _ in range(iters):
         x, xp = lcp.jacobi_momentum_sweep(A, b, diag, inv_diag, x, xp, is_eq,
@@ -78,34 +101,66 @@ def solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, iters: int, omega: float,
     return x[:, :m]
 
 
+def _check_lcp_args(A, b, is_eq, lo, hi):
+    from eggshell_tpu_torch import kernels
+
+    B, m = b.shape
+    for name, x, shape, dtype in (
+        ("A", A, (B, m, m), torch.float32), ("b", b, (B, m), torch.float32),
+        ("is_eq", is_eq, (B, m), torch.bool), ("lo", lo, (B, m), torch.float32),
+        ("hi", hi, (B, m), torch.float32),
+    ):
+        kernels.check_arg(name, x, shape, dtype, A.device)
+    _check_shared(round_rows(m), f"m = {m}")
+
+
+def solve_lcp_jacobi_block(A, b, is_eq, lo, hi, iters: int, omega: float):
+    """B6c': batched exact 3x3 block-Jacobi, x <- proj((1 - omega) x +
+    omega y) with y from every constraint block's exact solve (no
+    momentum); A (B, m, m) with m % 3 == 0, b / lo / hi (B, m), is_eq
+    (B, m) bool -> x (B, m)."""
+    m = b.shape[-1]
+    if m % 3:
+        raise ValueError(f"block-Jacobi needs 3-row constraint blocks, got m = {m}")
+    if A.device.type == "cpu":
+        return solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, iters, omega, block=True)
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    from eggshell_tpu_torch import kernels
+
+    _check_lcp_args(A, b, is_eq, lo, hi)
+    B = b.shape[0]
+    hi = torch.where(torch.isinf(hi), torch.full_like(hi, HI_INF), hi)
+    out = torch.empty((B, m), dtype=torch.float32, device=A.device)
+    kernels.launch("eggshell_jacobi_block_f32", A.device, A, b, is_eq, lo, hi, out, B, m,
+                   round_rows(m), int(iters), float(omega))
+    solve_lcp_jacobi_block.launches += 1
+    return out
+
+
+solve_lcp_jacobi_block.launches = 0
+
+
 def solve_lcp_jacobi(A, b, is_eq, lo, hi, iters: int, omega: float,
-                     beta: float = 0.0):
+                     beta: float = 0.0, block: bool = False):
     """Batched under-relaxed heavy-ball projected Jacobi:
-    A (B, m, m), b / lo / hi (B, m), is_eq (B, m) bool -> x (B, m)."""
+    A (B, m, m), b / lo / hi (B, m), is_eq (B, m) bool -> x (B, m).
+    `block=True` (m % 3 == 0) goes to `solve_lcp_jacobi_block`, which has no
+    momentum: `beta` is ignored there, as the JAX package's kernel does."""
+    if block:
+        return solve_lcp_jacobi_block(A, b, is_eq, lo, hi, iters, omega)
     if A.device.type == "cpu":
         return solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, iters, omega, beta)
     if A.device.type != "cuda":
         raise ValueError(f"unsupported device {A.device}")
     from eggshell_tpu_torch import kernels
 
+    _check_lcp_args(A, b, is_eq, lo, hi)
     B, m = b.shape
-    dev = A.device
-    mp = round_rows(m)
-    if _shared_bytes(mp) > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"m = {m} needs {_shared_bytes(mp)} bytes of shared memory per "
-            f"block, more than the {MAX_SHARED_BYTES} an H100 block has"
-        )
-    for name, x, shape, dtype in (
-        ("A", A, (B, m, m), torch.float32), ("b", b, (B, m), torch.float32),
-        ("is_eq", is_eq, (B, m), torch.bool), ("lo", lo, (B, m), torch.float32),
-        ("hi", hi, (B, m), torch.float32),
-    ):
-        kernels.check_arg(name, x, shape, dtype, dev)
     hi = torch.where(torch.isinf(hi), torch.full_like(hi, HI_INF), hi)
-    out = torch.empty((B, m), dtype=torch.float32, device=dev)
-    kernels.launch("eggshell_jacobi_f32", dev, A, b, is_eq, lo, hi, out, B, m, mp, int(iters),
-                   float(omega), float(beta))
+    out = torch.empty((B, m), dtype=torch.float32, device=A.device)
+    kernels.launch("eggshell_jacobi_f32", A.device, A, b, is_eq, lo, hi, out, B, m,
+                   round_rows(m), int(iters), float(omega), float(beta))
     solve_lcp_jacobi.launches += 1
     return out
 
@@ -136,37 +191,48 @@ def _packed_bounds(act, eq, K: int, mp: int, mu: float, dtype):
     return active, lo, hi
 
 
-def _check_packed_options(block: bool, pyramid_mu: float) -> None:
-    if block:
-        raise NotImplementedError(
-            "block-Jacobi on the fused chain is not ported yet (ROADMAP B6: block and pyramid)")
-    if pyramid_mu > 0.0:
-        raise NotImplementedError(
-            "Coulomb-pyramid bounds on the fused chain are not ported yet "
-            "(ROADMAP B6: block and pyramid)")
-
-
 def solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K: int, mu: float, iters: int,
                                   omega: float, beta: float, block: bool = False,
                                   pyramid_mu: float = 0.0):
-    """Plain torch version of the kernel.  A (B, mp, mp) with its diagonal
+    """Plain torch version of the kernels.  A (B, mp, mp) with its diagonal
     diag (B, mp), rhs (B, 3K), act (B, K) bool, eq None or (B, K) bool.
-    x0 = proj(b), then `iters` heavy-ball sweeps.  Returns x (B, mp)."""
-    _check_packed_options(block, pyramid_mu)
-    mp = A.shape[-1]
-    active, lo, hi = _packed_bounds(act, eq, K, mp, mu, A.dtype)
-    b = torch.nn.functional.pad(rhs, (0, mp - 3 * K))
+    x0 = proj(b), then `iters` sweeps
+    x <- proj((1 - omega) x + omega y + beta (x - x_prev)): scalar,
+    y = (b - A x + D x) / D, or with `block`, y of `lcp.block_update`.
+    With pyramid_mu > 0, x0 pins the tangential rows of non-equality lanes
+    to 0 and every sweep bounds them by +-pyramid_mu * max(x_n, 0) of the
+    pre-sweep iterate, x_n their lane's normal row (`lcp._bounds`).
+    Returns x (B, mp)."""
+    B, mp = diag.shape
+    m3 = 3 * K
+    pyramid = pyramid_mu > 0.0
+    active, lo, hi = _packed_bounds(act, eq, K, mp, 0.0 if pyramid else mu, A.dtype)
+    b = torch.nn.functional.pad(rhs, (0, mp - m3))
     not_eq = torch.zeros_like(active)
+    couple = None
+    if pyramid:
+        row = torch.arange(mp, device=A.device)
+        coupled = ((row < m3) & (row % 3 < 2)).expand(B, mp)
+        if eq is not None:
+            coupled = coupled & ~torch.nn.functional.pad(eq.repeat_interleave(3, dim=1),
+                                                         (0, mp - m3))
+        couple = torch.where(coupled, 3 * (row // 3) + 2, -1)
 
-    def proj(x):
-        return torch.where(active, lcp.project(x, not_eq, lo, hi), x)
+    def proj(x, lo_, hi_):
+        return torch.where(active, lcp.project(x, not_eq, lo_, hi_), x)
 
     inv_diag = 1.0 / diag
-    x = proj(b)
+    Bc = lcp.block_rows(A, m3) if block else None
+    x = proj(b, lo, hi)
     xp = x
     for _ in range(iters):
-        r = b - torch.einsum("bij,bj->bi", A, x) + diag * x
-        x, xp = proj((1.0 - omega) * x + omega * r * inv_diag + beta * (x - xp)), x
+        if block:
+            y = lcp.block_update(A, b, x, Bc, inv_diag, m3)
+            xn = (1.0 - omega) * x + omega * y + beta * (x - xp)
+        else:
+            r = b - torch.einsum("bij,bj->bi", A, x) + diag * x
+            xn = (1.0 - omega) * x + omega * r * inv_diag + beta * (x - xp)
+        x, xp = proj(xn, *lcp._bounds(x, lo, hi, couple, pyramid_mu)), x
     return x
 
 
@@ -182,6 +248,21 @@ def _check_packed_args(A, diag, rhs, act, eq, K: int) -> None:
         args.append(("eq", eq, (B, K), torch.bool))
     for name, x, shape, dtype in args:
         kernels.check_arg(name, x, shape, dtype, A.device)
+
+
+def _launch_packed(fn_name, A, diag, rhs, act, eq, K, mu, iters, omega, beta, pyramid_mu):
+    """Launch one resident B6 variant `fn_name` and return x (B, mp)."""
+    from eggshell_tpu_torch import kernels
+
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    _check_packed_args(A, diag, rhs, act, eq, K)
+    B, mp = diag.shape
+    _check_shared(mp, f"K = {K}")
+    out = torch.empty((B, mp), dtype=torch.float32, device=A.device)
+    kernels.launch(fn_name, A.device, A, diag, rhs, act, eq, out, B, K, mp, int(iters),
+                   float(mu), float(omega), float(beta), float(pyramid_mu))
+    return out
 
 
 def solve_lcp_jacobi_packed_stream(A, diag, rhs, act, eq, K: int, mu: float, iters: int,
@@ -207,6 +288,40 @@ def solve_lcp_jacobi_packed_stream(A, diag, rhs, act, eq, K: int, mu: float, ite
 solve_lcp_jacobi_packed_stream.launches = 0
 
 
+def solve_lcp_jacobi_packed_block(A, diag, rhs, act, eq, K: int, mu: float, iters: int,
+                                  omega: float, beta: float, pyramid_mu: float = 0.0):
+    """B6 with `block=True`, resident A: 3x3 block sweeps, box bounds, or
+    pyramid bounds for pyramid_mu > 0; see `solve_lcp_jacobi_packed_plain`."""
+    if A.device.type == "cpu":
+        return solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K, mu, iters, omega, beta,
+                                             True, pyramid_mu)
+    out = _launch_packed("eggshell_jacobi_packed_block_f32", A, diag, rhs, act, eq, K, mu, iters,
+                         omega, beta, pyramid_mu)
+    solve_lcp_jacobi_packed_block.launches += 1
+    return out
+
+
+solve_lcp_jacobi_packed_block.launches = 0
+
+
+def solve_lcp_jacobi_packed_pyramid(A, diag, rhs, act, eq, K: int, mu: float, iters: int,
+                                    omega: float, beta: float, pyramid_mu: float):
+    """B6 with pyramid_mu > 0 and scalar sweeps, resident A; see
+    `solve_lcp_jacobi_packed_plain`."""
+    if not pyramid_mu > 0.0:
+        raise ValueError(f"pyramid_mu must be positive, got {pyramid_mu}")
+    if A.device.type == "cpu":
+        return solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K, mu, iters, omega, beta,
+                                             False, pyramid_mu)
+    out = _launch_packed("eggshell_jacobi_packed_pyramid_f32", A, diag, rhs, act, eq, K, mu,
+                         iters, omega, beta, pyramid_mu)
+    solve_lcp_jacobi_packed_pyramid.launches += 1
+    return out
+
+
+solve_lcp_jacobi_packed_pyramid.launches = 0
+
+
 def solve_lcp_jacobi_packed(A, diag, rhs, act, eq, K: int, mu: float, iters: int,
                             omega: float, beta: float, block: bool = False,
                             pyramid_mu: float = 0.0, stream=None):
@@ -214,7 +329,9 @@ def solve_lcp_jacobi_packed(A, diag, rhs, act, eq, K: int, mu: float, iters: int
     for the arguments.  `stream` None takes the JAX package's rule
     (`streams_a`); True goes to `solve_lcp_jacobi_packed_stream`, where, as
     in the JAX package, `block=True` and `pyramid_mu > 0` raise ValueError.
-    On the resident kernel they raise NotImplementedError (not ported)."""
+    Resident, `block` goes to `solve_lcp_jacobi_packed_block` and
+    pyramid_mu > 0 alone to `solve_lcp_jacobi_packed_pyramid`; this
+    function launches the scalar box-bounds kernel itself."""
     if stream is None:
         stream = streams_a(padded_rows(K))
     if stream:
@@ -228,24 +345,16 @@ def solve_lcp_jacobi_packed(A, diag, rhs, act, eq, K: int, mu: float, iters: int
                 "solve_lcp_jacobi_packed: COULOMB_PYRAMID bounds are not available on the "
                 "streamed-A path; reduce contact_capacity below the stream threshold")
         return solve_lcp_jacobi_packed_stream(A, diag, rhs, act, eq, K, mu, iters, omega, beta)
+    if block:
+        return solve_lcp_jacobi_packed_block(A, diag, rhs, act, eq, K, mu, iters, omega, beta,
+                                             pyramid_mu)
+    if pyramid_mu > 0.0:
+        return solve_lcp_jacobi_packed_pyramid(A, diag, rhs, act, eq, K, mu, iters, omega, beta,
+                                               pyramid_mu)
     if A.device.type == "cpu":
-        return solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K, mu, iters, omega, beta,
-                                             block, pyramid_mu)
-    if A.device.type != "cuda":
-        raise ValueError(f"unsupported device {A.device}")
-    _check_packed_options(block, pyramid_mu)
-    from eggshell_tpu_torch import kernels
-
-    _check_packed_args(A, diag, rhs, act, eq, K)
-    B, mp = diag.shape
-    if _shared_bytes(mp) > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"K = {K} needs {_shared_bytes(mp)} bytes of shared memory per "
-            f"block, more than the {MAX_SHARED_BYTES} an H100 block has"
-        )
-    out = torch.empty((B, mp), dtype=torch.float32, device=A.device)
-    kernels.launch("eggshell_jacobi_packed_f32", A.device, A, diag, rhs, act, eq, out, B, K, mp,
-                   int(iters), float(mu), float(omega), float(beta))
+        return solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K, mu, iters, omega, beta)
+    out = _launch_packed("eggshell_jacobi_packed_f32", A, diag, rhs, act, eq, K, mu, iters, omega,
+                         beta, 0.0)
     solve_lcp_jacobi_packed.launches += 1
     return out
 

@@ -14,7 +14,7 @@ from eggshell_tpu_torch.utils.config import SimConfig
 def rollout_batched(spec: SceneSpec, states: State, cfg: SimConfig, num_steps: int) -> State:
     """Roll B scenarios of one scene `num_steps` steps forward; states
     (B, n, ...).  Returns the final states."""
-    check_supported(spec, cfg)
+    check_supported(cfg)
     for _ in range(num_steps):
         states = step_ode_batched(spec, states, cfg)
     return states

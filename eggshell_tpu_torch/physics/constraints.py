@@ -2,10 +2,11 @@
 error and LCP bounds.
 
 Counterpart of `eggshell_tpu.physics.constraints.build_constraints`.  Row
-order is the JAX package's: 3 rows per contact lane (two tangents, then
-the normal, in the contact frame).  Idle lanes give zero J rows, zero
-error and equality rows; the system matrix gives them a unit-scale
-diagonal so their multipliers come out exactly 0.
+order is the JAX package's: 3 rows per ball joint (world x, y, z) first,
+then 3 rows per contact lane (two tangents, then the normal, in the
+contact frame).  Idle lanes give zero J rows, zero error and equality
+rows; the system matrix gives them a unit-scale diagonal so their
+multipliers come out exactly 0.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ class ConstraintSystem(NamedTuple):
     lo: torch.Tensor          # (B, m)
     hi: torch.Tensor          # (B, m)
     row_active: torch.Tensor  # (B, m) False = idle lane
+    couple: torch.Tensor      # (B, m) int64: the row of the contact's normal
+    #                           impulse that bounds this tangent row under
+    #                           COULOMB_PYRAMID, else -1
 
     @property
     def num_rows(self) -> int:
@@ -46,18 +50,62 @@ def _gather_bodies(x, idx):
     return torch.gather(x, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
 
 
+def _joint_rows(spec: SceneSpec, states: State):
+    """J (B, 3J, n, 6) and err (B, 3J) of the ball joints:
+    J_b0 = [I, -[R0 c0]x], J_b1 = [-I, [R1 c1]x] (nothing for b1 = -1,
+    the world), err = p0 + R0 c0 - target with target the world anchor c1
+    or p1 + R1 c1."""
+    B, n = states.p.shape[:2]
+    Jn = spec.num_joints
+    R = quat.quat_to_mat(states.q)
+    anchored = spec.joint_b1 < 0
+    jb1 = torch.where(anchored, torch.zeros_like(spec.joint_b1), spec.joint_b1)
+    r0c0 = torch.einsum("bjik,jk->bji", R[:, spec.joint_b0], spec.joint_c0)
+    r1c1 = torch.einsum("bjik,jk->bji", R[:, jb1], spec.joint_c1)
+    eye3 = torch.eye(3, dtype=states.p.dtype, device=states.p.device).expand(B, Jn, 3, 3)
+    blk0 = torch.cat([eye3, -quat.cross_mat(r0c0)], dim=-1)
+    blk1 = torch.cat([-eye3, quat.cross_mat(r1c1)], dim=-1)
+    J = (_blocks_to_rows(spec.joint_b0.expand(B, Jn), blk0, n)
+         + _blocks_to_rows(spec.joint_b1.expand(B, Jn), blk1, n))
+    target = torch.where(anchored[:, None], spec.joint_c1, states.p[:, jb1] + r1c1)
+    err = (states.p[:, spec.joint_b0] + r0c0 - target).reshape(B, 3 * Jn)
+    return J, err
+
+
+def _friction_rows(cfg: SimConfig, active, dtype, device):
+    """(row_on, eq, lo, hi), each (B, K, 3), of the contact lanes under
+    cfg.friction_model (the JAX package's `constraints.py:243-279`):
+    NO_FRICTION switches the tangent rows off; INFINITE makes them
+    equalities; COULOMB_PYRAMID pins their static bounds to [0, 0] (the
+    solver replaces them by +-mu lambda_n); BOX bounds them by
+    +-friction_bound, or every row by [0, inf) with `ref_app_bounds`."""
+    B, K = active.shape
+    fm = cfg.friction_model
+    inf = float("inf")
+
+    def rows(values, kind=dtype):
+        return torch.tensor(values, dtype=kind, device=device).expand(B, K, 3)
+
+    row_on = active[..., None].expand(B, K, 3)
+    eq = rows([False, False, False], torch.bool)
+    zeros = rows([0.0, 0.0, 0.0])
+    if fm == FrictionModel.NO_FRICTION:
+        off = torch.zeros_like(active)
+        return torch.stack([off, off, active], dim=-1), eq, zeros, rows([0.0, 0.0, inf])
+    if fm == FrictionModel.INFINITE:
+        return row_on, rows([True, True, False], torch.bool), zeros, rows([0.0, 0.0, inf])
+    if fm == FrictionModel.COULOMB_PYRAMID:
+        return row_on, eq, zeros, rows([0.0, 0.0, inf])
+    if cfg.ref_app_bounds:
+        return row_on, eq, zeros, rows([inf, inf, inf])
+    mu = cfg.friction_bound
+    return row_on, eq, rows([-mu, -mu, 0.0]), rows([mu, mu, inf])
+
+
 def build_constraints(spec: SceneSpec, states: State, cs: ContactSet,
                       cfg: SimConfig) -> ConstraintSystem:
-    if spec.num_joints > 0:
-        raise NotImplementedError(
-            "joint rows are not ported yet (ROADMAP A9: joints and broadphase scenes)"
-        )
-    if cfg.friction_model != FrictionModel.BOX:
-        raise NotImplementedError(
-            f"{cfg.friction_model.name} friction is not ported yet "
-            "(ROADMAP A5: the other friction models of physics/constraints.py)"
-        )
     n = spec.num_bodies
+    Jn = spec.num_joints
     B, K = cs.b0.shape
     dtype, device = states.p.dtype, states.p.device
 
@@ -71,14 +119,7 @@ def build_constraints(spec: SceneSpec, states: State, cs: ContactSet,
     blk0 = torch.cat([-Rcf, Rcf @ c0], dim=-1)                     # (B, K, 3, 6)
     blk1 = torch.cat([Rcf, -(Rcf @ c1)], dim=-1)
 
-    mu = cfg.friction_bound
-    row_on = cs.active[..., None].expand(B, K, 3)
-    if cfg.ref_app_bounds:
-        lo_c = torch.zeros((B, K, 3), dtype=dtype, device=device)
-        hi_c = torch.full((B, K, 3), float("inf"), dtype=dtype, device=device)
-    else:
-        lo_c = torch.tensor([-mu, -mu, 0.0], dtype=dtype, device=device).expand(B, K, 3)
-        hi_c = torch.tensor([mu, mu, float("inf")], dtype=dtype, device=device).expand(B, K, 3)
+    row_on, eq, lo_c, hi_c = _friction_rows(cfg, cs.active, dtype, device)
 
     zero = torch.zeros((), dtype=dtype, device=device)
     blk0 = torch.where(row_on[..., None] & b0ok[..., None, None], blk0, zero)
@@ -91,12 +132,28 @@ def build_constraints(spec: SceneSpec, states: State, cs: ContactSet,
     zk = torch.zeros((B, K), dtype=dtype, device=device)
     cerr = torch.stack([zk, zk, torch.where(cs.active, -dep_eff, zk)], dim=-1)
     cerr = torch.where(row_on, cerr, zero).reshape(B, 3 * K)
+    is_eq = torch.where(row_on, eq, True).reshape(B, 3 * K)
+    row_active = row_on.reshape(B, 3 * K)
+    lo, hi = lo_c.reshape(B, 3 * K), hi_c.reshape(B, 3 * K)
 
-    return ConstraintSystem(
-        J=J,
-        err=cerr,
-        is_eq=(~row_on).reshape(B, 3 * K),
-        lo=lo_c.reshape(B, 3 * K),
-        hi=hi_c.reshape(B, 3 * K),
-        row_active=row_on.reshape(B, 3 * K),
-    )
+    if cfg.friction_model == FrictionModel.COULOMB_PYRAMID:
+        normal_row = 3 * Jn + 3 * torch.arange(K, device=device) + 2
+        couple = torch.stack([normal_row, normal_row, torch.full_like(normal_row, -1)], -1)
+        couple = torch.where(row_on, couple, -1).reshape(B, 3 * K)
+    else:
+        couple = torch.full((B, 3 * K), -1, dtype=torch.int64, device=device)
+
+    if Jn > 0:
+        Jj, jerr = _joint_rows(spec, states)
+        ones = torch.ones((B, 3 * Jn), dtype=torch.bool, device=device)
+        jzero = torch.zeros((B, 3 * Jn), dtype=dtype, device=device)
+        J = torch.cat([Jj, J], dim=1)
+        cerr = torch.cat([jerr, cerr], dim=1)
+        is_eq = torch.cat([ones, is_eq], dim=1)
+        lo, hi = torch.cat([jzero, lo], dim=1), torch.cat([jzero, hi], dim=1)
+        row_active = torch.cat([ones, row_active], dim=1)
+        couple = torch.cat([torch.full((B, 3 * Jn), -1, dtype=torch.int64, device=device),
+                            couple], dim=1)
+
+    return ConstraintSystem(J=J, err=cerr, is_eq=is_eq, lo=lo, hi=hi, row_active=row_active,
+                            couple=couple)

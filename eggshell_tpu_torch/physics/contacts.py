@@ -1,6 +1,6 @@
 """Scene-level contact assembly for a batch of scenarios: narrowphase
 fan-out, stable compaction into K lanes, same-pair deduplication, and the
-joint-contact dedupe of the fused chain.
+joint-contact dedupe.
 
 Counterpart of `eggshell_tpu.physics.contacts`.  Candidates come in the
 reference order — ground corners body-major (8 per body), then the
@@ -183,21 +183,38 @@ def drop_joint_contacts(cs: ContactSet, jpos, joint_b0, joint_b1, eps2: float) -
     return cs._replace(active=cs.active & ~drop)
 
 
+def joint_anchors(spec: SceneSpec, states: State):
+    """World anchor points of the ball joints, (B, J, 3) each: a0 on body
+    b0, a1 on body b1 (the fixed world anchor joint_c1 when b1 = -1).
+    Counterpart of the JAX package's `stepper._joint_anchors`."""
+    R = quat.quat_to_mat(states.q)
+    jb0 = spec.joint_b0
+    anchored = spec.joint_b1 < 0
+    jb1 = torch.where(anchored, torch.zeros_like(spec.joint_b1), spec.joint_b1)
+    a0 = states.p[:, jb0] + torch.einsum("bjik,jk->bji", R[:, jb0], spec.joint_c0)
+    a1 = torch.where(anchored[:, None], spec.joint_c1,
+                     states.p[:, jb1] + torch.einsum("bjik,jk->bji", R[:, jb1], spec.joint_c1))
+    return a0, a1
+
+
 def make_contacts_batched(spec: SceneSpec, states: State, cfg: SimConfig) -> ContactSet:
     """Detect, compact and dedupe the contacts of B scenarios into
-    `cfg.contact_capacity` lanes each.  The box pairs of all scenarios go
-    through one narrowphase call (B * P pairs)."""
-    if spec.num_joints > 0:
-        raise NotImplementedError(
-            "joint-contact dedupe is not ported yet (ROADMAP A9: joints and broadphase scenes)"
-        )
+    `cfg.contact_capacity` lanes each: the same-pair dedupe, then, in a
+    scene with joints, the joint-contact dedupe.  Both judge the lanes'
+    incoming flags, as the JAX package's one `_dedupe` does.  The box pairs
+    of all scenarios go through one narrowphase call (B * P pairs)."""
     if cfg.contact_capacity >= _PAIRWISE_DEDUPE_MAX_K:
         raise NotImplementedError(
             "windowed dedupe for large contact capacities is not ported yet "
             "(ROADMAP A12: matrix-free large-scene tier)"
         )
-    cs = _compact(*_candidates(spec, states), cfg.contact_capacity)
-    return _dedupe(cs, cfg.min_constraint_distance ** 2)
+    eps2 = cfg.min_constraint_distance ** 2
+    cs = _dedupe(_compact(*_candidates(spec, states), cfg.contact_capacity), eps2)
+    if spec.num_joints > 0:
+        a0, a1 = joint_anchors(spec, states)
+        cs = drop_joint_contacts(cs, joint_points(a0, a1, spec.joint_b1), spec.joint_b0,
+                                 spec.joint_b1, eps2)
+    return cs
 
 
 def depth_cap(cfg: SimConfig):

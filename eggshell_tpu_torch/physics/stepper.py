@@ -1,20 +1,24 @@
 """The ODE-style velocity stepper for a batch of scenarios.
 
-Counterpart of `eggshell_tpu.physics.stepper`.  Two branches of
-`step_ode_batched` with `SolverKind.JACOBI_KERNEL` and BOX friction are
-ported:
+Counterpart of `eggshell_tpu.physics.stepper`.  `step_ode_batched`
+dispatches as the JAX package's does:
 
-- the fused chain (`conditional_cfm=False`, the bench configuration),
+- the fused chain (`SolverKind.JACOBI_KERNEL`, BOX or COULOMB_PYRAMID
+  friction, `conditional_cfm=False`; the bench configuration),
   counterpart of `_fused_step_all_kernel`: the packed narrowphase kernel,
   the compaction-and-dedupe kernel, ball joints as equality lanes, then
   the body-prep, Jacobian-block, A-formation, packed-Jacobi (resident or
-  streamed) and integrate kernels on compact 3x12 blocks, for any B;
-- the unfused branch (`conditional_cfm=True`, the reference's CFM policy):
-  contacts, dense constraints, the system matrix with conditional CFM, the
-  projected-Jacobi LCP kernel and the midpoint integration.
+  streamed; scalar or 3x3 block sweeps, box or pyramid bounds) and
+  integrate kernels on compact 3x12 blocks, for any B;
+- the unfused branch, every other configuration: contacts, dense
+  constraints (ball joints, any friction model), the system matrix with
+  always-on or conditional CFM, then the projected-Jacobi LCP kernel for
+  JACOBI_KERNEL without pyramid friction, else the plain PGS, SOR or
+  Jacobi solve of `ops.lcp` (`_solve_lambda`), and the midpoint
+  integration.
 
-Every configuration that the JAX package would send down another branch
-raises `NotImplementedError` naming the ROADMAP item that ports it.
+`SolverKind.DIRECT`, `SolverKind.MATRIX_FREE` and `pair_capacity > 0`
+raise `NotImplementedError` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import math
 
 import torch
 
+from eggshell_tpu_torch.ops import lcp
 from eggshell_tpu_torch.ops import quaternion as quat
 from eggshell_tpu_torch.ops.amat_kernel import contact_system_matrix, padded_rows
 from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes_packed
@@ -35,7 +40,8 @@ from eggshell_tpu_torch.ops.prep_kernel import prep_bodies
 from eggshell_tpu_torch.physics import scene as scn
 from eggshell_tpu_torch.physics.constraints import ConstraintSystem, build_constraints
 from eggshell_tpu_torch.physics.contacts import (ContactSet, depth_cap, drop_joint_contacts,
-                                                 joint_points, make_contacts_batched)
+                                                 joint_anchors, joint_points,
+                                                 make_contacts_batched)
 from eggshell_tpu_torch.physics.scene import SceneSpec, State
 from eggshell_tpu_torch.utils.config import FrictionModel, SimConfig, SolverKind
 
@@ -128,7 +134,7 @@ def _is_fused(cfg: SimConfig) -> bool:
             and not cfg.conditional_cfm)
 
 
-def check_supported(spec: SceneSpec, cfg: SimConfig) -> None:
+def check_supported(cfg: SimConfig) -> None:
     """Raise NotImplementedError for every configuration that the JAX
     package's `step_ode_batched` sends down a branch not ported yet."""
     if cfg.solver == SolverKind.MATRIX_FREE:
@@ -137,27 +143,30 @@ def check_supported(spec: SceneSpec, cfg: SimConfig) -> None:
     if cfg.solver == SolverKind.DIRECT:
         raise NotImplementedError(
             "SolverKind.DIRECT is not ported yet (ROADMAP A10: differentiable step and direct solvers)")
-    if cfg.solver != SolverKind.JACOBI_KERNEL:
-        raise NotImplementedError(
-            f"SolverKind.{cfg.solver.name} is not ported yet (ROADMAP A6: PGS, SOR and XLA Jacobi sweeps)")
-    if _is_fused(cfg) and cfg.friction_model == FrictionModel.COULOMB_PYRAMID:
-        raise NotImplementedError(
-            "Coulomb-pyramid friction on the fused chain is not ported yet "
-            "(ROADMAP B6: block and pyramid)")
-    if _is_fused(cfg) and cfg.jacobi_block:
-        raise NotImplementedError(
-            "jacobi_block=True on the fused chain is not ported yet (ROADMAP B6: block and pyramid)")
-    if cfg.friction_model != FrictionModel.BOX:
-        raise NotImplementedError(
-            f"{cfg.friction_model.name} friction is not ported yet "
-            "(ROADMAP A5: the other friction models of physics/constraints.py)")
     if cfg.pair_capacity > 0:
         raise NotImplementedError(
             "pair_capacity > 0 (broadphase) is not ported yet (ROADMAP A9: broadphase scenes)")
-    if spec.num_joints > 0 and not _is_fused(cfg):
-        raise NotImplementedError(
-            "ball joints on the unfused branch are not ported yet "
-            "(ROADMAP A5: ball-joint rows of physics/constraints.py)")
+
+
+def _pyramid_mu(cfg: SimConfig) -> float:
+    """The Coulomb-pyramid coefficient of the fused chain's solve: friction_mu
+    under COULOMB_PYRAMID, else 0 (box friction)."""
+    return float(cfg.friction_mu) if cfg.friction_model == FrictionModel.COULOMB_PYRAMID else 0.0
+
+
+def _solve_lambda(A, rhs, sys: ConstraintSystem, cfg: SimConfig):
+    """The unfused branch's plain solve for PGS, JACOBI and SOR (the JAX
+    package's `_solve_lambda`): `ops.lcp.solve_lcp` with the config's sweep
+    parameters, early exit at cfg.solver_tol > 0, and coupled bounds under
+    COULOMB_PYRAMID."""
+    method = {SolverKind.PGS: "pgs", SolverKind.JACOBI: "jacobi", SolverKind.SOR: "sor"}[cfg.solver]
+    coulomb = cfg.friction_model == FrictionModel.COULOMB_PYRAMID
+    return lcp.solve_lcp(
+        A, rhs, sys.is_eq, sys.lo, sys.hi, iters=cfg.solver_iters, method=method,
+        check_tol=cfg.solver_tol if cfg.solver_tol > 0 else None, omega=cfg.sor_omega,
+        jacobi_omega=cfg.jacobi_omega, jacobi_beta=cfg.jacobi_beta,
+        couple=sys.couple if coulomb else None, mu=cfg.friction_mu if coulomb else 0.0,
+        jacobi_block=bool(cfg.jacobi_block))
 
 
 def _batched_ext(ext_forces, states: State):
@@ -188,20 +197,6 @@ def _run(name, fn, args):
     return fn(*args)
 
 
-def _joint_anchors(spec: SceneSpec, states: State):
-    """World anchor points of the ball joints, (B, J, 3) each: a0 on body
-    b0, a1 on body b1 (the fixed world anchor joint_c1 when b1 = -1).
-    Counterpart of the JAX package's `stepper._joint_anchors`."""
-    R = quat.quat_to_mat(states.q)
-    jb0 = spec.joint_b0
-    anchored = spec.joint_b1 < 0
-    jb1 = torch.where(anchored, torch.zeros_like(spec.joint_b1), spec.joint_b1)
-    a0 = states.p[:, jb0] + torch.einsum("bjik,jk->bji", R[:, jb0], spec.joint_c0)
-    a1 = torch.where(anchored[:, None], spec.joint_c1,
-                     states.p[:, jb1] + torch.einsum("bjik,jk->bji", R[:, jb1], spec.joint_c1))
-    return a0, a1
-
-
 def _with_joint_lanes(spec: SceneSpec, states: State, cs: ContactSet, eps2: float):
     """The joint-contact dedupe on the compacted contacts, then the joints
     as always-active equality lanes PREPENDED to them (the XLA twin's row
@@ -210,7 +205,7 @@ def _with_joint_lanes(spec: SceneSpec, states: State, cs: ContactSet, eps2: floa
     lane's second anchor is its position."""
     B = states.p.shape[0]
     Jn = spec.num_joints
-    a0, a1 = _joint_anchors(spec, states)
+    a0, a1 = joint_anchors(spec, states)
     cs = drop_joint_contacts(cs, joint_points(a0, a1, spec.joint_b1), spec.joint_b0,
                              spec.joint_b1, eps2)
     zhat = torch.zeros_like(a0)
@@ -242,7 +237,8 @@ def _fused_step(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
     prep), B4 (Jacobian blocks), B5 (A = J M^-1 J^T with cfm_always), B6 or
     B6b (packed heavy-ball Jacobi, A resident or streamed) and B7
     (integrate) on the compact (B, 3Kx, 12) blocks.  No dense Jacobian, no
-    CFM check and no torch compaction.
+    CFM check and no torch compaction.  B6 runs 3x3 block sweeps with
+    cfg.jacobi_block and Coulomb-pyramid bounds under COULOMB_PYRAMID.
 
     Each phase runs as `call(name, fn, args)`, by default fn(*args), with
     name one of "narrowphase", "compact", "prep", "jassembly", "amat",
@@ -272,7 +268,7 @@ def _fused_step(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
         Jc, cs.b0, cs.b1, cs.active, spec.inv_mass, invIg, Kx, cfg.cfm_always))
     lam = call(jacobi_phase(Kx), solve_lcp_jacobi_packed, (
         A, diag, rhs, cs.active, eq, Kx, cfg.friction_bound, cfg.solver_iters,
-        cfg.jacobi_omega, cfg.jacobi_beta))
+        cfg.jacobi_omega, cfg.jacobi_beta, bool(cfg.jacobi_block), _pyramid_mu(cfg)))
     p, q, v, w = call("integrate", integrate_step, (
         Jc, lam, cs.b0, cs.b1, states.p, states.q, states.v, states.w, spec.inv_mass, invIg, F,
         cfg.dt))
@@ -283,13 +279,22 @@ def step_ode_batched(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=
     """One step of B scenarios of one scene; states (B, n, ...).
     `ext_forces` (n, 6) or (B, n, 6) adds control wrenches [force; torque]
     per body on top of gravity and the gyroscopic torque."""
-    check_supported(spec, cfg)
+    check_supported(cfg)
     if _is_fused(cfg):
         return _fused_step(spec, states, cfg, ext_forces)
     sys, A, rhs, u, Minv, F = _pre_solve(spec, states, cfg, _batched_ext(ext_forces, states))
-    lam = solve_lcp_jacobi(
-        A.contiguous(), rhs.contiguous(), sys.is_eq.contiguous(), sys.lo.contiguous(),
-        sys.hi.contiguous(), iters=cfg.solver_iters, omega=cfg.jacobi_omega,
-        beta=cfg.jacobi_beta,
-    )
+    if (cfg.solver == SolverKind.JACOBI_KERNEL
+            and cfg.friction_model != FrictionModel.COULOMB_PYRAMID):
+        # the JAX package's kernel call here passes no `block`: jacobi_block
+        # is ignored on this branch
+        lam = solve_lcp_jacobi(
+            A.contiguous(), rhs.contiguous(), sys.is_eq.contiguous(), sys.lo.contiguous(),
+            sys.hi.contiguous(), iters=cfg.solver_iters, omega=cfg.jacobi_omega,
+            beta=cfg.jacobi_beta,
+        )
+    else:
+        solve_cfg = cfg
+        if cfg.solver == SolverKind.JACOBI_KERNEL:
+            solve_cfg = cfg.replace(solver=SolverKind.JACOBI)
+        lam = _solve_lambda(A, rhs, sys, solve_cfg)
     return _post_solve(states, cfg, sys, lam, u, Minv, F)

@@ -17,7 +17,13 @@ On B = 4096 scenarios of `box_stack(4)` with the bench's jitter, float32:
 
 Each BASELINE scene named on the command line (`physics.scenes.BASELINE`:
 box_drop, pendulum_chain6, box_stack8, living_room) gets 1 and 2 and 3 for
-its fused step too, with its capacity and jitter.
+its fused step too, with its capacity and jitter.  So does each name of
+`CONFIGS`: slice_pyramid and slice_block (the fused chain with
+Coulomb-pyramid friction, with block-Jacobi), joints_unfused
+(pendulum_chain6 on the unfused branch, 2 and 3 only), pgs (the JAX
+package's default `SimConfig()`, projected Gauss-Seidel, on box_stack4;
+2 and 3 over PGS_REPS steps) and fdtd2d (one step of the 2D FDTD at
+n = 2048; 2 and 3).
 
 Prints one line per result and a JSON line.  It needs a CUDA device; it
 never falls back to the CPU.
@@ -32,15 +38,26 @@ import time
 
 import torch
 
+from eggshell_tpu_torch.fem import fdtd
 from eggshell_tpu_torch.physics import scenes
-from eggshell_tpu_torch.physics.stepper import _fused_step, step_ode_batched
-from eggshell_tpu_torch.utils.config import BENCH
+from eggshell_tpu_torch.physics.stepper import _fused_step, _is_fused, step_ode_batched
+from eggshell_tpu_torch.utils.config import BENCH, FrictionModel, SimConfig
 from eggshell_tpu_torch.utils.profiling import device_window
 
 B = 4096
 REPS = 10
+# a PGS step is some 20,000 row updates launched from the host
+PGS_REPS = 2
 UNFUSED = BENCH.replace(conditional_cfm=True, cond_estimator="power")
 COMPACTION_OPS = ("cumsum", "scatter")
+# name: (BASELINE scene, configuration)
+CONFIGS = {
+    "slice_pyramid": ("box_stack4", BENCH.replace(friction_model=FrictionModel.COULOMB_PYRAMID)),
+    "slice_block": ("box_stack4", BENCH.replace(jacobi_block=True)),
+    "joints_unfused": ("pendulum_chain6", UNFUSED.replace(contact_capacity=4)),
+    "pgs": ("box_stack4", SimConfig(contact_capacity=20)),
+}
+FDTD_N = 2048
 
 
 def fused_phases(spec, st, cfg, reps: int) -> dict:
@@ -63,20 +80,20 @@ def fused_phases(spec, st, cfg, reps: int) -> dict:
     return {name: statistics.median(ts) for name, ts in times.items()}
 
 
-def host_ms_per_step(spec, st, cfg, reps: int) -> float:
-    step_ode_batched(spec, st, cfg)
+def host_ms_per_step(step, reps: int) -> float:
+    step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        step_ode_batched(spec, st, cfg)
+        step()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def profile(tag, spec, st, cfg) -> dict:
-    """Items 2 and 3 of the module's description for one configuration."""
-    w = device_window(lambda: step_ode_batched(spec, st, cfg), REPS)
-    host = host_ms_per_step(spec, st, cfg, REPS)
+def profile(tag, step, reps: int = REPS) -> dict:
+    """Items 2 and 3 of the module's description for one step callable."""
+    w = device_window(step, reps)
+    host = host_ms_per_step(step, reps)
     top = sorted(w["by_name"].items(), key=lambda kv: -kv[1][0])[:12]
     compaction = sum(n for name, (_, n) in w["by_name"].items()
                      if any(op in name.lower() for op in COMPACTION_OPS))
@@ -111,11 +128,19 @@ def main(argv) -> int:
     result = {"B": B, "reps": REPS, "card": torch.cuda.get_device_name(0)}
     result["phases_fused_ms"] = report_phases("fused", spec, st, cfg)
     for tag, c in (("fused", cfg), ("unfused", UNFUSED)):
-        result[tag] = profile(tag, spec, st, c)
+        result[tag] = profile(tag, lambda: step_ode_batched(spec, st, c))
     for name in argv:
-        sspec, sst, scfg = scenes.baseline_batch(name, B, device=dev)
-        result[name] = {"phases_ms": report_phases(name, sspec, sst, scfg),
-                        **profile(name, sspec, sst, scfg)}
+        if name == "fdtd2d":
+            grids = fdtd.fused_grids(fdtd.init_2d(FDTD_N, FDTD_N, device=dev))
+            dt = fdtd.courant_dt(1.0, 2, 0.7)
+            result[name] = profile(name, lambda: fdtd.step_2d_fused(*grids, dt, 1.0))
+            continue
+        scene, scfg = CONFIGS.get(name, (name, None))
+        sspec, sst, bcfg = scenes.baseline_batch(scene, B, device=dev)
+        scfg = bcfg if scfg is None else scfg
+        phases = report_phases(name, sspec, sst, scfg) if _is_fused(scfg) else {}
+        result[name] = {"phases_ms": phases, **profile(
+            name, lambda: step_ode_batched(sspec, sst, scfg), PGS_REPS if name == "pgs" else REPS)}
     print(json.dumps(result))
     return 0
 

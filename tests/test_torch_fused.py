@@ -6,7 +6,8 @@ package.
   without external forces), B4 `contact_jacobian_blocks` (normals +z, -z
   and generic; equality, ground and inactive lanes), B5
   `contact_system_matrix_packed` (A and diag), B6 `solve_lcp_jacobi_packed`
-  (equality and inactive lanes) and B7 `integrate_step` (a body below the
+  (equality and inactive lanes; its block and pyramid forms are held in
+  tests/test_torch_lcp_solvers.py) and B7 `integrate_step` (a body below the
   small-angle threshold).  The JAX kernels' packed (8, 128) tile layout is
   unpacked here.  Tolerance 1e-12 for the straight-line kernels, whose
   expressions are the same and only the rounding of XLA's CPU code can
@@ -49,7 +50,9 @@ from eggshell_tpu_torch.ops.integrate_kernel import integrate_step, integrate_st
 from eggshell_tpu_torch.ops.jassembly_kernel import (contact_jacobian_blocks,
                                                      contact_jacobian_blocks_plain)
 from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi_packed,
+                                               solve_lcp_jacobi_packed_block,
                                                solve_lcp_jacobi_packed_plain,
+                                               solve_lcp_jacobi_packed_pyramid,
                                                solve_lcp_jacobi_packed_stream)
 from eggshell_tpu_torch.ops.prep_kernel import prep_bodies, prep_bodies_plain
 from eggshell_tpu_torch.parallel.rollout import rollout_batched
@@ -261,11 +264,27 @@ def test_jacobi_packed_plain_matches_pallas_kernel():
     assert (np.abs(x[box][:, :2]) <= 1.0).all() and (x[box][:, 2] >= 0).all()
 
 
-def test_jacobi_packed_refuses_block_and_pyramid():
+def test_jacobi_packed_wrappers_take_block_and_pyramid_plain_on_cpu():
+    """On CPU tensors the resident B6 wrappers run the plain version of the
+    block, pyramid and block + pyramid forms and count no launch; the
+    streamed path refuses both, as the JAX package's does."""
     A, diag, rhs, act, eq = (_t(x) for x in _lcp_inputs(5))
+    lcp = (A, diag, rhs, act, eq, K, 1.0, 4, 0.3, 0.45)
+    counters = (solve_lcp_jacobi_packed, solve_lcp_jacobi_packed_block,
+                solve_lcp_jacobi_packed_pyramid)
+    before = [f.launches for f in counters]
+    for block, pyramid_mu in ((True, 0.0), (False, 0.5), (True, 0.5)):
+        want = solve_lcp_jacobi_packed_plain(*lcp, block, pyramid_mu)
+        assert torch.equal(solve_lcp_jacobi_packed(*lcp, block=block, pyramid_mu=pyramid_mu), want)
+        assert not torch.equal(want, solve_lcp_jacobi_packed_plain(*lcp))
+    assert torch.equal(solve_lcp_jacobi_packed_block(*lcp, pyramid_mu=0.5),
+                       solve_lcp_jacobi_packed_plain(*lcp, True, 0.5))
+    assert torch.equal(solve_lcp_jacobi_packed_pyramid(*lcp, 0.5),
+                       solve_lcp_jacobi_packed_plain(*lcp, False, 0.5))
+    assert [f.launches for f in counters] == before
     for kw in (dict(block=True), dict(pyramid_mu=0.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP B6"):
-            solve_lcp_jacobi_packed(A, diag, rhs, act, eq, K, 1.0, 4, 0.3, 0.45, **kw)
+        with pytest.raises(ValueError, match="streamed-A path"):
+            solve_lcp_jacobi_packed(*lcp, stream=True, **kw)
 
 
 def _integrate_inputs(seed):

@@ -16,7 +16,11 @@ The packed narrowphase runs the lanes entry's device function and must
 agree with it bit for bit; the compaction kernel must give the plain
 version's ids and flags exactly and its geometry within 1e-6; the streamed
 Jacobi must agree bit for bit with the resident one (the same sums in the
-same order) and within 1e-4 relative with the plain version.
+same order) and within 1e-4 relative with the plain version.  The block
+and pyramid forms of the packed Jacobi and the block-Jacobi B6c' keep the
+plain versions' expressions except for A x, whose sums torch orders
+otherwise: 1e-5 relative to max |x|.  The FDTD step has no sums and is
+held to 1e-6 of max |ez| (bit for bit expected).
 """
 
 import numpy as np
@@ -32,8 +36,12 @@ from eggshell_tpu_torch.ops.compact_kernel import compact_contacts, compact_cont
 from eggshell_tpu_torch.ops.integrate_kernel import integrate_step, integrate_step_plain
 from eggshell_tpu_torch.ops.jassembly_kernel import (contact_jacobian_blocks,
                                                      contact_jacobian_blocks_plain)
-from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi, solve_lcp_jacobi_packed,
+from eggshell_tpu_torch.fem.fdtd import fused_grids, init_2d, step_2d_fused, step_2d_fused_plain
+from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi, solve_lcp_jacobi_block,
+                                               solve_lcp_jacobi_packed,
+                                               solve_lcp_jacobi_packed_block,
                                                solve_lcp_jacobi_packed_plain,
+                                               solve_lcp_jacobi_packed_pyramid,
                                                solve_lcp_jacobi_packed_stream,
                                                solve_lcp_jacobi_plain)
 from eggshell_tpu_torch.ops.quaternion import quat_to_mat
@@ -123,9 +131,14 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
                        d["v"], d["w"], d["inv_mass"], torch.zeros(8, 4, 3, 3, device=dev),
                        torch.zeros(8, 4, 6, device=dev), 1e-3)
     A64 = torch.eye(64, device=dev).expand(8, 64, 64).contiguous()
-    with pytest.raises(NotImplementedError, match="ROADMAP B6"):
-        solve_lcp_jacobi_packed(A64, torch.ones(8, 64, device=dev), torch.zeros(8, 60, device=dev),
+    with pytest.raises(ValueError, match="3-row"):
+        solve_lcp_jacobi(A64, v[:, :64], v[:, :64] > 0, v[:, :64], v[:, :64], 4, 0.3, block=True)
+    with pytest.raises(ValueError, match="diag has"):
+        solve_lcp_jacobi_packed(A64, torch.ones(8, 60, device=dev), torch.zeros(8, 60, device=dev),
                                 d["act"], None, 20, 1.0, 4, 0.3, 0.45, block=True)
+    ez = torch.zeros(16, 16, device=dev)
+    with pytest.raises(TypeError):
+        step_2d_fused(ez.double(), ez, ez, ez, ez, 1e-3, 1e-2)
 
 
 def test_slice_goes_through_both_kernels(dev):
@@ -323,4 +336,88 @@ def test_baseline_scene_goes_through_its_kernels(dev, name):
     assert got == {"narrowphase_packed": 3 if pairs else 0, "compact": 3,
                    "jacobi_packed": 0 if streamed else 3,
                    "jacobi_packed_stream": 3 if streamed else 0, "integrate": 3}
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+
+
+def _random_packed_lcp(dev, B=256, K=20, seed=2):
+    rng = np.random.default_rng(seed)
+    mp = 3 * K + (-3 * K) % 8
+    G = torch.as_tensor(rng.normal(size=(B, mp, 24)), dtype=torch.float32, device=dev)
+    A = (G @ G.transpose(-1, -2) / 24 + torch.eye(mp, device=dev)).contiguous()
+    diag = torch.diagonal(A, dim1=-2, dim2=-1).contiguous()
+    rhs = torch.as_tensor(rng.normal(size=(B, 3 * K)), dtype=torch.float32, device=dev)
+    act = torch.as_tensor(rng.uniform(size=(B, K)) < 0.8, device=dev)
+    eq = torch.as_tensor(rng.uniform(size=(B, K)) < 0.1, device=dev)
+    return (A, diag, rhs, act, eq, K, 1.0, 16, 0.3, 0.45)
+
+
+@pytest.mark.parametrize("block,pyramid_mu", [(True, 0.0), (False, 0.5), (True, 0.5)],
+                         ids=["block", "pyramid", "block_pyramid"])
+def test_packed_block_and_pyramid_kernels_match_plain(dev, block, pyramid_mu):
+    lcp = _random_packed_lcp(dev)
+    counters = (solve_lcp_jacobi_packed, solve_lcp_jacobi_packed_block,
+                solve_lcp_jacobi_packed_pyramid)
+    before = [f.launches for f in counters]
+    got = solve_lcp_jacobi_packed(*lcp, block=block, pyramid_mu=pyramid_mu)
+    want = solve_lcp_jacobi_packed_plain(*lcp, block, pyramid_mu)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [0, int(block), int(not block)]
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_block_jacobi_kernel_matches_plain(dev):
+    g = torch.Generator().manual_seed(1)
+    B, m = 512, 60
+    G = torch.randn(B, m, 24, generator=g)
+    A = (G @ G.transpose(-1, -2) / 24 + torch.eye(m)).to(dev)
+    b = torch.randn(B, m, generator=g).to(dev)
+    row = torch.arange(m)
+    is_eq = (row % 10 == 9).expand(B, m).contiguous().to(dev)
+    lo = torch.where(row % 3 == 2, 0.0, -1.0).expand(B, m).contiguous().to(dev)
+    hi = torch.where(row % 3 == 2, float("inf"), 1.0).expand(B, m).contiguous().to(dev)
+    before = (solve_lcp_jacobi.launches, solve_lcp_jacobi_block.launches)
+    got = solve_lcp_jacobi(A, b, is_eq, lo, hi, 16, 0.5, 0.45, block=True)
+    want = solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, 16, 0.5, block=True)
+    torch.cuda.synchronize()
+    assert (solve_lcp_jacobi.launches - before[0], solve_lcp_jacobi_block.launches - before[1]) \
+        == (0, 1)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_fdtd_kernel_matches_plain(dev):
+    rng = np.random.default_rng(3)
+    n = 300
+    f = init_2d(n, n, device=dev)
+    f = f._replace(**{k: torch.as_tensor(rng.normal(size=tuple(x.shape)), dtype=torch.float32,
+                                         device=dev) for k, x in f._asdict().items()})
+    eps_r = torch.as_tensor(rng.uniform(1.0, 4.0, (n, n)), dtype=torch.float32, device=dev)
+    pec = torch.as_tensor(rng.uniform(size=(n, n)) < 0.05, device=dev)
+    grids = fused_grids(f, eps_r, pec)
+    before = step_2d_fused.launches
+    got = step_2d_fused(*grids, 1e-3, 4e-3)
+    want = step_2d_fused_plain(*grids, 1e-3, 4e-3)
+    torch.cuda.synchronize()
+    assert step_2d_fused.launches == before + 1
+    scale = float(want[0].abs().max())
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-6 * scale
+    assert bool((got[0][pec] == 0).all())
+
+
+@pytest.mark.parametrize("case", ["pyramid", "block"])
+def test_fused_slice_goes_through_its_b6_form(dev, case):
+    from eggshell_tpu_torch.utils.config import FrictionModel
+
+    cfg = (BENCH.replace(friction_model=FrictionModel.COULOMB_PYRAMID) if case == "pyramid"
+           else BENCH.replace(jacobi_block=True))
+    spec, st = scenes.box_stack(4, device=dev, dtype=torch.float32)
+    states = State(*[x.expand((64,) + x.shape).clone() for x in st])
+    wrappers = (solve_lcp_jacobi_packed, solve_lcp_jacobi_packed_block,
+                solve_lcp_jacobi_packed_pyramid, integrate_step)
+    before = [f.launches for f in wrappers]
+    out = rollout_batched(spec, states, cfg, 5)
+    torch.cuda.synchronize()
+    want = [0, 5, 0, 5] if case == "block" else [0, 0, 5, 5]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == want
     assert all(bool(torch.isfinite(x).all()) for x in out)

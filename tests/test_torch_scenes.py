@@ -87,6 +87,7 @@ def test_import_loads_no_jax():
             "eggshell_tpu_torch.ops.prep_kernel, eggshell_tpu_torch.ops.jassembly_kernel, "
             "eggshell_tpu_torch.ops.amat_kernel, eggshell_tpu_torch.ops.integrate_kernel, "
             "eggshell_tpu_torch.ops.compact_kernel, eggshell_tpu_torch.ops.collision_kernel, "
+            "eggshell_tpu_torch.fem.fdtd, eggshell_tpu_torch.ops.lcp, "
             "eggshell_tpu_torch.profile_step; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'eggshell_tpu')); print(bad); sys.exit(1 if bad else 0)")

@@ -29,7 +29,7 @@ from eggshell_tpu_torch import convert
 from eggshell_tpu_torch.parallel.rollout import rollout_batched
 from eggshell_tpu_torch.physics import scenes as ts
 from eggshell_tpu_torch.physics import stepper as tstep
-from eggshell_tpu_torch.physics.contacts import drop_joint_contacts, joint_points
+from eggshell_tpu_torch.physics.contacts import drop_joint_contacts, joint_anchors, joint_points
 from eggshell_tpu_torch.utils.config import BENCH
 
 BUILDERS = {
@@ -136,7 +136,7 @@ def test_fused_rollout_matches_jax_twin(name):
         tstep._fused_step(tspec, tstates, cfg,
                           call=lambda n, fn, a: record.setdefault(n, fn(*a)))
         cs = record["compact"]
-        a0, a1 = tstep._joint_anchors(tspec, tstates)
+        a0, a1 = joint_anchors(tspec, tstates)
         kept = drop_joint_contacts(cs, joint_points(a0, a1, tspec.joint_b1), tspec.joint_b0,
                                    tspec.joint_b1, 0.05 ** 2)
         assert int((cs.b1 >= 0).sum()) > int(cs.active.sum()) > int(kept.active.sum())

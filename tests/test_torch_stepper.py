@@ -9,7 +9,13 @@ against the JAX package, and the port's oracle gate.
   tests hold that equal to the Pallas kernel), within 1e-8;
 - the f32 oracle gate of bench.py on the CPU: the DIRECT/f64 trajectory
   in tests/data/oracle_stack4_f64.npz within 1e-3 at every checkpoint;
-- every configuration the JAX package sends down another branch raises.
+- every other configuration of `step_ode_batched` against the JAX
+  package's, B=4, 6 steps, float64, within 1e-8: the default `SimConfig()`
+  (PGS), SOR, the XLA Jacobi, NO_FRICTION, INFINITE, COULOMB_PYRAMID and
+  `jacobi_block` on the unfused branch, ball joints there, and the fused
+  chain with block-Jacobi or COULOMB_PYRAMID (against the JAX package's
+  XLA twin of that step, the same configuration with SolverKind.JACOBI);
+- DIRECT, MATRIX_FREE and the broadphase raise, naming their ROADMAP item.
 """
 
 import functools
@@ -23,6 +29,7 @@ import torch
 
 from eggshell_tpu.parallel.rollout import rollout_batched as jax_rollout_batched
 from eggshell_tpu.physics import constraints as jcon
+from eggshell_tpu.physics import scene as jscene
 from eggshell_tpu.physics import contacts as jcont
 from eggshell_tpu.physics import scenes as js
 from eggshell_tpu.physics import stepper as jstep
@@ -131,32 +138,96 @@ def test_oracle_gate_f32():
 
 
 UNSUPPORTED = {
-    "fused_chain_block": dict(conditional_cfm=False, jacobi_block=True),
-    "fused_chain_pyramid": dict(conditional_cfm=False,
-                                friction_model=FrictionModel.COULOMB_PYRAMID),
-    "pyramid_unfused": dict(friction_model=FrictionModel.COULOMB_PYRAMID),
-    "no_friction": dict(friction_model=FrictionModel.NO_FRICTION),
     "matrix_free": dict(solver=SolverKind.MATRIX_FREE),
     "direct": dict(solver=SolverKind.DIRECT),
-    "pgs": dict(solver=SolverKind.PGS),
-    "sor": dict(solver=SolverKind.SOR),
-    "jacobi_xla": dict(solver=SolverKind.JACOBI),
     "broadphase": dict(pair_capacity=4),
-    "joints": {},
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_unported_branch_raises(name):
-    if name == "joints":
-        spec, st = make_scene([[0, 0, 1.0], [0.5, 0, 1.0]],
-                              joints=[(0, 1, [0.25, 0, 0], [-0.25, 0, 0])],
-                              device="cpu", dtype=torch.float64)
-    else:
-        spec, st = ts.box_stack(2, device="cpu", dtype=torch.float64)
+    spec, st = ts.box_stack(2, device="cpu", dtype=torch.float64)
     states = State(*[x[None] for x in st])
     cfg = SimConfig(**{**SLICE, **UNSUPPORTED[name]})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rollout_batched(spec, states, cfg, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tstep.step_ode_batched(spec, states, cfg)
+
+
+PYRAMID = dict(friction_model=FrictionModel.COULOMB_PYRAMID, friction_mu=0.2)
+SMALL = {**SLICE, "contact_capacity": 12}
+FUSED = {**SMALL, "conditional_cfm": False, "cfm_always": 0.01}
+PORTED = {
+    # name: (scene, configuration, configuration of the JAX side or None)
+    "pgs_default": ("stack", dict(contact_capacity=12), None),
+    "sor": ("stack", {**SMALL, "solver": SolverKind.SOR}, None),
+    "jacobi_xla": ("stack", {**SMALL, "solver": SolverKind.JACOBI}, None),
+    "no_friction": ("stack", {**SMALL, "friction_model": FrictionModel.NO_FRICTION}, None),
+    "infinite": ("stack", {**SMALL, "friction_model": FrictionModel.INFINITE}, None),
+    "pyramid_unfused": ("sliding", {**SMALL, **PYRAMID}, None),
+    "jacobi_block_unfused": ("stack", {**SMALL, "jacobi_block": True}, None),
+    "joints": ("joints", {**SMALL, "min_constraint_distance": 0.25}, None),
+    "fused_chain_block": ("stack", {**FUSED, "jacobi_block": True},
+                          {**FUSED, "jacobi_block": True, "solver": SolverKind.JACOBI}),
+    "fused_chain_pyramid": ("sliding", {**FUSED, **PYRAMID},
+                            {**FUSED, **PYRAMID, "solver": SolverKind.JACOBI}),
+}
+PORTED_STEPS = 6
+
+
+def _scene(kind, make):
+    """`make` is the JAX package's make_scene or the port's (with device
+    and dtype bound).  "stack": box_stack(2); "sliding": the same stack
+    sliding at 1.5 m/s and pressed 0.5 mm into the ground, so the tangent
+    impulses reach their caps (tests/test_pgs_kernel.py:443-451); "joints":
+    two boxes overlapping by 1 mm side by side, joined at their common face
+    and hung from the world by the first's top, so the joint-contact dedupe
+    drops their contacts (min_constraint_distance 0.25)."""
+    if kind == "joints":
+        return make([[0.0, 0.0, 1.0], [0.299, 0.0, 1.0]], ground=True,
+                     joints=[(0, 1, [0.15, 0.0, 0.0], [-0.15, 0.0, 0.0]),
+                             (0, -1, [0.0, 0.0, 0.15], [0.0, 0.0, 1.15])])
+    p = [[0.0, 0.0, 0.15], [0.0, 0.0, 0.45]]
+    if kind == "sliding":
+        return make([[x, y, z - 5e-4] for x, y, z in p], velocities=[[1.5, 0.0, 0.0]] * 2)
+    return make(p)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ported(name):
+    kind, cfg, jax_cfg = PORTED[name]
+    spec, st = _scene(kind, jscene.make_scene)
+    (spec, states), _ = _batch(spec, st, 4, 1e-3)
+    jcfg = JaxSimConfig(**{**(jax_cfg or cfg), "contact_kernel": False})
+    for _ in range(PORTED_STEPS):
+        states = jstep.step_ode_batched(spec, states, jcfg)
+    return _np(states)
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_ported_branch_matches_jax(name):
+    kind, cfg, _ = PORTED[name]
+    spec, st = _scene(kind, jscene.make_scene)
+    _, (tspec, tstates) = _batch(spec, st, 4, 1e-3)
+    tcfg = SimConfig(**cfg)
+    got = rollout_batched(tspec, tstates, tcfg, PORTED_STEPS)
+    want = _jax_ported(name)
+    for field in ("p", "v", "q", "w"):
+        np.testing.assert_allclose(getattr(got, field).numpy(), want[field], rtol=0, atol=1e-8,
+                                   err_msg=field)
+    if kind == "joints":
+        a0, a1 = tcont.joint_anchors(tspec, got)
+        assert float((a0 - a1).norm(dim=-1).max()) < 1e-3
+        assert float(tcont.make_contacts_batched(tspec, tstates, tcfg).active.sum()) == 0
+        assert int(tcont.make_contacts_batched(
+            tspec, tstates, tcfg.replace(min_constraint_distance=1e-6)).active.sum()) > 0
+    if kind == "sliding":
+        # the pyramid binds: BOX friction (bound 1) moves the stack otherwise
+        box = rollout_batched(tspec, tstates, tcfg.replace(friction_model=FrictionModel.BOX),
+                              PORTED_STEPS)
+        assert float((box.v - got.v).abs().max()) > 1e-6
+    if name == "jacobi_block_unfused":
+        # the unfused branch's kernel takes no `block`, as in the JAX package
+        plain = rollout_batched(tspec, tstates, tcfg.replace(jacobi_block=False), PORTED_STEPS)
+        assert all(torch.equal(g, w) for g, w in zip(got, plain))
