@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from `eggshell_tpu_torch/csrc/` and holds each one
-against its plain PyTorch version on the card, on seeded random inputs and
-on the inputs of its path's first step, with the bound printed beside the
-error, the device times of kernel and plain version, and the kernel's
-bound.  Then it drives the ported paths through `rollout_batched` at
-B=4096, H=50:
+Builds the CUDA kernels from `eggshell_tpu_torch/csrc/`, prints the
+registers, stack and spills ptxas reported for the packed Jacobi kernels
+(`[ptxas]`; none may spill), and holds each kernel against its plain
+PyTorch version on the card, on seeded random inputs and on the inputs of
+its path's first step, with the bound printed beside the error, the device
+times of kernel and plain version, and the kernel's bound and its ratio to
+it.  `[jacobi_packed_stream]` also requires the cluster solve B6b to return
+the resident B6's bits, at mp = 96 and 192 and on the streamed scenes'
+first-step inputs, and times both at mp = 96 and 192.  Then it drives the
+ported paths through `rollout_batched` at B=4096, H=50:
 
 - the fused chain under the bench configuration (bench.py:80-94,
   `conditional_cfm=False`) on `box_stack(4)` with the bench's jitter: packed
@@ -19,8 +23,8 @@ B=4096, H=50:
 - the four BASELINE scenes of bench.py:148-176 on the fused chain, with
   their contact capacities and jitters (phases `[scene_box_drop]`,
   `[scene_pendulum_chain6]`, `[scene_box_stack8]`, `[scene_living_room]`):
-  the ground-only compaction where a scene has no pairs, the streamed
-  Jacobi where the solve has 72 rows or more;
+  the ground-only compaction where a scene has no pairs, the cluster
+  ("streamed") Jacobi where the solve has 72 rows or more;
 - the fused chain with Coulomb-pyramid friction and with block-Jacobi on
   `box_stack(4)` (phases `[slice_pyramid]`, `[slice_block]`; the B6 forms
   are held alone in `[jacobi_packed_pyramid]`, `[jacobi_packed_block]`),
@@ -137,14 +141,18 @@ def timings(kernel_name: str, kernel_call, plain_call, reps: int = 20) -> dict:
     p = device_window(plain_call, reps, flush)
     for what, w in (("kernel", k), ("plain", p)):
         if w["attempts"] > 1:
-            print(f"[{kernel_name}] the {what} window recorded device activity only on "
-                  f"attempt {w['attempts']}")
+            print(f"[{kernel_name}] the {what} window was whole (device activity, each call "
+                  f"after its flush) only on attempt {w['attempts']}")
     return {"ms": sum(ms for ms, _ in mine), "plain_ms": p["device_ms"]}
 
 
 def timing_text(t: dict) -> str:
     return (f"kernel {t['ms']:.4f} ms, plain torch {t['plain_ms']:.4f} ms of device time "
             f"a call, L2 flushed before each")
+
+
+def ratio_text(t: dict, b: dict) -> str:
+    return f"{t['ms'] / b['bound_ms']:.2f}x the bound"
 
 
 def tensors(x):
@@ -456,7 +464,7 @@ def phase_fused_kernel(name, cases):
     t = timings(name + "_kernel", lambda: kernel(*main_args), lambda: plain(*main_args))
     b = bound(moved_bytes(main_args, kernel(*main_args)), _fused_flops(name, main_args))
     print(f"[{name}] main-path shapes: {timing_text(t)}, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}: {b['bytes']} bytes, {b['flops']:.4g} flops)")
+          f"({b['bound_by']}: {b['bytes']} bytes, {b['flops']:.4g} flops), {ratio_text(t, b)}")
     return {"max_abs_err": err_abs, **t, **b}
 
 
@@ -664,40 +672,59 @@ def random_lcp(dev, B, K, seed):
 
 
 def phase_jacobi_packed_stream(dev, firsts):
-    """B6b against its plain version on a seeded SPD system at K=32
-    (mp=96) and on the first-step inputs of the streamed paths (relative
-    bound 1e-4, as B6); then B6b and the resident B6 (`stream=False`) timed
-    on box_stack8's first-step inputs."""
-    from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi_packed,
+    """B6b against its plain version (relative bound 1e-4, as B6) and bit
+    for bit against the resident B6 (`stream=False`: both sum each row in
+    the same order) on seeded SPD systems at K=32 (mp=96) and K=64 (mp=192,
+    A 604 MB) and on the first-step inputs of the streamed paths; the
+    resident B6 against the plain version too.  Then B6b and B6 timed on
+    box_stack8's first-step inputs and on the mp=192 system."""
+    from eggshell_tpu_torch.ops.pgs_kernel import (packed_launch_plan, solve_lcp_jacobi_packed,
                                                    solve_lcp_jacobi_packed_plain,
                                                    solve_lcp_jacobi_packed_stream)
 
-    cases = [("seeded random SPD (4096, 96, 96)", random_lcp(dev, 4096, 32, SEED + 4))]
-    cases += [(f"first-step inputs of {tag}", a) for tag, a in firsts]
+    cases = [("seeded random SPD (4096, 96, 96)", random_lcp(dev, 4096, 32, SEED + 4)),
+             ("seeded random SPD (4096, 192, 192)", random_lcp(dev, 4096, 64, SEED + 6))]
+    cases += [(f"first-step inputs of {tag}", a[:10]) for tag, a in firsts]
     err = 0.0
-    for what, args in cases:
-        args = args[:10]        # the fused step also passes block=False, pyramid_mu=0
+    for what, args in cases:   # the fused step also passes block=False, pyramid_mu=0: dropped
         got = solve_lcp_jacobi_packed_stream(*args)
         want = solve_lcp_jacobi_packed_plain(*args)
         resident = solve_lcp_jacobi_packed(*args, stream=False)
+        scale = max(1.0, float(want.abs().max()))
         e = float((got - want).abs().max())
-        rel = e / max(1.0, float(want.abs().max()))
+        rel, rel_res = e / scale, float((resident - want).abs().max()) / scale
+        same = torch.equal(got, resident)
         err = max(err, e)
-        print(f"[jacobi_packed_stream] {what}: max |dx| {e:.3e}, relative to scale {rel:.3e} "
-              f"(bound 1e-4); bit for bit the resident kernel's: {torch.equal(got, resident)}")
+        plan = packed_launch_plan(args[1].shape[1])
+        print(f"[jacobi_packed_stream] {what}: max |dx| {e:.3e}, relative to scale {rel:.3e}, "
+              f"resident B6 {rel_res:.3e} (bound 1e-4); bit for bit the resident kernel's: "
+              f"{same}; cluster of {plan.cluster.cluster}, {plan.cluster.rows} rows a block, "
+              f"rows in {'registers' if plan.cluster.reg_rows else 'shared memory'}")
         check(bool(torch.isfinite(got).all()), f"jacobi_packed_stream output not finite on {what}")
         check(rel <= 1e-4, f"jacobi_packed_stream relative error {rel} on {what}")
-    tag, main_args = firsts[0]
-    main_args = main_args[:10]
-    t = timings("jacobi_packed_stream_kernel", lambda: solve_lcp_jacobi_packed_stream(*main_args),
-                lambda: solve_lcp_jacobi_packed_plain(*main_args))
-    tr = timings("jacobi_packed_kernel", lambda: solve_lcp_jacobi_packed(*main_args, stream=False),
-                 lambda: solve_lcp_jacobi_packed_plain(*main_args))
-    b = bound(moved_bytes(main_args, solve_lcp_jacobi_packed_stream(*main_args)),
-              _fused_flops("jacobi_packed", main_args))
+        check(rel_res <= 1e-4, f"resident jacobi_packed relative error {rel_res} on {what}")
+        check(same, f"jacobi_packed_stream differs from the resident kernel on {what}")
+
+    def timed(args):
+        t = timings("jacobi_packed_stream_kernel", lambda: solve_lcp_jacobi_packed_stream(*args),
+                    lambda: solve_lcp_jacobi_packed_plain(*args))
+        tr = timings("jacobi_packed_kernel", lambda: solve_lcp_jacobi_packed(*args, stream=False),
+                     lambda: solve_lcp_jacobi_packed_plain(*args))
+        b = bound(moved_bytes(args, solve_lcp_jacobi_packed_stream(*args)),
+                  _fused_flops("jacobi_packed", args))
+        return t, tr, b
+
+    t192, tr192, b192 = timed(cases[1][1])
+    print(f"[jacobi_packed_stream] seeded random SPD (4096, 192, 192): B6b {t192['ms']:.4f} ms "
+          f"({ratio_text(t192, b192)}), resident B6 {tr192['ms']:.4f} ms "
+          f"({ratio_text(tr192, b192)}), plain torch {t192['plain_ms']:.4f} ms; bound "
+          f"{b192['bound_ms']:.4f} ms ({b192['bound_by']}: {b192['bytes']} bytes)")
+    tag, main_args = firsts[0][0], cases[2][1]
+    t, tr, b = timed(main_args)
     print(f"[jacobi_packed_stream] inputs of {tag}, A {tuple(main_args[0].shape)}: "
-          f"{timing_text(t)}; resident B6 on the same inputs {tr['ms']:.4f} ms; bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes, {b['flops']:.4g} flops)")
+          f"{timing_text(t)}, {ratio_text(t, b)}; resident B6 on the same inputs {tr['ms']:.4f} "
+          f"ms, {ratio_text(tr, b)}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+          f"{b['bytes']} bytes, {b['flops']:.4g} flops)")
     return {"max_abs_err": err, **t, **b, "resident_ms": tr["ms"]}
 
 
@@ -730,7 +757,8 @@ def phase_jacobi_packed_form(dev, tag, kernel_name, block, pyramid_mu, first):
     b = bound(moved_bytes(main_args, solve_lcp_jacobi_packed(*main_args)),
               _fused_flops("jacobi_packed", main_args))
     print(f"[{tag}] main-path shapes, A {tuple(main_args[0].shape)}: {timing_text(t)}, bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes, {b['flops']:.4g} flops)")
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes, {b['flops']:.4g} flops), "
+          f"{ratio_text(t, b)}")
     return {"max_abs_err": err, **t, **b}
 
 
@@ -1082,6 +1110,26 @@ SCENES = {
 }
 
 
+def phase_ptxas():
+    """Registers, stack and spills of the packed Jacobi kernels (B6's four
+    forms at each row length, B6b), as ptxas reported them at the build;
+    none may spill."""
+    from eggshell_tpu_torch import kernels
+
+    found = 0
+    for entry, use in sorted(kernels.ptxas_usage().items()):
+        m = re.search(r"(?<=\d)(jacobi_packed\w*?_kernel)ILi(\d+)E", entry)
+        if not m:
+            continue
+        found += 1
+        print(f"[ptxas] {m.group(1)}<{m.group(2)}>: {use.get('registers')} registers, "
+              f"{use.get('stack')} bytes stack, {use.get('spill_stores')} bytes spill stores, "
+              f"{use.get('spill_loads')} bytes spill loads")
+        check(use.get("spill_stores") == 0 and use.get("spill_loads") == 0,
+              f"{entry} spills: {use}")
+    check(found == 25, f"{found} packed Jacobi kernel entries in the ptxas report, expected 25")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1095,6 +1143,7 @@ def main() -> int:
     kernels.load()
     print(f"[card] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"({kernels.library_path().name})")
+    phase_ptxas()
 
     nargs, lcp = main_path_inputs(dev)
     res = {"narrowphase": phase_narrowphase(dev, nargs), "jacobi": phase_jacobi(dev, lcp),

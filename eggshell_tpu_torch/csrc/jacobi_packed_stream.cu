@@ -1,148 +1,246 @@
-// Heavy-ball projected Jacobi on the fused chain's contact LCP with A
-// streamed from device memory (B6b), float32.
+// Heavy-ball projected Jacobi on the fused chain's contact LCP with A held
+// across a thread-block cluster (B6b), float32.
 //
 // Replaces the TPU kernel `_jacobi_packed_stream_kernel` of
 // eggshell_tpu/ops/pgs_kernel.py (reached through
 // `_solve_lcp_jacobi_packed_stream`, the `stream=True` side of
-// `solve_lcp_jacobi_packed`).  It computes what csrc/jacobi_packed.cu
-// computes, sum for sum: the same bounds built from the lane masks, x0 =
-// proj(b), then `iters` sweeps of
+// `solve_lcp_jacobi_packed`).  It computes what csrc/jacobi_packed.cu's
+// scalar form computes, bit for bit: the same bounds built from the lane
+// masks, x0 = proj(b), then `iters` sweeps of
 //   r = b - A x + diag x;  x <- proj((1 - omega) x + omega r / diag + beta (x - x_prev)),
-// each row's A x summed over j in order.  It differs in where A lives: the
-// resident kernel copies A into shared memory once; this one leaves it in
-// device memory and reads it again on every sweep, in chunks of RB rows.
+// each row's A x summed over all j in increasing order by the functions of
+// csrc/jacobi_rows.cuh that B6 uses.
 //
-// What bounds it on an H100: bytes.  A is mp^2 floats a scenario (36 KB at
-// mp = 96) and is read iters times (16 at the bench configuration), against
-// 2 mp^2 flops a sweep: 0.5 flop a byte read.  At B = 4096 and mp = 96, A is
-// 151 MB, three times the 50 MB L2, so every sweep's read comes from HBM.
-// The design: one block per scenario, one thread per row (x, x_prev, the
-// bounds, diag and b in the row's registers, the iterate in shared memory);
-// A arrives a chunk of RB rows at a time (RB * mp contiguous floats),
-// double-buffered in shared memory with `cp.async`, so the next chunk's copy
-// is in flight while the current chunk's rows are summed.  The buffers keep a
-// row stride of mp + 1 floats, so a warp reading its rows at one column hits
-// 32 banks.  A block holds 2 RB (mp + 1) + mp floats: 25 KB at mp = 96.  The
-// TPU kernel's (iters, nchunks) grid and its (8, 128) sublane stripes are not
-// carried over: the sweep and chunk loops run inside the block.
+// The TPU kernel streams A from HBM on every sweep because one scenario's
+// double-buffered A does not fit its VMEM budget.  On an H100 that costs
+// iters reads of A: at mp = 96, B = 4096 and 16 sweeps, 2.4 GB, 0.72 ms at
+// the HBM peak, against a 0.0465 ms bound for one read (the first port of
+// this kernel did that and took 1.0022 ms).  Here A is read from HBM once
+// and held across a cluster of c blocks (c <= 8, the portable limit): each
+// block holds mp / c whole rows of one scenario, one row a thread.
+// - The rows arrive by one 2D tensor TMA copy into a stage in the block's
+//   shared memory (csrc/jacobi_rows.cuh, row stride mp + 4; rows of more
+//   than 252 floats one bulk copy a row).  Rows of up to 128 floats move
+//   into registers (template RL, as in B6), and the stage is refilled with
+//   the cluster's next scenario while this one sweeps; longer rows are read
+//   from the stage, which is refilled after the sweeps.
+// - Every block keeps the whole iterate, double-buffered, zero past mp, and
+//   reads it as float4 broadcasts.  Each sweep, a thread sends its row's
+//   new value to the same slot of every block of the cluster through
+//   distributed shared memory (`st.async` to the address
+//   `cooperative_groups::cluster_group::map_shared_rank` names, `mapa`),
+//   and each store completes on the receiving block's mbarrier for that
+//   buffer, which expects mp * 4 bytes a sweep.  A block starts a sweep when
+//   its own mbarrier says the whole iterate has landed: no cluster barrier
+//   inside a scenario.  A buffer is written again only two sweeps later, by
+//   a block that has by then received this block's next slice, which this
+//   block sends after it has read the buffer: so the data flow itself keeps
+//   a write from overtaking a read.  A cluster barrier ends each scenario,
+//   before the next scenario's x0 lands.  Gathering the slices with
+//   `map_shared_rank` loads after a cluster barrier each sweep took 0.29 ms
+//   at mp = 96 (`chip_smoke.py`, H100 SXM at 700 W), and plain stores
+//   ordered by a cluster barrier each sweep measured slower than these
+//   mbarriers too.
+// - Rows are split, not columns, so each row is summed as in B6 and no
+//   partial sums cross blocks.
+// - A persistent grid of clusters (`cudaOccupancyMaxActiveClusters`), each
+//   walking the scenarios q, q + clusters, ...
+// Launched with `cudaLaunchKernelEx` and the cluster dimension attribute.
+// The cluster size c comes from `ops/pgs_kernel.py:packed_launch_plan`:
+// the smallest c >= 2 that divides mp and leaves at most 64 rows a block,
+// else 8.  Fewer, fuller blocks measured faster (tools/jacobi_packed_probe.py,
+// H100 SXM at 700 W): at mp = 96, 0.1371 ms with c = 2 against 0.1435
+// (c = 3) and 0.1804 (c = 4); at mp = 192, 0.6209 ms with c = 3 against
+// 0.6815 (c = 2, 96 rows a block) and 0.7777 (c = 4).
+// Shared memory, in bytes: the stage, R = mp / c rows of stride mp + 4
+// floats rounded up to 128 bytes; 32 bytes of mbarriers; two iterates of X
+// floats, X = mp rounded up to a warp.  A block has T threads, R rounded up
+// to a warp.
 
-#include <cuda_pipeline.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "jacobi_rows.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr float kHiInf = 3.4e38f;
+using namespace jacobi_rows;
 
-// Rows per chunk: the largest of 32, 24, 16, 8 that divides mp (mp is a
-// multiple of 8).
-__host__ __device__ inline int chunk_rows(int mp) {
-  return mp % 32 == 0 ? 32 : mp % 24 == 0 ? 24 : mp % 16 == 0 ? 16 : 8;
+// The shared::cluster address of `p` in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
 }
 
-// Issue the copies of chunk `c` (rows c*rb .. c*rb+rb-1 of the scenario's A)
-// into `buf`, and commit them as one group.
-__device__ __forceinline__ void load_chunk(float* buf, const float* __restrict__ As, int c,
-                                           int rb, int mp, int ld) {
-  const float* src = As + (int64_t)c * rb * mp;
-  for (int e = threadIdx.x; e < rb * mp; e += blockDim.x)
-    __pipeline_memcpy_async(buf + (e / mp) * ld + e % mp, src + e, sizeof(float));
-  __pipeline_commit();
+// Store `v` at `addr` (shared::cluster) and count its 4 bytes on the
+// mbarrier at `bar` of the same block.
+__device__ __forceinline__ void send(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];" ::"r"(
+                   addr),
+               "f"(v), "r"(bar)
+               : "memory");
 }
 
-__global__ void jacobi_packed_stream_kernel(const float* __restrict__ A,
-                                            const float* __restrict__ diag,
-                                            const float* __restrict__ rhs,
-                                            const uint8_t* __restrict__ act,
-                                            const uint8_t* __restrict__ eq,
-                                            float* __restrict__ x_out, int K, int mp, int iters,
-                                            float mu, float omega, float beta) {
-  extern __shared__ float smem[];
-  const int ld = mp + 1;
-  const int rb = chunk_rows(mp);
-  const int nchunks = mp / rb;
-  float* buf0 = smem;                // chunk buffers, rb rows of stride ld each
-  float* buf1 = smem + rb * ld;
-  float* sx = smem + 2 * rb * ld;    // current iterate
-  const int64_t s = blockIdx.x;
-  const int m = 3 * K;
-  const float* As = A + s * (int64_t)mp * mp;
+// Rows of 96 in registers (mp 72..96, 36..48 rows a block of 64 threads)
+// are held to 170 registers, so that 6 blocks fit an SM (175 registers left
+// 5): each sweep waits for the other blocks' stores, and more blocks hide
+// that (0.1347 against 0.1553 ms at mp = 96, `chip_smoke.py` on an H100
+// SXM at 700 W; 7 blocks spill).
+template <int RL>
+__global__ void __launch_bounds__(RL == 0 ? 96 : 64, RL == 96 ? 6 : 1)
+    jacobi_packed_stream_kernel(const __grid_constant__ CUtensorMap tmap, bool use_tmap,
+                                const float* __restrict__ A, const float* __restrict__ diag,
+                                const float* __restrict__ rhs, const uint8_t* __restrict__ act,
+                                const uint8_t* __restrict__ eq, float* __restrict__ x_out,
+                                int64_t B, int K, int mp, int iters, float mu, float omega,
+                                float beta) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int R = mp / c;              // rows of this block
+  const int X = ((mp + 31) / 32) * 32;
+  float* sA = reinterpret_cast<float*>(smem_raw);            // R rows of ld
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + stage_bytes(R, mp));  // the stage's
+  uint64_t* xbars = bar + 1;                                 // one an iterate buffer
+  float* xfull = reinterpret_cast<float*>(bar + 4);          // 2 x X: the whole iterate
+  const CUtensorMap* map = use_tmap ? &tmap : nullptr;
+  const int ld = mp + 4;
+  const int li = threadIdx.x;        // local row
+  const int i = rank * R + li;       // row of the scenario
+  const bool row = li < R;
+  const int64_t q0 = blockIdx.x / c, nclusters = gridDim.x / c;
 
-  const int i = threadIdx.x;
-  const bool row = i < mp;
-  const bool real = i < m;
-  const int k = i / 3;
-  const bool active = real && act[s * K + k] != 0;
-  const bool eqi = real && eq != nullptr && eq[s * K + k] != 0;
-  float lo = 0.f, hi = kHiInf;
-  if (eqi) {
-    lo = -kHiInf;
-  } else if (i % 3 < 2) {
-    lo = -mu;
-    hi = mu;
+  if (li == 0) {
+    mbar_init(bar, 1);
+    mbar_init(&xbars[0], 1);
+    mbar_init(&xbars[1], 1);
+    fence_mbar_init();
   }
-  const float bi = real ? rhs[s * m + i] : 0.f;
-  float d = 1.f, inv_d = 1.f, x = 0.f, xprev = 0.f;
-  if (row) {
-    d = diag[s * mp + i];
-    inv_d = 1.f / d;
-    x = active ? fminf(fmaxf(bi, lo), hi) : bi;
-    xprev = x;
-    sx[i] = x;
-  }
+  for (int j = li; j < 2 * X; j += blockDim.x) xfull[j] = 0.f;  // stays 0 past mp
+  cluster.sync();  // every block runs and has its barriers before any store reaches it
+  if (li < 32) load_rows(sA, map, A, q0 * mp + rank * R, R, mp, bar);
 
-  const int total = iters * nchunks;  // chunks over all sweeps
-  if (total > 0) load_chunk(buf0, As, 0, rb, mp, ld);
-  float ax = 0.f;
-  for (int g = 0; g < total; ++g) {
-    const int c = g % nchunks;
-    float* cur = (g & 1) ? buf1 : buf0;
-    if (g + 1 < total) {
-      load_chunk((g & 1) ? buf0 : buf1, As, (c + 1) % nchunks, rb, mp, ld);
-      __pipeline_wait_prior(1);  // all but the chunk just issued have landed
-    } else {
-      __pipeline_wait_prior(0);
+  uint32_t parity = 0;  // bit b: parity of the phase buffer b's barrier is in
+  uint32_t stage_parity = 0;
+  const int ri = row ? i : mp;  // idle threads read nothing
+  RowInputs ahead = row_inputs(rhs, diag, act, eq, q0, K, mp, ri);
+  for (int64_t s = q0; s < B; s += nclusters, stage_parity ^= 1u) {
+    const int64_t next = s + nclusters;
+    const RowInputs in = ahead;
+    if (next < B) ahead = row_inputs(rhs, diag, act, eq, next, K, mp, ri);
+
+    const RowBounds rb = row_bounds(in, i, mu);
+    const float bi = in.b, d = in.d, inv_d = 1.f / d;
+    float x = in.act ? fminf(fmaxf(bi, rb.lo), rb.hi) : bi;
+    float xprev = x;
+
+    mbar_wait(bar, stage_parity);
+    RegRow<(RL > 0 ? RL : 4)> a;
+    if (RL > 0) a.load(sA + (row ? li : 0) * ld, row ? mp : 0);
+    __syncthreads();  // the stage is read (register rows)
+    if (RL > 0 && li < 32 && next < B) load_rows(sA, map, A, next * mp + rank * R, R, mp, bar);
+
+    // x_t goes to buffer t & 1 of every block; buffer b's barrier expects
+    // mp * 4 bytes a phase, armed by thread 0 once the phase before is done.
+    if (iters > 0) {
+      if (li == 0) mbar_expect(&xbars[0], (uint32_t)mp * 4u);
+      if (row)
+        for (int r = 0; r < c; ++r)
+          send(cluster_addr(xfull + i, r), x, cluster_addr(&xbars[0], r));
     }
-    __syncthreads();  // the chunk, and the sweep's iterate, are visible to all
-    if (i >= c * rb && i < c * rb + rb) {
-      const float* a = cur + (i - c * rb) * ld;
-      float acc = 0.f;
-      for (int j = 0; j < mp; ++j) acc = acc + a[j] * sx[j];
-      ax = acc;
-    }
-    __syncthreads();  // `cur` may be overwritten by the copy issued next
-    if (c == nchunks - 1) {  // the sweep's last chunk: update the iterate
+    for (int it = 0; it < iters; ++it) {
+      const int b = it & 1;
+      mbar_wait(&xbars[b], (parity >> b) & 1u);
+      parity ^= 1u << b;
+      const bool more = it + 1 < iters;
+      if (more && li == 0) mbar_expect(&xbars[b ^ 1], (uint32_t)mp * 4u);
       if (row) {
-        const float r = bi - ax + d * x;
-        float xn = (1.f - omega) * x + omega * r * inv_d + beta * (x - xprev);
-        if (active) xn = fminf(fmaxf(xn, lo), hi);
-        sx[i] = xn;
+        const float* xc = xfull + b * X;
+        const float ax = RL > 0 ? a.dot(xc) : shared_dot(sA + li * ld, xc, mp);
+        const float xn =
+            scalar_update(bi - ax, x, xprev, d, inv_d, omega, beta, in.act, rb.lo, rb.hi);
+        if (more)
+          for (int r = 0; r < c; ++r)
+            send(cluster_addr(xfull + (b ^ 1) * X + i, r), xn, cluster_addr(&xbars[b ^ 1], r));
         xprev = x;
         x = xn;
       }
-      // the next read of sx follows the next iteration's first __syncthreads
     }
+    if (row) x_out[s * mp + i] = x;
+    cluster.sync();  // every block is done with this scenario's iterates and stage
+    if (RL == 0 && li < 32 && next < B) load_rows(sA, map, A, next * mp + rank * R, R, mp, bar);
   }
-  if (row) x_out[s * mp + i] = x;
+}
+
+typedef void (*StreamKernel)(const CUtensorMap, bool, const float*, const float*, const float*,
+                             const uint8_t*, const uint8_t*, float*, int64_t, int, int, int, float,
+                             float, float);
+
+StreamKernel stream_kernel_for(int rl) {
+  switch (rl) {
+    case 0: return jacobi_packed_stream_kernel<0>;
+    case 32: return jacobi_packed_stream_kernel<32>;
+    case 64: return jacobi_packed_stream_kernel<64>;
+    case 96: return jacobi_packed_stream_kernel<96>;
+    case 128: return jacobi_packed_stream_kernel<128>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
+// `rl` (row length in registers, 0: rows in shared memory) and `cluster`
+// come from the caller's launch plan; a plan this file does not take is
+// refused.
 extern "C" int eggshell_jacobi_packed_stream_f32(const float* A, const float* diag,
                                                  const float* rhs, const uint8_t* act,
                                                  const uint8_t* eq, float* x, int64_t B, int K,
                                                  int mp, int iters, float mu, float omega,
-                                                 float beta, void* stream) {
+                                                 float beta, int rl, int cluster, void* stream) {
   if (B <= 0) return 0;
-  const int rb = chunk_rows(mp);
-  const size_t smem = (size_t)(2 * rb * (mp + 1) + mp) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(jacobi_packed_stream_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const StreamKernel kernel = stream_kernel_for(rl);
+  const int X = ((mp + 31) / 32) * 32;
+  if (kernel == nullptr || mp <= 0 || mp % 8 != 0 || 3 * K > mp || cluster < 1 || cluster > 8 ||
+      mp % cluster != 0 || (rl != 0 && rl != X))
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * mp > INT32_MAX) return (int)cudaErrorInvalidValue;  // a box's row coordinate
+  const int R = mp / cluster;
+  const int T = ((R + 31) / 32) * 32;
+  const size_t smem = stage_bytes(R, mp) + 32 + 4 * (size_t)2 * X;
+  cudaError_t e = allow_shared((const void*)kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster);
+  cfg.blockDim = dim3((unsigned)T);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  const int64_t n = B < clusters ? B : clusters;
+  cfg.gridDim = dim3((unsigned)(n * cluster));
+  CUtensorMap tmap = {};
+  const bool use_tmap = mp + 4 <= 256;  // a tensor copy's box is at most 256 wide
+  if (use_tmap) {
+    const int enc = encode_rows_map(&tmap, A, B * mp, mp, R);
+    if (enc != 0) return enc;
   }
-  const int threads = ((mp + 31) / 32) * 32;
-  jacobi_packed_stream_kernel<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
-      A, diag, rhs, act, eq, x, K, mp, iters, mu, omega, beta);
+  e = cudaLaunchKernelEx(&cfg, kernel, tmap, use_tmap, A, diag, rhs, act, eq, x, B, K, mp, iters,
+                         mu, omega, beta);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

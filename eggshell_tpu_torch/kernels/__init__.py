@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,11 +28,14 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("narrowphase.cu", "compact.cu", "jacobi.cu", "prep.cu", "jassembly.cu", "amat.cu",
            "jacobi_packed.cu", "jacobi_packed_stream.cu", "integrate.cu", "fdtd2d.cu")
 # Headers the sources include; they count in the library's hash.
-HEADERS = ("block3.cuh",)
+HEADERS = ("block3.cuh", "jacobi_rows.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --fmad=false: every product and sum is rounded on its own, as in the
-# plain torch versions (see the note in csrc/narrowphase.cu).
-COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-c")
+# plain torch versions (see the note in csrc/narrowphase.cu).  -Xptxas -v:
+# each kernel's registers, stack and spills, kept beside the library
+# (`ptxas_usage`).
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler",
+                 "-fPIC", "-c")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -55,12 +59,12 @@ _SIGNATURES = {
     "eggshell_jassembly_f32": [_P] * 12 + [_I64, _I, _I, _F, _P],
     # Jc, b0, b1, act, inv_mass, invIg, A, diag, B, K, n, mp, cfm, stream
     "eggshell_amat_f32": [_P] * 8 + [_I64, _I, _I, _I, _F, _P],
-    # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, pyramid_mu, stream
-    "eggshell_jacobi_packed_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _P],
-    "eggshell_jacobi_packed_pyramid_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _P],
-    "eggshell_jacobi_packed_block_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _P],
-    # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, stream
-    "eggshell_jacobi_packed_stream_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _P],
+    # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, pyramid_mu, reg_rows, stream
+    "eggshell_jacobi_packed_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    "eggshell_jacobi_packed_pyramid_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    "eggshell_jacobi_packed_block_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, reg_rows, cluster, stream
+    "eggshell_jacobi_packed_stream_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _I, _I, _P],
     # Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, p_out, q_out, v_out, w_out,
     # B, K, n, lam_stride, dt, stream
     "eggshell_integrate_f32": [_P] * 15 + [_I64, _I, _I, _I, _F, _P],
@@ -109,12 +113,40 @@ def build() -> Path:
                   for s, p, log in zip(SOURCES, procs, logs) if p.returncode != 0]
         if failed:
             raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        Path(tmp, "ptxas.txt").write_text("\n".join(logs))
         so = os.path.join(tmp, "lib.so")
         link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs],
                               capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+        os.replace(os.path.join(tmp, "ptxas.txt"), _ptxas_log(out))
         os.replace(so, out)
+    return out
+
+
+def _ptxas_log(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def ptxas_usage() -> dict:
+    """Each kernel entry of the built library (mangled name) -> its
+    `registers`, `stack`, `spill_stores` and `spill_loads` in bytes, as
+    ptxas reported them when the library was built."""
+    out, name = {}, None
+    for line in _ptxas_log(build()).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
     return out
 
 

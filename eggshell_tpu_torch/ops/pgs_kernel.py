@@ -10,15 +10,17 @@ their wrappers.
   `eggshell_tpu.ops.pgs_kernel.solve_lcp_jacobi_packed`, the fused chain's
   solve, with box or Coulomb-pyramid bounds built from the lane masks.  It
   takes the JAX package's resident/streamed switch (`stream`, see
-  `streams_a`).  Resident (B6), `csrc/jacobi_packed.cu`, A copied into
-  shared memory once: scalar sweeps with box bounds (`jacobi_packed_kernel`),
-  scalar sweeps with pyramid bounds (`solve_lcp_jacobi_packed_pyramid`,
-  `jacobi_packed_pyramid_kernel`) or 3x3 block sweeps with either
-  (`solve_lcp_jacobi_packed_block`, `jacobi_packed_block_kernel` and
-  `jacobi_packed_block_pyramid_kernel`).  Streamed (B6b, scalar sweeps
-  with box bounds only): `solve_lcp_jacobi_packed_stream`, kernel
-  `csrc/jacobi_packed_stream.cu` (A read from device memory in row chunks
-  on every sweep), the same sweeps sum for sum.
+  `streams_a`).  Resident (B6), `csrc/jacobi_packed.cu`, A read once by TMA
+  and each thread's row held in registers: scalar sweeps with box bounds
+  (`jacobi_packed_kernel`), scalar sweeps with pyramid bounds
+  (`solve_lcp_jacobi_packed_pyramid`, `jacobi_packed_pyramid_kernel`) or
+  3x3 block sweeps with either (`solve_lcp_jacobi_packed_block`,
+  `jacobi_packed_block_kernel` and `jacobi_packed_block_pyramid_kernel`).
+  "Streamed" (B6b, scalar sweeps with box bounds only):
+  `solve_lcp_jacobi_packed_stream`, kernel `csrc/jacobi_packed_stream.cu`,
+  which holds one scenario's A across a thread-block cluster, read once,
+  and returns the resident kernel's bits.  `packed_launch_plan` picks how
+  both run at a given row count.
 
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 its plain version.  A CUDA input that the kernel does not take raises;
@@ -26,6 +28,9 @@ there is no fallback.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -50,9 +55,83 @@ def streams_a(mp: int) -> bool:
     return mp * mp * _TPU_LANES * 4 * 2 > _VMEM_A_BUDGET
 
 
+# Row lengths for which the packed kernels hold a row of A in registers
+# (their template instantiations); longer rows are read from shared memory.
+REGISTER_ROW_LENGTHS = (32, 64, 96, 128)
+# Blocks of a B6b cluster: at most the portable cluster size, and at most
+# this many rows a block.
+MAX_CLUSTER = 8
+CLUSTER_BLOCK_ROWS = 64
+
+
+class ResidentPlan(NamedTuple):
+    """How B6 (`csrc/jacobi_packed.cu`) runs: `threads` a block (one a row),
+    `reg_rows` the row length held in registers (0: rows read from shared
+    memory), and the dynamic shared memory of its block forms (the scalar
+    and pyramid forms take 4 * threads bytes less: no residual vector)."""
+    threads: int
+    reg_rows: int
+    shared_bytes: int
+
+
+class ClusterPlan(NamedTuple):
+    """How B6b (`csrc/jacobi_packed_stream.cu`) runs: `cluster` blocks a
+    scenario, `rows` = mp / cluster rows of A a block, `threads` a block,
+    `reg_rows` and `shared_bytes` as for B6."""
+    cluster: int
+    rows: int
+    threads: int
+    reg_rows: int
+    shared_bytes: int
+
+
+class PackedPlan(NamedTuple):
+    """`resident` is None where B6 does not fit in one block's shared memory."""
+    resident: ResidentPlan | None
+    cluster: ClusterPlan
+
+
+def _warps(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def _stage_shared_bytes(rows: int, mp: int, barriers: int, vectors: int) -> int:
+    """A stage of `rows` rows of stride mp + 4 floats rounded up to 128
+    bytes, `barriers` bytes of mbarriers and `vectors` floats of iterates
+    and residuals (the layouts of csrc/jacobi_packed.cu and
+    csrc/jacobi_packed_stream.cu)."""
+    return -(-rows * (mp + 4) * 4 // 128) * 128 + barriers + 4 * vectors
+
+
+@functools.lru_cache(maxsize=None)
+def packed_launch_plan(mp: int) -> PackedPlan:
+    """The launch plan of the packed Jacobi kernels at mp rows (a multiple
+    of 8): row lengths up to 128 held in registers, else read from shared
+    memory; B6b's cluster is the smallest c >= 2 that divides mp and leaves
+    at most 64 rows a block, else 8.  Raises ValueError for an mp that
+    neither kernel takes."""
+    if mp < ROW_BLOCK or mp % ROW_BLOCK:
+        raise ValueError(f"mp = {mp} is not a positive multiple of {ROW_BLOCK}")
+    T = _warps(mp)
+    reg_rows = T if T in REGISTER_ROW_LENGTHS else 0
+    resident = ResidentPlan(T, reg_rows, _stage_shared_bytes(mp, mp, 16, 3 * T))
+    if resident.shared_bytes > MAX_SHARED_BYTES:
+        resident = None
+
+    c = next((c for c in range(2, MAX_CLUSTER + 1)
+              if mp % c == 0 and mp // c <= CLUSTER_BLOCK_ROWS), MAX_CLUSTER)
+    R = mp // c
+    need = _stage_shared_bytes(R, mp, 32, 2 * T)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"mp = {mp}: a cluster of {c} blocks needs {need} bytes of shared memory a block, "
+            f"more than the {MAX_SHARED_BYTES} an H100 block has")
+    return PackedPlan(resident, ClusterPlan(c, R, _warps(R), reg_rows, need))
+
+
 def _shared_bytes(mp: int) -> int:
-    """Shared memory of one scenario's block: A with a row stride of
-    mp + 1 floats, the iterate and the block sweeps' residual."""
+    """Shared memory of one scenario's block of `csrc/jacobi.cu`: A with a
+    row stride of mp + 1 floats, the iterate and the block sweeps' residual."""
     return (mp * (mp + 1) + 2 * mp) * 4
 
 
@@ -248,6 +327,8 @@ def _check_packed_args(A, diag, rhs, act, eq, K: int) -> None:
         args.append(("eq", eq, (B, K), torch.bool))
     for name, x, shape, dtype in args:
         kernels.check_arg(name, x, shape, dtype, A.device)
+    if A.data_ptr() % 16:
+        raise ValueError("A must be 16-byte aligned: its rows are copied by TMA")
 
 
 def _launch_packed(fn_name, A, diag, rhs, act, eq, K, mu, iters, omega, beta, pyramid_mu):
@@ -258,18 +339,21 @@ def _launch_packed(fn_name, A, diag, rhs, act, eq, K, mu, iters, omega, beta, py
         raise ValueError(f"unsupported device {A.device}")
     _check_packed_args(A, diag, rhs, act, eq, K)
     B, mp = diag.shape
-    _check_shared(mp, f"K = {K}")
+    plan = packed_launch_plan(mp).resident
+    if plan is None:
+        raise ValueError(f"K = {K}: the resident solve does not fit one block at mp = {mp}")
     out = torch.empty((B, mp), dtype=torch.float32, device=A.device)
     kernels.launch(fn_name, A.device, A, diag, rhs, act, eq, out, B, K, mp, int(iters),
-                   float(mu), float(omega), float(beta), float(pyramid_mu))
+                   float(mu), float(omega), float(beta), float(pyramid_mu), plan.reg_rows)
     return out
 
 
 def solve_lcp_jacobi_packed_stream(A, diag, rhs, act, eq, K: int, mu: float, iters: int,
                                    omega: float, beta: float):
-    """B6b: x (B, mp) of the fused chain's LCP with A streamed from device
-    memory on every sweep; the arguments and the plain version are those of
-    `solve_lcp_jacobi_packed_plain` (box friction, scalar sweeps)."""
+    """B6b: x (B, mp) of the fused chain's LCP with A held across a cluster
+    of blocks (the JAX package streams it); the arguments and the plain
+    version are those of `solve_lcp_jacobi_packed_plain` (box friction,
+    scalar sweeps)."""
     if A.device.type == "cpu":
         return solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K, mu, iters, omega, beta)
     if A.device.type != "cuda":
@@ -278,9 +362,11 @@ def solve_lcp_jacobi_packed_stream(A, diag, rhs, act, eq, K: int, mu: float, ite
 
     _check_packed_args(A, diag, rhs, act, eq, K)
     B, mp = diag.shape
+    plan = packed_launch_plan(mp).cluster
     out = torch.empty((B, mp), dtype=torch.float32, device=A.device)
     kernels.launch("eggshell_jacobi_packed_stream_f32", A.device, A, diag, rhs, act, eq, out, B,
-                   K, mp, int(iters), float(mu), float(omega), float(beta))
+                   K, mp, int(iters), float(mu), float(omega), float(beta), plan.reg_rows,
+                   plan.cluster)
     solve_lcp_jacobi_packed_stream.launches += 1
     return out
 

@@ -2,8 +2,10 @@
 
 Used by `chip_smoke.py` and `python -m eggshell_tpu_torch.profile_step`;
 nothing in the simulation path imports it.  A window with no device
-activity is profiled again, at most ATTEMPTS times in all, and then raises:
-a time measured on the host is never reported as a device time.
+activity, or a flushed window whose calls do not each start with the
+flush's operations, is profiled again, at most ATTEMPTS times in all, and
+then raises: a time measured on the host is never reported as a device
+time, and a window that lost events is never read.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from collections import defaultdict
 
 import torch
 
-# CUPTI has been seen to return an empty window on the H100 machine.
+# CUPTI has been seen to return an empty window on the H100 machine, and
+# windows with events missing.
 ATTEMPTS = 3
 # Overwritten before each call by `l2_flush`: more than the H100's 50 MB L2.
 FLUSH_BYTES = 256 << 20
@@ -21,6 +24,10 @@ FLUSH_BYTES = 256 << 20
 
 class NoDeviceActivity(RuntimeError):
     """torch.profiler recorded nothing on the card in any attempted window."""
+
+
+class WindowMismatch(RuntimeError):
+    """A flushed window's events do not split into the calls it ran."""
 
 
 def l2_flush(dev):
@@ -56,9 +63,22 @@ def _drop_flush(events, reps: int, flush_names: dict):
     for e in dropped:
         got[e.name] += 1
     if rest or dict(got) != {k: v * reps for k, v in flush_names.items()}:
-        raise RuntimeError(f"flushed window of {len(events)} device operations over {reps} "
-                           f"calls does not start each call with the flush {flush_names}")
+        raise WindowMismatch(f"flushed window of {len(events)} device operations over {reps} "
+                             f"calls does not start each call with the flush {flush_names}")
     return [e for r in range(reps) for e in events[r * per_rep + skip:(r + 1) * per_rep]]
+
+
+def _flush_names(flush, reps: int) -> dict:
+    """The device operations one flush() runs, by name, from a window of
+    the flush alone: a window in which some operation did not run a whole,
+    positive number of times a call lost events and is profiled again."""
+    for _ in range(ATTEMPTS):
+        counts = {k: n for k, (_, n) in device_window(flush, reps)["by_name"].items()}
+        names = {k: round(n) for k, n in counts.items()}
+        if all(names[k] >= 1 and names[k] * reps == round(n * reps) for k, n in counts.items()):
+            return names
+    raise WindowMismatch(f"no window of the flush alone in {ATTEMPTS} recorded each of its "
+                         f"operations once a call: {counts}")
 
 
 def device_window(fn, reps: int, flush=None) -> dict:
@@ -68,24 +88,27 @@ def device_window(fn, reps: int, flush=None) -> dict:
     `launches` (their number) and `wall_ms` (host clock over the window,
     which ends in a synchronise); `busy` = device time / wall time;
     `by_name`: device ms per call and launches per call of each kernel;
-    and `attempts`, the windows it took to record any device activity.
+    and `attempts`, the windows it took to record a whole one.
     With `flush` (see `l2_flush`), flush() runs before each call and its
     device operations are left out of every count but `wall_ms` and
     `busy`."""
-    flush_names = None
-    if flush is not None:
-        counts = device_window(flush, reps)["by_name"]
-        flush_names = {k: round(n) for k, (_, n) in counts.items()}
+    flush_names = None if flush is None else _flush_names(flush, reps)
     fn()
     torch.cuda.synchronize()
+    failure = NoDeviceActivity(f"torch.profiler recorded no device activity in {ATTEMPTS} windows")
     for attempt in range(1, ATTEMPTS + 1):
         events, wall = _window(fn, reps, flush)
-        if events:
+        if not events:
+            continue
+        if flush_names is None:
             break
+        try:
+            events = _drop_flush(events, reps, flush_names)
+            break
+        except WindowMismatch as e:
+            failure = e
     else:
-        raise NoDeviceActivity(f"torch.profiler recorded no device activity in {ATTEMPTS} windows")
-    if flush_names is not None:
-        events = _drop_flush(events, reps, flush_names)
+        raise failure
     by_name = defaultdict(lambda: [0.0, 0])
     total_us = 0.0
     for e in events:

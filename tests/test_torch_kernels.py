@@ -38,7 +38,7 @@ from eggshell_tpu_torch.ops.jassembly_kernel import (contact_jacobian_blocks,
                                                      contact_jacobian_blocks_plain)
 from eggshell_tpu_torch.fem.fdtd import fused_grids, init_2d, step_2d_fused, step_2d_fused_plain
 from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi, solve_lcp_jacobi_block,
-                                               solve_lcp_jacobi_packed,
+                                               packed_launch_plan, solve_lcp_jacobi_packed,
                                                solve_lcp_jacobi_packed_block,
                                                solve_lcp_jacobi_packed_plain,
                                                solve_lcp_jacobi_packed_pyramid,
@@ -136,6 +136,9 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="diag has"):
         solve_lcp_jacobi_packed(A64, torch.ones(8, 60, device=dev), torch.zeros(8, 60, device=dev),
                                 d["act"], None, 20, 1.0, 4, 0.3, 0.45, block=True)
+    big = _random_packed_lcp(dev, B=2, K=80)                  # mp = 240: past one block
+    with pytest.raises(ValueError, match="does not fit one block"):
+        solve_lcp_jacobi_packed(*big, stream=False)
     ez = torch.zeros(16, 16, device=dev)
     with pytest.raises(TypeError):
         step_2d_fused(ez.double(), ez, ez, ez, ez, 1e-3, 1e-2)
@@ -300,24 +303,23 @@ def test_compact_kernel_matches_plain(dev, case):
         assert bool(((want.b1 >= 0) & ~want.active).any())
 
 
-def test_streamed_jacobi_kernel_matches_plain_and_resident(dev):
-    rng = np.random.default_rng(1)
-    B, K = 256, 32
-    mp = 96
-    G = torch.as_tensor(rng.normal(size=(B, mp, 24)), dtype=torch.float32, device=dev)
-    A = (G @ G.transpose(-1, -2) / 24 + torch.eye(mp, device=dev)).contiguous()
-    diag = torch.diagonal(A, dim1=-2, dim2=-1).contiguous()
-    rhs = torch.as_tensor(rng.normal(size=(B, 3 * K)), dtype=torch.float32, device=dev)
-    act = torch.as_tensor(rng.uniform(size=(B, K)) < 0.8, device=dev)
-    eq = torch.as_tensor(rng.uniform(size=(B, K)) < 0.1, device=dev)
-    lcp = (A, diag, rhs, act, eq, K, 1.0, 16, 0.3, 0.45)
+@pytest.mark.parametrize("K", [32, 64, 85], ids=["mp96", "mp192", "mp256"])
+def test_streamed_jacobi_kernel_matches_plain_and_resident(dev, K):
+    """B6b with the cluster the plan picks (2 blocks at mp = 96, 3 at 192,
+    4 at 256) against the plain version and, bit for bit, the resident B6;
+    at mp = 256, past the resident kernel's reach and a tensor copy's box
+    width, against the plain version only."""
+    lcp = _random_packed_lcp(dev, B=256, K=K, seed=1)
+    mp = lcp[1].shape[1]
+    plan = packed_launch_plan(mp)
+    assert plan.cluster.cluster == {96: 2, 192: 3, 256: 4}[mp]
     before = (solve_lcp_jacobi_packed_stream.launches, solve_lcp_jacobi_packed.launches)
-    got = solve_lcp_jacobi_packed(*lcp)                   # mp = 96 streams
-    resident = solve_lcp_jacobi_packed(*lcp, stream=False)
+    got = solve_lcp_jacobi_packed(*lcp)                   # mp >= 72 streams
+    resident = solve_lcp_jacobi_packed(*lcp, stream=False) if plan.resident else None
     torch.cuda.synchronize()
     assert (solve_lcp_jacobi_packed_stream.launches - before[0],
-            solve_lcp_jacobi_packed.launches - before[1]) == (1, 1)
-    assert torch.equal(got, resident)
+            solve_lcp_jacobi_packed.launches - before[1]) == (1, int(resident is not None))
+    assert resident is None or torch.equal(got, resident)
     _close((got,), (solve_lcp_jacobi_packed_plain(*lcp),), rel=1e-4)
 
 
@@ -364,6 +366,28 @@ def test_packed_block_and_pyramid_kernels_match_plain(dev, block, pyramid_mu):
     assert [f.launches - b for f, b in zip(counters, before)] == [0, int(block), int(not block)]
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+_FORMS = [(False, 0.0), (True, 0.0), (False, 0.5), (True, 0.5)]
+
+
+@pytest.mark.parametrize("B", [1, 133, 4096])
+@pytest.mark.parametrize("K", [8, 20, 32, 45, 64], ids=["mp24", "mp64", "mp96", "mp136", "mp192"])
+def test_packed_forms_match_plain_at_every_row_length(dev, K, B):
+    """B6's four forms at register row lengths 32, 64, 96 and 128 (mp 136
+    and 192 read rows from shared memory), with B = 133 leaving the
+    persistent grid a partial last wave; 80 % active and 10 % equality
+    lanes."""
+    lcp = _random_packed_lcp(dev, B=B, K=K, seed=K + B)
+    for block, pyramid_mu in _FORMS:
+        got = solve_lcp_jacobi_packed(*lcp, block=block, pyramid_mu=pyramid_mu, stream=False)
+        want = solve_lcp_jacobi_packed_plain(*lcp, block, pyramid_mu)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        if block or pyramid_mu:
+            assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+        else:
+            _close((got,), (want,), rel=1e-4)
 
 
 def test_block_jacobi_kernel_matches_plain(dev):
