@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `eggshell_tpu_torch/csrc/`, prints the
-registers, stack and spills ptxas reported for the packed Jacobi kernels
-(`[ptxas]`; none may spill), and holds each kernel against its plain
-PyTorch version on the card, on seeded random inputs and on the inputs of
-its path's first step, with the bound printed beside the error, the device
-times of kernel and plain version, and the kernel's bound and its ratio to
-it.  `[jacobi_packed_stream]` also requires the cluster solve B6b to return
+registers, stack and spills ptxas reported for the packed Jacobi kernels,
+B4, B5 and the global-rows Jacobi forms (`[ptxas]`; none may spill), and
+holds each kernel against its plain PyTorch version on the card, on
+seeded random inputs and on the inputs of its path's first step, with the
+bound printed beside the error, the device times of kernel and plain
+version, and the kernel's bound and its ratio to it.
+`[jacobi_packed_stream]` also requires the cluster solve B6b to return
 the resident B6's bits, at mp = 96 and 192 and on the streamed scenes'
 first-step inputs, and times both at mp = 96 and 192.  Then it drives the
 ported paths through `rollout_batched` at B=4096, H=50:
@@ -33,6 +34,15 @@ ported paths through `rollout_batched` at B=4096, H=50:
 
 The block-Jacobi solve B6c' has no stepping path: `[jacobi_block]` calls
 its entry `solve_lcp_jacobi(block=True)` on the unfused slice's first LCP.
+`[jacobi_global]` and `[jacobi_block_global]` hold B6c and B6c' past the
+m = 232 rows their shared form holds (the unfused slice's first LCP at
+contact_capacity 80, m = 240, and a seeded m = 480 system), where they read
+A's rows from device memory every sweep; `[jacobi_packed_rows]` does the
+same for B6b past the mp = 664 a cluster holds (mp = 672 and 888).  B4 and
+B5 (`[jassembly]`, `[amat]`) are also timed at K = 32 on box_stack8's first
+step, `[amat]` also checks B5's slab route (K = 64) and Jc-chunk route
+(K = 400) on seeded inputs, and every fused-chain kernel phase says
+whether the kernel returned its plain version's bits.
 The 2D FDTD step B8 is held against its plain version at n = 512 and
 2048 (`[fdtd2d]`), and `fem.fdtd.simulate_2d` runs 200 steps at n = 2048
 (`[fdtd2d_rollout]`), with the example's aperture at n = 160 against the
@@ -439,14 +449,18 @@ def fused_wrapper(name):
     return getattr(mod, fn), getattr(mod, fn + "_plain")
 
 
-def phase_fused_kernel(name, cases):
-    """Hold one fused-chain kernel against its plain version on each case;
-    the error is max |kernel - plain| over every output, and the bound is
-    relative to the output's scale, max(1, max |plain|)."""
+def phase_fused_kernel(name, cases, extra=None):
+    """Hold one fused-chain kernel against its plain version on each case,
+    and say whether it returned the plain version's bits (`torch.equal`,
+    which takes -0 for 0); the error is max |kernel - plain| over every
+    output, and the bound is relative to the output's scale,
+    max(1, max |plain|).  Timed on the last case, the main path's; `extra`
+    (what, args), one more case, is checked and timed too, under the keys
+    ms_extra, plain_ms_extra and bound_ms_extra."""
     kernel, plain = fused_wrapper(name)
     rel_bound = FUSED_KERNELS[name][2]
     err_abs = 0.0
-    for what, args in cases:
+    for what, args in cases + ([extra] if extra else []):
         got, want = tensors(kernel(*args)), tensors(plain(*args))
         check(len(got) == len(want), f"{name}: {len(got)} outputs, plain has {len(want)}")
         case_abs, worst = 0.0, 0.0
@@ -457,15 +471,24 @@ def phase_fused_kernel(name, cases):
             case_abs = max(case_abs, e)
             worst = max(worst, e / max(1.0, float(w.abs().max())))
         err_abs = max(err_abs, case_abs)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
         print(f"[{name}] {what}: max |d| {case_abs:.3e}, relative to scale {worst:.3e} "
-              f"(bound {rel_bound:.0e})")
+              f"(bound {rel_bound:.0e}); bit for bit the plain version's: {same}")
         check(worst <= rel_bound, f"{name} relative error {worst} on {what}")
-    main_args = cases[-1][1]
-    t = timings(name + "_kernel", lambda: kernel(*main_args), lambda: plain(*main_args))
-    b = bound(moved_bytes(main_args, kernel(*main_args)), _fused_flops(name, main_args))
-    print(f"[{name}] main-path shapes: {timing_text(t)}, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}: {b['bytes']} bytes, {b['flops']:.4g} flops), {ratio_text(t, b)}")
-    return {"max_abs_err": err_abs, **t, **b}
+
+    def timed(what, args):
+        t = timings(name + "_kernel", lambda: kernel(*args), lambda: plain(*args))
+        b = bound(moved_bytes(args, kernel(*args)), _fused_flops(name, args))
+        print(f"[{name}] {what}: {timing_text(t)}, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}: {b['bytes']} bytes, {b['flops']:.4g} flops), {ratio_text(t, b)}")
+        return t, b
+
+    t, b = timed("main-path shapes", cases[-1][1])
+    out = {"max_abs_err": err_abs, **t, **b}
+    if extra:
+        te, be = timed(extra[0], extra[1])
+        out.update(ms_extra=te["ms"], plain_ms_extra=te["plain_ms"], bound_ms_extra=be["bound_ms"])
+    return out
 
 
 def _pair_list(n):
@@ -784,15 +807,9 @@ def phase_jacobi_block(dev, main_lcp):
         check(bool(torch.isfinite(got).all()), "jacobi_block output not finite")
         check(rel <= 1e-5, f"jacobi_block relative error {rel}")
 
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    out = solve_lcp_jacobi(*main_lcp, iters, omega, beta, block=True)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    want = {name: int(name == "jacobi_block") for name in counters}
-    print(f"[jacobi_block] one call of solve_lcp_jacobi(block=True): launches {launches}")
-    check(launches == want, f"jacobi_block launches {launches}, expected {want}")
+    out, launches = one_call_launches(
+        "jacobi_block", "jacobi_block",
+        lambda: solve_lcp_jacobi(*main_lcp, iters, omega, beta, block=True))
 
     t = timings("block_jacobi_kernel",
                 lambda: solve_lcp_jacobi(*main_lcp, iters, omega, beta, block=True),
@@ -801,7 +818,120 @@ def phase_jacobi_block(dev, main_lcp):
     b = bound(moved_bytes(main_lcp, out), Bm * iters * (2.0 * mm * mm + 16.0 * mm))
     print(f"[jacobi_block] main-path shape {tuple(main_lcp[0].shape)}: {timing_text(t)}, "
           f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes)")
-    return {"max_abs_err": err, **t, **b, "launches": launches["jacobi_block"]}
+    return {"max_abs_err": err, **t, **b, "launches": launches}
+
+
+def wide_unfused_lcp(dev):
+    """B6c's inputs at the first step of the unfused slice with
+    contact_capacity 80: m = 240 rows, past the shared form's 232."""
+    from eggshell_tpu_torch.physics import scenes, stepper
+
+    spec, states, _ = scenes.baseline_batch("box_stack4", B_SLICE, device=dev)
+    sys_, A, rhs, _, _, _ = stepper._pre_solve(spec, states,
+                                               slice_cfg().replace(contact_capacity=80))
+    return tuple(x.contiguous() for x in (A, rhs, sys_.is_eq, sys_.lo, sys_.hi))
+
+
+def one_call_launches(tag, counter_name, fn):
+    """Launch counts of one call of `fn` with every counter at 0 just
+    before: `counter_name` once and nothing else."""
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    want = {name: int(name == counter_name) for name in counters}
+    print(f"[{tag}] one call: launches {launches}")
+    check(launches == want, f"{tag} launches {launches}, expected {want}")
+    return out, launches[counter_name]
+
+
+def phase_jacobi_global(dev):
+    """B6c and B6c' past the shared form's m = 232, where
+    `jacobi_launch_plan` reads A's rows from device memory every sweep: at
+    m = 240 (the unfused slice's first LCP at contact_capacity 80, B=4096)
+    and m = 480 (a seeded SPD system, B=512), each against its plain
+    version (relative bounds 1e-4 and 1e-5 of max |x|, as `[jacobi]` and
+    `[jacobi_block]`), then one call of each at m = 240 counted and timed."""
+    from eggshell_tpu_torch.ops.pgs_kernel import (jacobi_launch_plan, solve_lcp_jacobi,
+                                                   solve_lcp_jacobi_plain)
+
+    iters, omega, beta = 16, 0.3, 0.45
+    wide = wide_unfused_lcp(dev)
+    cases = [(f"first-step inputs of the unfused slice at contact_capacity 80, "
+              f"{tuple(wide[0].shape)}", wide),
+             ("seeded random SPD (512, 480, 480)", random_spd_lcp(dev, B=512, m=480))]
+    res = {}
+    for block, tag, bound_rel in ((False, "jacobi_global", 1e-4),
+                                  (True, "jacobi_block_global", 1e-5)):
+        err = 0.0
+        for what, args in cases:
+            m = args[1].shape[1]
+            plan = jacobi_launch_plan(m, block)
+            check(plan.route == "global rows", f"{tag}: m = {m} takes the {plan.route} form")
+            got = solve_lcp_jacobi(*args, iters, omega, beta, block=block)
+            want = (solve_lcp_jacobi_plain(*args, iters, omega, block=True) if block
+                    else solve_lcp_jacobi_plain(*args, iters, omega, beta))
+            e = float((got - want).abs().max())
+            rel = e / float(want.abs().max())
+            err = max(err, e)
+            print(f"[{tag}] {what}, iters 16, {plan.route} ({plan.rows.threads} threads, "
+                  f"{plan.rows.shared_bytes} bytes of shared memory): max |dx| {e:.3e}, relative "
+                  f"{rel:.3e} (bound {bound_rel:.0e}); bit for bit {torch.equal(got, want)}")
+            check(bool(torch.isfinite(got).all()), f"{tag} output not finite on {what}")
+            check(rel <= bound_rel, f"{tag} relative error {rel} on {what}")
+        counter = "jacobi_block" if block else "jacobi"
+        call = lambda: solve_lcp_jacobi(*wide, iters, omega, beta, block=block)
+        out, launches = one_call_launches(tag, counter, call)
+        kname = "block_jacobi_global_kernel" if block else "jacobi_global_kernel"
+        plain = ((lambda: solve_lcp_jacobi_plain(*wide, iters, omega, block=True)) if block
+                 else (lambda: solve_lcp_jacobi_plain(*wide, iters, omega, beta)))
+        t = timings(kname, call, plain)
+        Bm, mm = wide[1].shape
+        per_row = 16.0 if block else 10.0
+        b = bound(moved_bytes(wide, out), Bm * iters * (2.0 * mm * mm + per_row * mm))
+        print(f"[{tag}] m={mm}, B={Bm}: {timing_text(t)}, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}: {b['bytes']} bytes), {ratio_text(t, b)}")
+        res[tag] = {"max_abs_err": err, **t, **b, "launches": launches}
+    return res
+
+
+def phase_jacobi_packed_rows(dev):
+    """B6b past the cluster's mp = 664, where `packed_launch_plan` reads
+    A's rows from device memory every sweep: seeded SPD systems at mp = 672
+    and 888 (B=256) against the plain version (relative bound 1e-4, as
+    `[jacobi_packed_stream]`), then one call at mp = 888 counted and timed."""
+    from eggshell_tpu_torch.ops.pgs_kernel import (packed_launch_plan,
+                                                   solve_lcp_jacobi_packed_plain,
+                                                   solve_lcp_jacobi_packed_stream)
+
+    cases = [(f"seeded random SPD (256, {mp}, {mp})", random_lcp(dev, 256, mp // 3, SEED + mp))
+             for mp in (672, 888)]
+    err = 0.0
+    for what, args in cases:
+        plan = packed_launch_plan(args[1].shape[1])
+        check(plan.cluster is None and plan.rows is not None,
+              f"jacobi_packed_rows: the plan at mp = {args[1].shape[1]} has a cluster")
+        got = solve_lcp_jacobi_packed_stream(*args)
+        want = solve_lcp_jacobi_packed_plain(*args)
+        e = float((got - want).abs().max())
+        rel = e / max(1.0, float(want.abs().max()))
+        err = max(err, e)
+        print(f"[jacobi_packed_rows] {what}: global rows ({plan.rows.threads} threads, "
+              f"{plan.rows.shared_bytes} bytes of shared memory): max |dx| {e:.3e}, relative to "
+              f"scale {rel:.3e} (bound 1e-4)")
+        check(bool(torch.isfinite(got).all()), f"jacobi_packed_rows output not finite on {what}")
+        check(rel <= 1e-4, f"jacobi_packed_rows relative error {rel} on {what}")
+    args = cases[-1][1]
+    out, launches = one_call_launches("jacobi_packed_rows", "jacobi_packed_stream",
+                                      lambda: solve_lcp_jacobi_packed_stream(*args))
+    t = timings("jacobi_packed_rows_kernel", lambda: solve_lcp_jacobi_packed_stream(*args),
+                lambda: solve_lcp_jacobi_packed_plain(*args))
+    b = bound(moved_bytes(args, out), _fused_flops("jacobi_packed", args))
+    print(f"[jacobi_packed_rows] mp={args[1].shape[1]}, B=256: {timing_text(t)}, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes), {ratio_text(t, b)}")
+    return {"max_abs_err": err, **t, **b, "launches": launches}
 
 
 def fdtd_grids(dev, n, seed):
@@ -1110,24 +1240,38 @@ SCENES = {
 }
 
 
+# Kernels `[ptxas]` reports beside the 25 templates of the packed Jacobi
+# kernels (B6's four forms and B6b, at 5 row lengths each): B4, B5 and the
+# global-rows forms of B6c, B6c' and B6b.
+PTXAS_TEMPLATES = 25
+PTXAS_PLAIN = ("jassembly_kernel", "amat_kernel", "jacobi_global_kernel",
+               "block_jacobi_global_kernel", "jacobi_packed_rows_kernel")
+
+
 def phase_ptxas():
     """Registers, stack and spills of the packed Jacobi kernels (B6's four
-    forms at each row length, B6b), as ptxas reported them at the build;
-    none may spill."""
+    forms at each row length, B6b), of B4 and B5, and of the global-rows
+    forms, as ptxas reported them at the build; none may spill."""
     from eggshell_tpu_torch import kernels
 
     found = 0
     for entry, use in sorted(kernels.ptxas_usage().items()):
         m = re.search(r"(?<=\d)(jacobi_packed\w*?_kernel)ILi(\d+)E", entry)
-        if not m:
+        plain = re.search(r"\d(" + "|".join(PTXAS_PLAIN) + r")E", entry)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+        elif plain:
+            name = plain.group(1)
+        else:
             continue
         found += 1
-        print(f"[ptxas] {m.group(1)}<{m.group(2)}>: {use.get('registers')} registers, "
+        print(f"[ptxas] {name}: {use.get('registers')} registers, "
               f"{use.get('stack')} bytes stack, {use.get('spill_stores')} bytes spill stores, "
               f"{use.get('spill_loads')} bytes spill loads")
         check(use.get("spill_stores") == 0 and use.get("spill_loads") == 0,
               f"{entry} spills: {use}")
-    check(found == 25, f"{found} packed Jacobi kernel entries in the ptxas report, expected 25")
+    want = PTXAS_TEMPLATES + len(PTXAS_PLAIN)
+    check(found == want, f"{found} kernel entries in the ptxas report, expected {want}")
 
 
 def main() -> int:
@@ -1153,10 +1297,18 @@ def main() -> int:
     first_forms = {tag: fused_inputs(dev, "box_stack4", cfg)["jacobi_packed"]
                    for tag, cfg in forms.items()}
     rand = random_fused_inputs(dev)
+    # B5's routes past the whole-matrix item: slabs of whole lanes' rows
+    # (K = 64) and one lane's rows with Jc in two chunks (K = 400)
+    amat_routes = [(f"seeded random inputs, K={K} ({route})",
+                    random_fused_inputs(dev, B=B, K=K, n=8)["amat"])
+                   for K, B, route in ((64, 64, "slabs"), (400, 8, "Jc chunks"))]
     for name in FUSED_KERNELS:
-        res[name] = phase_fused_kernel(name, [
+        # B4 and B5 also at K = 32, on box_stack8's first step
+        extra = (("first-step inputs of [scene_box_stack8], K=32", first["box_stack8"][name])
+                 if name in ("jassembly", "amat") else None)
+        res[name] = phase_fused_kernel(name, (amat_routes if name == "amat" else []) + [
             ("seeded random inputs", rand[name]),
-            ("first-step inputs of [slice_fused]", first["box_stack4"][name])])
+            ("first-step inputs of [slice_fused]", first["box_stack4"][name])], extra)
     res["narrowphase_packed"] = phase_narrowphase_packed(dev, [
         (f"[{tag}]", first[name]["narrowphase"])
         for tag, name in (("slice_fused", "box_stack4"), ("scene_box_stack8", "box_stack8"),
@@ -1176,6 +1328,8 @@ def main() -> int:
     res["jacobi_packed_pyramid"] = phase_jacobi_packed_form(
         dev, "jacobi_packed_pyramid", "jacobi_packed_pyramid_kernel", False,
         pyramid_cfg().friction_mu, ("slice_pyramid", first_forms["slice_pyramid"]))
+    res.update(phase_jacobi_global(dev))
+    res["jacobi_packed_rows"] = phase_jacobi_packed_rows(dev)
     res["fdtd2d"] = phase_fdtd2d(dev)
 
     phase_oracle(dev, bench_cfg(), "oracle_fused")
@@ -1223,14 +1377,26 @@ def main() -> int:
               "eggshell_tpu/ops/pgs_kernel.py:86", "solve_lcp_jacobi(block=True), one call",
               res["jacobi_block"]["launches"]),
              ("fdtd2d", "eggshell_tpu_torch/csrc/fdtd2d.cu", "eggshell_tpu/fem/fdtd.py:113",
-              "fdtd2d_rollout", fdtd_launches)]
+              "fdtd2d_rollout", fdtd_launches),
+             ("jacobi_global", "eggshell_tpu_torch/csrc/jacobi.cu",
+              "eggshell_tpu/ops/pgs_kernel.py:47", "solve_lcp_jacobi at m=240, one call",
+              res["jacobi_global"]["launches"]),
+             ("jacobi_block_global", "eggshell_tpu_torch/csrc/jacobi.cu",
+              "eggshell_tpu/ops/pgs_kernel.py:86",
+              "solve_lcp_jacobi(block=True) at m=240, one call",
+              res["jacobi_block_global"]["launches"]),
+             ("jacobi_packed_rows", "eggshell_tpu_torch/csrc/jacobi_packed_stream.cu",
+              "eggshell_tpu/ops/pgs_kernel.py:355",
+              "solve_lcp_jacobi_packed_stream at mp=888, one call",
+              res["jacobi_packed_rows"]["launches"])]
     print(card_line())
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, "path": path,
          "launches": launches, "max_abs_err": res[name]["max_abs_err"], "ms": res[name]["ms"],
          "plain_ms": res[name]["plain_ms"], "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"], "library_ms": None,
-         **({"resident_ms": res[name]["resident_ms"]} if "resident_ms" in res[name] else {})}
+         **{k: res[name][k] for k in ("resident_ms", "ms_extra", "plain_ms_extra",
+                                      "bound_ms_extra") if k in res[name]}}
         for name, source, replaces, path, launches in rows
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -56,12 +56,22 @@
 // floats rounded up to 128 bytes; 32 bytes of mbarriers; two iterates of X
 // floats, X = mp rounded up to a warp.  A block has T threads, R rounded up
 // to a warp.
+//
+// Where a cluster of 8 cannot hold its rows (mp > 664), the plan takes a
+// third route, `jacobi_packed_rows_kernel`: one block a scenario reads its
+// rows of A from device memory on every sweep, in tiles of 32 columns, a
+// warp a row segment, double-buffered with cp.async (csrc/rows_global.cuh;
+// the streamed scheme of the first port of this kernel, whose row chunks
+// in shared memory stopped at mp = 888).  It sums each row over j in
+// increasing order and updates it through the same functions, so it too
+// returns B6's bits.  It reads A `iters` times and is bound by that.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "jacobi_rows.cuh"
+#include "rows_global.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -192,6 +202,45 @@ StreamKernel stream_kernel_for(int rl) {
   }
 }
 
+// The global-rows route.  Shared memory: the tiles, then the iterate, the
+// previous iterate and the row sums, mp floats each.
+__global__ void jacobi_packed_rows_kernel(const float* __restrict__ A,
+                                          const float* __restrict__ diag,
+                                          const float* __restrict__ rhs,
+                                          const uint8_t* __restrict__ act,
+                                          const uint8_t* __restrict__ eq, float* __restrict__ x_out,
+                                          int K, int mp, int iters, float mu, float omega,
+                                          float beta) {
+  extern __shared__ float smem[];
+  const int T = blockDim.x;
+  float* tiles = smem;
+  float* sx = tiles + rows_global::tile_floats(T);
+  float* sxp = sx + mp;
+  float* sax = sxp + mp;
+  const int64_t s = blockIdx.x;
+  const rows_global::Rows a = {A + s * (int64_t)mp * mp, mp, mp, mp};
+
+  for (int i = threadIdx.x; i < mp; i += T) {
+    const RowInputs in = row_inputs(rhs, diag, act, eq, s, K, mp, i);
+    const RowBounds rb = row_bounds(in, i, mu);
+    sx[i] = sxp[i] = in.act ? fminf(fmaxf(in.b, rb.lo), rb.hi) : in.b;
+  }
+  __syncthreads();
+  for (int it = 0; it < iters; ++it) {
+    rows_global::matvec(a, sx, sax, tiles);
+    for (int i = threadIdx.x; i < mp; i += T) {  // a thread reads and writes its own rows only
+      const RowInputs in = row_inputs(rhs, diag, act, eq, s, K, mp, i);
+      const RowBounds rb = row_bounds(in, i, mu);
+      const float x = sx[i];
+      sx[i] = scalar_update(in.b - sax[i], x, sxp[i], in.d, 1.f / in.d, omega, beta, in.act,
+                            rb.lo, rb.hi);
+      sxp[i] = x;
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < mp; i += T) x_out[s * mp + i] = sx[i];
+}
+
 }  // namespace
 
 // `rl` (row length in registers, 0: rows in shared memory) and `cluster`
@@ -242,5 +291,22 @@ extern "C" int eggshell_jacobi_packed_stream_f32(const float* A, const float* di
   e = cudaLaunchKernelEx(&cfg, kernel, tmap, use_tmap, A, diag, rhs, act, eq, x, B, K, mp, iters,
                          mu, omega, beta);
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The global-rows route with `threads` threads a block (the caller's plan).
+extern "C" int eggshell_jacobi_packed_rows_f32(const float* A, const float* diag, const float* rhs,
+                                               const uint8_t* act, const uint8_t* eq, float* x,
+                                               int64_t B, int K, int mp, int iters, float mu,
+                                               float omega, float beta, int threads,
+                                               void* stream) {
+  if (B <= 0) return 0;
+  if (mp <= 0 || mp % 8 != 0 || 3 * K > mp || threads < 32 || threads > 1024 || threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(rows_global::tile_floats(threads) + 3 * mp) * sizeof(float);
+  cudaError_t e = allow_shared((const void*)jacobi_packed_rows_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  jacobi_packed_rows_kernel<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
+      A, diag, rhs, act, eq, x, K, mp, iters, mu, omega, beta);
   return (int)cudaGetLastError();
 }

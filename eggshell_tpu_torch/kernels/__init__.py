@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("narrowphase.cu", "compact.cu", "jacobi.cu", "prep.cu", "jassembly.cu", "amat.cu",
            "jacobi_packed.cu", "jacobi_packed_stream.cu", "integrate.cu", "fdtd2d.cu")
 # Headers the sources include; they count in the library's hash.
-HEADERS = ("block3.cuh", "jacobi_rows.cuh")
+HEADERS = ("block3.cuh", "jacobi_rows.cuh", "rows_global.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --fmad=false: every product and sum is rounded on its own, as in the
 # plain torch versions (see the note in csrc/narrowphase.cu).  -Xptxas -v:
@@ -49,22 +49,24 @@ _SIGNATURES = {
     # p, q, hs, gen, pp_pos, pp_nrm, pp_dep, pp_act, pair_i, pair_j, b0, b1, pos, nrm, dep, act,
     # B, n, P, K, eps2, cap, stream
     "eggshell_compact_f32": [_P] * 16 + [_I64, _I, _I, _I, _F, _F, _P],
-    # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, beta, stream
-    "eggshell_jacobi_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _P],
-    # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, stream
-    "eggshell_jacobi_block_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _P],
+    # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, beta, global_rows, threads, stream
+    "eggshell_jacobi_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _I, _I, _P],
+    # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, global_rows, threads, stream
+    "eggshell_jacobi_block_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _I, _I, _P],
     # q, v, w, ext, inv_mass, Ib, invIb, uhat, invIg, F, B, n, inv_dt, gx, gy, gz, stream
     "eggshell_prep_f32": [_P] * 10 + [_I64, _I, _F, _F, _F, _F, _P],
     # b0, b1, pos, pos1, nrm, dep, act, eq, p, uhat, Jc, rhs, B, K, n, erp_dt2, stream
     "eggshell_jassembly_f32": [_P] * 12 + [_I64, _I, _I, _F, _P],
-    # Jc, b0, b1, act, inv_mass, invIg, A, diag, B, K, n, mp, cfm, stream
-    "eggshell_amat_f32": [_P] * 8 + [_I64, _I, _I, _I, _F, _P],
+    # Jc, b0, b1, act, inv_mass, invIg, A, diag, B, K, n, mp, cfm, rows, chunk, stream
+    "eggshell_amat_f32": [_P] * 8 + [_I64, _I, _I, _I, _F, _I, _I, _P],
     # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, pyramid_mu, reg_rows, stream
     "eggshell_jacobi_packed_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _I, _P],
     "eggshell_jacobi_packed_pyramid_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _I, _P],
     "eggshell_jacobi_packed_block_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _I, _P],
     # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, reg_rows, cluster, stream
     "eggshell_jacobi_packed_stream_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _I, _I, _P],
+    # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, threads, stream
+    "eggshell_jacobi_packed_rows_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _I, _P],
     # Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, p_out, q_out, v_out, w_out,
     # B, K, n, lam_stride, dt, stream
     "eggshell_integrate_f32": [_P] * 15 + [_I64, _I, _I, _I, _F, _P],

@@ -19,8 +19,15 @@ their wrappers.
   "Streamed" (B6b, scalar sweeps with box bounds only):
   `solve_lcp_jacobi_packed_stream`, kernel `csrc/jacobi_packed_stream.cu`,
   which holds one scenario's A across a thread-block cluster, read once,
-  and returns the resident kernel's bits.  `packed_launch_plan` picks how
-  both run at a given row count.
+  and returns the resident kernel's bits; where a cluster of 8 cannot
+  hold its rows (mp > 664), it reads them from device memory every sweep
+  (`jacobi_packed_rows_kernel`), with the same bits.  `packed_launch_plan`
+  picks how both run at a given row count.
+
+B6c and B6c' hold one scenario's A in a block's shared memory up to
+m = 232 rows and read its rows from device memory every sweep above
+(`jacobi_global_kernel`, `block_jacobi_global_kernel`), with the same
+bits; `jacobi_launch_plan` picks the form.
 
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 its plain version.  A CUDA input that the kernel does not take raises;
@@ -35,10 +42,8 @@ from typing import NamedTuple
 import torch
 
 from eggshell_tpu_torch.ops import lcp
-from eggshell_tpu_torch.ops.amat_kernel import ROW_BLOCK, padded_rows, round_rows
+from eggshell_tpu_torch.ops.amat_kernel import MAX_SHARED_BYTES, ROW_BLOCK, padded_rows, round_rows
 
-# Hopper: 227 KB of shared memory per block (232,448 bytes).
-MAX_SHARED_BYTES = 232_448
 # Stand-in for hi = inf, as the TPU kernel has it.
 HI_INF = 3.4e38
 # The JAX package's switch to the streamed solve (`pgs_kernel.py:343`,
@@ -85,10 +90,42 @@ class ClusterPlan(NamedTuple):
     shared_bytes: int
 
 
+class RowsPlan(NamedTuple):
+    """How a "global rows" form runs (`csrc/rows_global.cuh`): one block a
+    scenario of `threads` threads, A's rows read from device memory every
+    sweep in tiles of `threads` rows by 32 columns, double-buffered, and
+    `shared_bytes` of shared memory: the tiles and a few floats a row."""
+    threads: int
+    shared_bytes: int
+
+
 class PackedPlan(NamedTuple):
-    """`resident` is None where B6 does not fit in one block's shared memory."""
+    """`resident` is None where B6 does not fit in one block's shared memory;
+    B6b runs on `cluster`, or, where a cluster of 8 cannot hold its rows,
+    on `rows` (exactly one of the two is set)."""
     resident: ResidentPlan | None
-    cluster: ClusterPlan
+    cluster: ClusterPlan | None
+    rows: RowsPlan | None
+
+
+# Threads a block of the global-rows forms, and the columns of their tiles
+# (csrc/rows_global.cuh: two tiles of threads x 33 floats).
+ROWS_THREADS = 256
+_TILE_COLS = 32
+
+
+def rows_plan(mp: int, vectors: int) -> RowsPlan:
+    """The plan of a global-rows form at mp rows with `vectors` floats a
+    row in shared memory.  Raises ValueError where those do not fit one
+    block (mp above about 13,700 for the packed solve, whose A is then
+    755 MB a scenario)."""
+    T = min(ROWS_THREADS, _warps(mp))
+    need = (2 * T * (_TILE_COLS + 1) + vectors * mp) * 4
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"mp = {mp}: the global-rows form needs {need} bytes of shared memory a block "
+            f"(the iterate and row sums), more than the {MAX_SHARED_BYTES} an H100 block has")
+    return RowsPlan(T, need)
 
 
 def _warps(n: int) -> int:
@@ -108,8 +145,9 @@ def packed_launch_plan(mp: int) -> PackedPlan:
     """The launch plan of the packed Jacobi kernels at mp rows (a multiple
     of 8): row lengths up to 128 held in registers, else read from shared
     memory; B6b's cluster is the smallest c >= 2 that divides mp and leaves
-    at most 64 rows a block, else 8.  Raises ValueError for an mp that
-    neither kernel takes."""
+    at most 64 rows a block, else 8, and where 8 blocks cannot hold mp / 8
+    rows each (mp > 664) B6b reads its rows from device memory every sweep.
+    Raises ValueError for an mp that is not a positive multiple of 8."""
     if mp < ROW_BLOCK or mp % ROW_BLOCK:
         raise ValueError(f"mp = {mp} is not a positive multiple of {ROW_BLOCK}")
     T = _warps(mp)
@@ -123,23 +161,38 @@ def packed_launch_plan(mp: int) -> PackedPlan:
     R = mp // c
     need = _stage_shared_bytes(R, mp, 32, 2 * T)
     if need > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"mp = {mp}: a cluster of {c} blocks needs {need} bytes of shared memory a block, "
-            f"more than the {MAX_SHARED_BYTES} an H100 block has")
-    return PackedPlan(resident, ClusterPlan(c, R, _warps(R), reg_rows, need))
+        return PackedPlan(resident, None, rows_plan(mp, 3))
+    return PackedPlan(resident, ClusterPlan(c, R, _warps(R), reg_rows, need), None)
 
 
 def _shared_bytes(mp: int) -> int:
-    """Shared memory of one scenario's block of `csrc/jacobi.cu`: A with a
-    row stride of mp + 1 floats, the iterate and the block sweeps' residual."""
+    """Shared memory of one scenario's block of `csrc/jacobi.cu`'s shared
+    form: A with a row stride of mp + 1 floats, the iterate and the block
+    sweeps' residual."""
     return (mp * (mp + 1) + 2 * mp) * 4
 
 
-def _check_shared(mp: int, what: str) -> None:
-    if _shared_bytes(mp) > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"{what} needs {_shared_bytes(mp)} bytes of shared memory per block, more than "
-            f"the {MAX_SHARED_BYTES} an H100 block has")
+class JacobiPlan(NamedTuple):
+    """How B6c and B6c' (`csrc/jacobi.cu`) run at m rows: `route` "shared"
+    (A in one block's shared memory, one thread a row) or "global rows"
+    (`rows`, A's rows read from device memory every sweep)."""
+    route: str
+    mp: int
+    rows: RowsPlan | None
+
+
+@functools.lru_cache(maxsize=None)
+def jacobi_launch_plan(m: int, block: bool = False) -> JacobiPlan:
+    """The form of B6c (or with `block`, B6c') at m rows: A in shared memory
+    while it fits one block with the row stride mp + 1 (mp = m rounded up
+    to 8, up to 232), else its rows read from device memory (the block form
+    keeps 5 floats a row on chip, the scalar form 3)."""
+    if m < 1:
+        raise ValueError(f"m = {m}: the solve needs at least one row")
+    mp = round_rows(m)
+    if _shared_bytes(mp) <= MAX_SHARED_BYTES:
+        return JacobiPlan("shared", mp, None)
+    return JacobiPlan("global rows", mp, rows_plan(mp, 5 if block else 3))
 
 
 def solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, iters: int, omega: float,
@@ -190,7 +243,20 @@ def _check_lcp_args(A, b, is_eq, lo, hi):
         ("hi", hi, (B, m), torch.float32),
     ):
         kernels.check_arg(name, x, shape, dtype, A.device)
-    _check_shared(round_rows(m), f"m = {m}")
+
+
+def _launch_jacobi(fn_name, A, b, is_eq, lo, hi, block, *params):
+    """Launch B6c or B6c' (`fn_name`) in the form its plan names."""
+    from eggshell_tpu_torch import kernels
+
+    _check_lcp_args(A, b, is_eq, lo, hi)
+    B, m = b.shape
+    plan = jacobi_launch_plan(m, block)
+    hi = torch.where(torch.isinf(hi), torch.full_like(hi, HI_INF), hi)
+    out = torch.empty((B, m), dtype=torch.float32, device=A.device)
+    kernels.launch(fn_name, A.device, A, b, is_eq, lo, hi, out, B, m, plan.mp, *params,
+                   int(plan.rows is not None), plan.rows.threads if plan.rows else 0)
+    return out
 
 
 def solve_lcp_jacobi_block(A, b, is_eq, lo, hi, iters: int, omega: float):
@@ -205,14 +271,8 @@ def solve_lcp_jacobi_block(A, b, is_eq, lo, hi, iters: int, omega: float):
         return solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, iters, omega, block=True)
     if A.device.type != "cuda":
         raise ValueError(f"unsupported device {A.device}")
-    from eggshell_tpu_torch import kernels
-
-    _check_lcp_args(A, b, is_eq, lo, hi)
-    B = b.shape[0]
-    hi = torch.where(torch.isinf(hi), torch.full_like(hi, HI_INF), hi)
-    out = torch.empty((B, m), dtype=torch.float32, device=A.device)
-    kernels.launch("eggshell_jacobi_block_f32", A.device, A, b, is_eq, lo, hi, out, B, m,
-                   round_rows(m), int(iters), float(omega))
+    out = _launch_jacobi("eggshell_jacobi_block_f32", A, b, is_eq, lo, hi, True, int(iters),
+                         float(omega))
     solve_lcp_jacobi_block.launches += 1
     return out
 
@@ -232,14 +292,8 @@ def solve_lcp_jacobi(A, b, is_eq, lo, hi, iters: int, omega: float,
         return solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, iters, omega, beta)
     if A.device.type != "cuda":
         raise ValueError(f"unsupported device {A.device}")
-    from eggshell_tpu_torch import kernels
-
-    _check_lcp_args(A, b, is_eq, lo, hi)
-    B, m = b.shape
-    hi = torch.where(torch.isinf(hi), torch.full_like(hi, HI_INF), hi)
-    out = torch.empty((B, m), dtype=torch.float32, device=A.device)
-    kernels.launch("eggshell_jacobi_f32", A.device, A, b, is_eq, lo, hi, out, B, m,
-                   round_rows(m), int(iters), float(omega), float(beta))
+    out = _launch_jacobi("eggshell_jacobi_f32", A, b, is_eq, lo, hi, False, int(iters),
+                         float(omega), float(beta))
     solve_lcp_jacobi.launches += 1
     return out
 
@@ -351,9 +405,10 @@ def _launch_packed(fn_name, A, diag, rhs, act, eq, K, mu, iters, omega, beta, py
 def solve_lcp_jacobi_packed_stream(A, diag, rhs, act, eq, K: int, mu: float, iters: int,
                                    omega: float, beta: float):
     """B6b: x (B, mp) of the fused chain's LCP with A held across a cluster
-    of blocks (the JAX package streams it); the arguments and the plain
-    version are those of `solve_lcp_jacobi_packed_plain` (box friction,
-    scalar sweeps)."""
+    of blocks (the JAX package streams it), or, where the plan has no
+    cluster, its rows read from device memory every sweep; the arguments
+    and the plain version are those of `solve_lcp_jacobi_packed_plain` (box
+    friction, scalar sweeps)."""
     if A.device.type == "cpu":
         return solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K, mu, iters, omega, beta)
     if A.device.type != "cuda":
@@ -362,11 +417,15 @@ def solve_lcp_jacobi_packed_stream(A, diag, rhs, act, eq, K: int, mu: float, ite
 
     _check_packed_args(A, diag, rhs, act, eq, K)
     B, mp = diag.shape
-    plan = packed_launch_plan(mp).cluster
+    plan = packed_launch_plan(mp)
     out = torch.empty((B, mp), dtype=torch.float32, device=A.device)
-    kernels.launch("eggshell_jacobi_packed_stream_f32", A.device, A, diag, rhs, act, eq, out, B,
-                   K, mp, int(iters), float(mu), float(omega), float(beta), plan.reg_rows,
-                   plan.cluster)
+    sweep = (int(iters), float(mu), float(omega), float(beta))
+    if plan.cluster is not None:
+        kernels.launch("eggshell_jacobi_packed_stream_f32", A.device, A, diag, rhs, act, eq, out,
+                       B, K, mp, *sweep, plan.cluster.reg_rows, plan.cluster.cluster)
+    else:
+        kernels.launch("eggshell_jacobi_packed_rows_f32", A.device, A, diag, rhs, act, eq, out,
+                       B, K, mp, *sweep, plan.rows.threads)
     solve_lcp_jacobi_packed_stream.launches += 1
     return out
 

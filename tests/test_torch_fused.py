@@ -5,10 +5,11 @@ package.
   in interpret mode, at small K and n, float64: B1 `prep_packed` (with and
   without external forces), B4 `contact_jacobian_blocks` (normals +z, -z
   and generic; equality, ground and inactive lanes), B5
-  `contact_system_matrix_packed` (A and diag), B6 `solve_lcp_jacobi_packed`
-  (equality and inactive lanes; its block and pyramid forms are held in
-  tests/test_torch_lcp_solvers.py) and B7 `integrate_step` (a body below the
-  small-angle threshold).  The JAX kernels' packed (8, 128) tile layout is
+  `contact_system_matrix_packed` (A and diag; at K = 2, and at K = 3,
+  whose 16 rows put lane and padding rows in every kind of slab), B6
+  `solve_lcp_jacobi_packed` (equality and inactive lanes; its block and
+  pyramid forms are held in tests/test_torch_lcp_solvers.py) and B7
+  `integrate_step` (a body below the small-angle threshold).  The JAX kernels' packed (8, 128) tile layout is
   unpacked here.  Tolerance 1e-12 for the straight-line kernels, whose
   expressions are the same and only the rounding of XLA's CPU code can
   differ; 1e-9 for 16 Jacobi sweeps, as tests/test_torch_lcp.py.
@@ -229,6 +230,46 @@ def test_system_matrix_plain_matches_pallas_kernel():
     idle = np.concatenate([np.repeat(~c["act"], 3, axis=1), np.ones((B, mp - 6), bool)], 1)
     np.testing.assert_array_equal(A.numpy()[idle], np.eye(mp)[np.nonzero(idle)[1]])
     assert (np.abs(A.numpy()[:, :6, :6]) > 0).sum() > B * 6   # coupled active rows
+
+
+@functools.lru_cache(maxsize=None)
+def _padded_matrix_inputs(K_pad=3, seed=11):
+    """Random Jc (B, 3K, 12) and lane bodies at K = 3 lanes, mp = 16: body,
+    ground (b0 = -1), inactive and idle (b0 = b1 = -1) lanes."""
+    rng = np.random.default_rng(seed)
+    d = _bodies(seed)
+    Jc = rng.normal(size=(B, 3 * K_pad, 12))
+    b0 = rng.integers(-1, N, size=(B, K_pad))
+    b1 = (np.maximum(b0, 0) + rng.integers(1, N, size=(B, K_pad))) % N
+    act = rng.uniform(size=(B, K_pad)) < 0.8
+    act[0, 0] = False
+    b0[1, 2] = b1[1, 2] = -1
+    act[1, 2] = False
+    invig = d["invIb"][None] + 0.1 * rng.normal(size=(B, N, 3, 3))
+    return d, Jc, b0, b1, act, invig
+
+
+def test_system_matrix_plain_matches_pallas_kernel_with_padding_slabs():
+    """K = 3: mp = 16 rows for 9 lane rows, so the Pallas kernel's 4-row
+    slabs hold lane rows only, lane and padding rows, and padding rows only
+    (the interpret-mode call costs about 6 s a lane on the CPU)."""
+    d, Jc, b0, b1, act, invig = _padded_matrix_inputs()
+    K_pad = b0.shape[1]
+    mp = padded_rows(K_pad)
+    assert mp == 16 != 3 * K_pad
+    A_want, diag_want = contact_system_matrix_packed(
+        _pack_np(Jc), _pack_np(b0.astype(np.float64)), _pack_np(b1.astype(np.float64)),
+        _pack_np(act.astype(np.float64)), _pack_np(np.broadcast_to(d["inv_mass"], (B, N))),
+        _pack_np(invig), K=K_pad, n=N, cfm=0.01, interpret=True)
+    A_want = np.asarray(A_want).transpose(0, 1, 3, 2).reshape(-1, mp, mp)[:B]
+    diag_want = np.asarray(diag_want).transpose(0, 1, 3, 2).reshape(-1, mp)[:B]
+    A, diag = contact_system_matrix_plain(_t(Jc), _t(b0), _t(b1), _t(act), _t(d["inv_mass"]),
+                                          _t(invig), K_pad, 0.01)
+    np.testing.assert_allclose(A.numpy(), A_want, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(diag.numpy(), diag_want, rtol=TOL, atol=TOL)
+    eye = np.eye(mp)[3 * K_pad:]
+    np.testing.assert_array_equal(A.numpy()[:, 3 * K_pad:], np.broadcast_to(eye, (B, *eye.shape)))
+    assert (np.abs(A.numpy()[:, :9, :9]) > 0).sum() > B * 9   # coupled lane rows
 
 
 def _lcp_inputs(seed):

@@ -27,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from eggshell_tpu_torch.ops.amat_kernel import contact_system_matrix, contact_system_matrix_plain
+from eggshell_tpu_torch.ops.amat_kernel import (amat_launch_plan, contact_system_matrix,
+                                                contact_system_matrix_plain, padded_rows)
 from eggshell_tpu_torch.ops.collision import collide_boxes
 from eggshell_tpu_torch.ops.collision_kernel import (collide_boxes_lanes,
                                                     collide_boxes_lanes_packed,
@@ -115,8 +116,10 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
         collide_boxes_lanes(p1, R1[:4], h1, p2, R2, h2)
     A = torch.eye(300, device=dev).expand(2, 300, 300).contiguous()
     v = torch.zeros(2, 300, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        solve_lcp_jacobi(A, v, v > 0, v, v, 4, 0.3)
+    # m = 300 is past the shared form and takes the global-rows one; a
+    # float mask is still refused
+    with pytest.raises(TypeError):
+        solve_lcp_jacobi(A, v, v, v, v, 4, 0.3)
     d = _fused_inputs(dev, B=8)
     with pytest.raises(TypeError):
         prep_bodies(d["q"].double(), d["v"], d["w"], d["inv_mass"], d["Ib"], d["invIb"], 1e-3,
@@ -339,6 +342,118 @@ def test_baseline_scene_goes_through_its_kernels(dev, name):
                    "jacobi_packed": 0 if streamed else 3,
                    "jacobi_packed_stream": 3 if streamed else 0, "integrate": 3}
     assert all(bool(torch.isfinite(x).all()) for x in out)
+
+
+@pytest.mark.parametrize("K,n,B,route", [(20, 4, 512, "whole"), (32, 8, 512, "whole"),
+                                         (64, 8, 64, "slab"), (400, 8, 8, "chunk")],
+                         ids=["K20", "K32", "K64", "K400"])
+def test_jacobian_blocks_and_system_matrix_are_bit_for_bit_plain(dev, K, n, B, route):
+    """The redesigned B4 and B5 keep each entry's order of operations: on
+    the card they return their plain versions' bits (`torch.equal`, which
+    takes -0 for 0), at the bench's K = 20 and the scenes' K = 32, where
+    B5 builds the whole of A as one item, and on B5's two other routes:
+    slabs of whole lanes' rows (K = 64) and one lane's rows with Jc in two
+    chunks (K = 400)."""
+    plan = amat_launch_plan(K)
+    assert route == ("whole" if plan.rows == padded_rows(K)
+                     else "slab" if plan.chunk == K else "chunk")
+    d = _fused_inputs(dev, B=B, K=K, n=n, seed=3)
+    uhat, invIg, _ = prep_bodies_plain(d["q"], d["v"], d["w"], d["inv_mass"], d["Ib"], d["invIb"],
+                                       1e-3, (0.0, 0.0, -9.8))
+    lanes = (d["b0"], d["b1"], d["pos"], d["pos1"], d["nrm"], d["dep"], d["act"], d["eq"],
+             d["p"], uhat, 2e5)
+    before = (contact_jacobian_blocks.launches, contact_system_matrix.launches)
+    blocks = contact_jacobian_blocks(*lanes)
+    want_blocks = contact_jacobian_blocks_plain(*lanes)
+    amat = (want_blocks[0], d["b0"], d["b1"], d["act"], d["inv_mass"], invIg, K, 0.01)
+    A, diag = contact_system_matrix(*amat)
+    torch.cuda.synchronize()
+    assert (contact_jacobian_blocks.launches - before[0],
+            contact_system_matrix.launches - before[1]) == (1, 1)
+    assert all(torch.equal(g, w) for g, w in zip(blocks, want_blocks))
+    assert all(torch.equal(g, w) for g, w in zip((A, diag), contact_system_matrix_plain(*amat)))
+
+
+def _random_lcp(dev, B, m, seed):
+    """A seeded SPD system (B, m, m) with contact-like rows: tangents in
+    [-1, 1], normals in [0, inf), every tenth row an equality."""
+    g = torch.Generator().manual_seed(seed)
+    G = torch.randn(B, m, 24, generator=g)
+    A = (G @ G.transpose(-1, -2) / 24 + torch.eye(m)).to(dev)
+    b = torch.randn(B, m, generator=g).to(dev)
+    row = torch.arange(m)
+    is_eq = (row % 10 == 9).expand(B, m).contiguous().to(dev)
+    lo = torch.where(row % 3 == 2, 0.0, -1.0).expand(B, m).contiguous().to(dev)
+    hi = torch.where(row % 3 == 2, float("inf"), 1.0).expand(B, m).contiguous().to(dev)
+    return A, b, is_eq, lo, hi
+
+
+def _launch_global_rows(fn_name, A, b, is_eq, lo, hi, *params):
+    """B6c or B6c' (`fn_name`) in its global-rows form whatever m is, as
+    the plan takes it past m = 232."""
+    from eggshell_tpu_torch import kernels
+    from eggshell_tpu_torch.ops.pgs_kernel import HI_INF, ROWS_THREADS
+
+    B, m = b.shape
+    hi = torch.where(torch.isinf(hi), torch.full_like(hi, HI_INF), hi)
+    out = torch.empty_like(b)
+    kernels.launch(fn_name, A.device, A, b, is_eq, lo, hi, out, B, m, -(-m // 8) * 8, *params, 1,
+                   min(ROWS_THREADS, -(-m // 32) * 32))
+    return out
+
+
+@pytest.mark.parametrize("block", [False, True], ids=["scalar", "block"])
+def test_unfused_jacobi_global_rows_matches_shared_form_and_plain(dev, block):
+    """Past m = 232 B6c and B6c' read A's rows from device memory every
+    sweep: at m = 240 and 480 against the plain version (1e-4 and 1e-5 of
+    max |x|, as their shared forms); at m = 60 the global-rows form
+    returns the shared form's bits."""
+    from eggshell_tpu_torch.ops.pgs_kernel import jacobi_launch_plan
+
+    rel = 1e-5 if block else 1e-4
+    for B, m in ((256, 240), (64, 480)):
+        A, b, is_eq, lo, hi = _random_lcp(dev, B, m, seed=m)
+        assert jacobi_launch_plan(m, block).route == "global rows"
+        n0 = (solve_lcp_jacobi_block if block else solve_lcp_jacobi).launches
+        got = solve_lcp_jacobi(A, b, is_eq, lo, hi, 16, 0.3, 0.45, block=block)
+        want = (solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, 16, 0.3, block=True) if block
+                else solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, 16, 0.3, 0.45))
+        torch.cuda.synchronize()
+        assert (solve_lcp_jacobi_block if block else solve_lcp_jacobi).launches == n0 + 1
+        assert float((got - want).abs().max()) <= rel * float(want.abs().max())
+    A, b, is_eq, lo, hi = _random_lcp(dev, 256, 60, seed=60)
+    shared = solve_lcp_jacobi(A, b, is_eq, lo, hi, 16, 0.3, 0.45, block=block)
+    params = (16, 0.3) if block else (16, 0.3, 0.45)
+    fn = "eggshell_jacobi_block_f32" if block else "eggshell_jacobi_f32"
+    rows = _launch_global_rows(fn, A, b, is_eq, lo, hi, *params)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, shared)
+
+
+def test_packed_global_rows_matches_plain_and_the_cluster_kernel(dev):
+    """Past mp = 664 B6b reads A's rows from device memory every sweep: at
+    mp = 672 against the plain version (1e-4); at mp = 96 that form
+    returns the cluster kernel's and the resident B6's bits."""
+    from eggshell_tpu_torch import kernels
+    from eggshell_tpu_torch.ops.pgs_kernel import ROWS_THREADS
+
+    lcp = _random_packed_lcp(dev, B=64, K=224, seed=5)
+    assert packed_launch_plan(672).rows is not None
+    n0 = solve_lcp_jacobi_packed_stream.launches
+    got = solve_lcp_jacobi_packed_stream(*lcp)
+    torch.cuda.synchronize()
+    assert solve_lcp_jacobi_packed_stream.launches == n0 + 1
+    _close((got,), (solve_lcp_jacobi_packed_plain(*lcp),), rel=1e-4)
+
+    A, diag, rhs, act, eq, K, mu, iters, omega, beta = _random_packed_lcp(dev, B=256, K=32, seed=6)
+    cluster = solve_lcp_jacobi_packed_stream(A, diag, rhs, act, eq, K, mu, iters, omega, beta)
+    resident = solve_lcp_jacobi_packed(A, diag, rhs, act, eq, K, mu, iters, omega, beta,
+                                       stream=False)
+    rows = torch.empty_like(diag)
+    kernels.launch("eggshell_jacobi_packed_rows_f32", dev, A, diag, rhs, act, eq, rows, 256, K, 96,
+                   iters, mu, omega, beta, min(ROWS_THREADS, 96))
+    torch.cuda.synchronize()
+    assert torch.equal(rows, cluster) and torch.equal(rows, resident)
 
 
 def _random_packed_lcp(dev, B=256, K=20, seed=2):
