@@ -4,16 +4,21 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `eggshell_tpu_torch/csrc/`, prints the
-registers, stack and spills ptxas reported for the packed Jacobi kernels,
-B4, B5 and the global-rows Jacobi forms (`[ptxas]`; none may spill), and
-holds each kernel against its plain PyTorch version on the card, on
-seeded random inputs and on the inputs of its path's first step, with the
-bound printed beside the error, the device times of kernel and plain
-version, and the kernel's bound and its ratio to it.
-`[jacobi_packed_stream]` also requires the cluster solve B6b to return
-the resident B6's bits, at mp = 96 and 192 and on the streamed scenes'
-first-step inputs, and times both at mp = 96 and 192.  Then it drives the
-ported paths through `rollout_batched` at B=4096, H=50:
+registers, stack and spills ptxas reported for the Jacobi kernels (B6,
+B6b, and B6c's and B6c''s resident, cluster and global-rows forms), B4
+and B5 (`[ptxas]`; none may spill), and holds each kernel against its
+plain PyTorch version on the card, on seeded random inputs and on the
+inputs of its path's first step, with the bound printed beside the error,
+the device times of kernel and plain version, and the kernel's bound and
+its ratio to it.  `[jacobi]` and `[jacobi_block]` also run the joints
+slice's first LCP (m = 30, rows copied by element loads) and print the
+route and copy each case took.  `[jacobi_packed]` also holds the resident
+B6 on box_stack8's and living_room's first-step solves (mp = 96, the
+register row of 96 that those paths launch).  `[jacobi_packed_stream]`
+also requires the cluster solve B6b to return the resident B6's bits at
+mp = 192, past the crossing where the fused solve takes B6b, and times
+both there.
+Then it drives the ported paths through `rollout_batched` at B=4096, H=50:
 
 - the fused chain under the bench configuration (bench.py:80-94,
   `conditional_cfm=False`) on `box_stack(4)` with the bench's jitter: packed
@@ -24,21 +29,24 @@ ported paths through `rollout_batched` at B=4096, H=50:
 - the four BASELINE scenes of bench.py:148-176 on the fused chain, with
   their contact capacities and jitters (phases `[scene_box_drop]`,
   `[scene_pendulum_chain6]`, `[scene_box_stack8]`, `[scene_living_room]`):
-  the ground-only compaction where a scene has no pairs, the cluster
-  ("streamed") Jacobi where the solve has 72 rows or more;
+  the ground-only compaction where a scene has no pairs, the resident B6
+  at every scene's row count (mp 32 to 96); box_stack8 at
+  contact_capacity 64 (mp = 192, `[scene_box_stack8_k64]`) takes the
+  cluster B6b;
 - the fused chain with Coulomb-pyramid friction and with block-Jacobi on
   `box_stack(4)` (phases `[slice_pyramid]`, `[slice_block]`; the B6 forms
   are held alone in `[jacobi_packed_pyramid]`, `[jacobi_packed_block]`),
   and `pendulum_chain(6)`'s ball joints on the unfused branch
-  (`[slice_joints_unfused]`).
+  (`[slice_joints_unfused]`, m = 30).
 
 The block-Jacobi solve B6c' has no stepping path: `[jacobi_block]` calls
 its entry `solve_lcp_jacobi(block=True)` on the unfused slice's first LCP.
-`[jacobi_global]` and `[jacobi_block_global]` hold B6c and B6c' past the
-m = 232 rows their shared form holds (the unfused slice's first LCP at
-contact_capacity 80, m = 240, and a seeded m = 480 system), where they read
-A's rows from device memory every sweep; `[jacobi_packed_rows]` does the
-same for B6b past the mp = 664 a cluster holds (mp = 672 and 888).  B4 and
+`[jacobi_cluster]` and `[jacobi_block_cluster]` hold B6c and B6c' in their
+cluster form (the unfused slice's first LCP at contact_capacity 80,
+m = 240, and a seeded m = 480 system), and `[jacobi_global]` and
+`[jacobi_block_global]` in their global-rows form past what a cluster
+holds (m = 672); `[jacobi_packed_rows]` does the same for B6b past the
+mp = 664 a cluster holds (mp = 672 and 888).  B4 and
 B5 (`[jassembly]`, `[amat]`) are also timed at K = 32 on box_stack8's first
 step, `[amat]` also checks B5's slab route (K = 64) and Jc-chunk route
 (K = 400) on seeded inputs, and every fused-chain kernel phase says
@@ -289,7 +297,22 @@ def random_spd_lcp(dev, B=4096, m=60):
     return A, b, is_eq, lo, hi
 
 
-def phase_jacobi(dev, main_lcp):
+def plan_text(m: int, block: bool) -> str:
+    """The route and the copy `jacobi_launch_plan` names for B6c or B6c'."""
+    from eggshell_tpu_torch.ops.pgs_kernel import jacobi_launch_plan
+
+    p = jacobi_launch_plan(m, block)
+    if p.route == "global rows":
+        return f"global rows ({p.threads} threads, {p.shared_bytes} bytes of shared memory)"
+    blocks = f", cluster of {p.cluster}, {p.rows} rows a block" if p.route == "cluster" else ""
+    return f"{p.route}, {p.copy}, {min(p.reg_rows, p.mp)} of {p.mp} columns in registers{blocks}"
+
+
+def phase_jacobi(dev, main_lcp, joints_lcp):
+    """B6c against its plain version (relative bound 1e-4 of max |x|) on the
+    seeded SPD system, the unfused slice's first LCP (m = 60, one tensor
+    copy) and the joints slice's (m = 30, rows copied by element loads),
+    each with the route and the copy it took; timed on the slice's."""
     from eggshell_tpu_torch.ops.pgs_kernel import solve_lcp_jacobi, solve_lcp_jacobi_plain
 
     iters, omega, beta = 16, 0.3, 0.45
@@ -300,35 +323,51 @@ def phase_jacobi(dev, main_lcp):
         want = solve_lcp_jacobi_plain(*args, iters, omega, beta)
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
-        print(f"[jacobi] {what}, iters 16: max |dx| {err:.3e}, relative {rel:.3e} "
-              f"(bound 1e-4)")
+        print(f"[jacobi] {what}, iters 16, {plan_text(args[1].shape[1], False)}: max |dx| "
+              f"{err:.3e}, relative {rel:.3e} (bound 1e-4)")
         check(bool(torch.isfinite(got).all()), "jacobi output not finite")
         check(rel <= 1e-4, f"jacobi relative error {rel}")
         return err
 
     err = max(compare("SPD (4096, 60, 60)", (A, b, is_eq, lo, hi)),
-              compare(f"main-path inputs {tuple(main_lcp[0].shape)}", main_lcp))
+              compare(f"main-path inputs {tuple(main_lcp[0].shape)}", main_lcp),
+              compare(f"first-step inputs of [slice_joints_unfused] {tuple(joints_lcp[0].shape)}",
+                      joints_lcp))
 
-    t = timings("jacobi_kernel", lambda: solve_lcp_jacobi(*main_lcp, iters, omega, beta),
-                lambda: solve_lcp_jacobi_plain(*main_lcp, iters, omega, beta))
-    Bm, mm = main_lcp[1].shape
-    out = solve_lcp_jacobi(*main_lcp, iters, omega, beta)
-    b = bound(moved_bytes(main_lcp, out), Bm * iters * (2.0 * mm * mm + 10.0 * mm))
-    print(f"[jacobi] main-path shape {tuple(main_lcp[0].shape)}: {timing_text(t)}, "
-          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    return {"max_abs_err": err, **t, **b}
+    res = {"max_abs_err": err}
+    for what, args in (("joints slice", joints_lcp), ("main-path", main_lcp)):
+        t = timings("jacobi_kernel", lambda: solve_lcp_jacobi(*args, iters, omega, beta),
+                    lambda: solve_lcp_jacobi_plain(*args, iters, omega, beta))
+        Bm, mm = args[1].shape
+        out = solve_lcp_jacobi(*args, iters, omega, beta)
+        b = bound(moved_bytes(args, out), Bm * iters * (2.0 * mm * mm + 10.0 * mm))
+        print(f"[jacobi] {what} shape {tuple(args[0].shape)}: {timing_text(t)}, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes), "
+              f"{ratio_text(t, b)}")
+        res.update({**t, **b} if what == "main-path" else
+                   {"ms_extra": t["ms"], "plain_ms_extra": t["plain_ms"],
+                    "bound_ms_extra": b["bound_ms"]})
+    return res
+
+
+def unfused_first_lcp(dev, scene="box_stack4", cfg=None):
+    """B6c's inputs at the first step of B_SLICE scenarios of `scene` on the
+    unfused branch (the slice's configuration, or `cfg`)."""
+    from eggshell_tpu_torch.physics import scenes, stepper
+
+    spec, states, _ = scenes.baseline_batch(scene, B_SLICE, device=dev)
+    sys_, A, rhs, _, _, _ = stepper._pre_solve(spec, states, slice_cfg() if cfg is None else cfg)
+    return tuple(x.contiguous() for x in (A, rhs, sys_.is_eq, sys_.lo, sys_.hi))
 
 
 def main_path_inputs(dev):
     """The slice-1 kernels' inputs at the first step of the unfused slice."""
     from eggshell_tpu_torch.ops.collision_kernel import gather_pairs
-    from eggshell_tpu_torch.physics import scenes, stepper
+    from eggshell_tpu_torch.physics import scenes
 
     spec, states, _ = scenes.baseline_batch("box_stack4", B_SLICE, device=dev)
     nargs = gather_pairs(states.p, states.R(), spec.half_extents, spec.pair_i, spec.pair_j)
-    sys_, A, rhs, _, _, _ = stepper._pre_solve(spec, states, slice_cfg())
-    lcp = tuple(x.contiguous() for x in (A, rhs, sys_.is_eq, sys_.lo, sys_.hi))
-    return nargs, lcp
+    return nargs, unfused_first_lcp(dev)
 
 
 def fused_inputs(dev, name="box_stack4", cfg=None):
@@ -695,21 +734,23 @@ def random_lcp(dev, B, K, seed):
 
 
 def phase_jacobi_packed_stream(dev, firsts):
-    """B6b against its plain version (relative bound 1e-4, as B6) and bit
-    for bit against the resident B6 (`stream=False`: both sum each row in
-    the same order) on seeded SPD systems at K=32 (mp=96) and K=64 (mp=192,
-    A 604 MB) and on the first-step inputs of the streamed paths; the
-    resident B6 against the plain version too.  Then B6b and B6 timed on
-    box_stack8's first-step inputs and on the mp=192 system."""
-    from eggshell_tpu_torch.ops.pgs_kernel import (packed_launch_plan, solve_lcp_jacobi_packed,
+    """B6b, taken past the crossing measured on the card (`packed_streams`),
+    against its plain version (relative bound 1e-4, as B6) and bit for bit
+    against the resident B6 (`stream=False`: both sum each row in the same
+    order) on a seeded SPD system at K=64 (mp=192, A 604 MB) and on the
+    first-step inputs of the paths that take it; the resident B6 against
+    the plain version too.  Then B6b and B6 timed on the first of those."""
+    from eggshell_tpu_torch.ops.pgs_kernel import (packed_launch_plan, packed_streams,
+                                                   solve_lcp_jacobi_packed,
                                                    solve_lcp_jacobi_packed_plain,
                                                    solve_lcp_jacobi_packed_stream)
 
-    cases = [("seeded random SPD (4096, 96, 96)", random_lcp(dev, 4096, 32, SEED + 4)),
-             ("seeded random SPD (4096, 192, 192)", random_lcp(dev, 4096, 64, SEED + 6))]
+    cases = [("seeded random SPD (4096, 192, 192)", random_lcp(dev, 4096, 64, SEED + 6))]
     cases += [(f"first-step inputs of {tag}", a[:10]) for tag, a in firsts]
     err = 0.0
     for what, args in cases:   # the fused step also passes block=False, pyramid_mu=0: dropped
+        mp = args[1].shape[1]
+        check(packed_streams(mp), f"jacobi_packed_stream: mp = {mp} takes the resident B6")
         got = solve_lcp_jacobi_packed_stream(*args)
         want = solve_lcp_jacobi_packed_plain(*args)
         resident = solve_lcp_jacobi_packed(*args, stream=False)
@@ -718,7 +759,7 @@ def phase_jacobi_packed_stream(dev, firsts):
         rel, rel_res = e / scale, float((resident - want).abs().max()) / scale
         same = torch.equal(got, resident)
         err = max(err, e)
-        plan = packed_launch_plan(args[1].shape[1])
+        plan = packed_launch_plan(mp)
         print(f"[jacobi_packed_stream] {what}: max |dx| {e:.3e}, relative to scale {rel:.3e}, "
               f"resident B6 {rel_res:.3e} (bound 1e-4); bit for bit the resident kernel's: "
               f"{same}; cluster of {plan.cluster.cluster}, {plan.cluster.rows} rows a block, "
@@ -728,22 +769,13 @@ def phase_jacobi_packed_stream(dev, firsts):
         check(rel_res <= 1e-4, f"resident jacobi_packed relative error {rel_res} on {what}")
         check(same, f"jacobi_packed_stream differs from the resident kernel on {what}")
 
-    def timed(args):
-        t = timings("jacobi_packed_stream_kernel", lambda: solve_lcp_jacobi_packed_stream(*args),
-                    lambda: solve_lcp_jacobi_packed_plain(*args))
-        tr = timings("jacobi_packed_kernel", lambda: solve_lcp_jacobi_packed(*args, stream=False),
-                     lambda: solve_lcp_jacobi_packed_plain(*args))
-        b = bound(moved_bytes(args, solve_lcp_jacobi_packed_stream(*args)),
-                  _fused_flops("jacobi_packed", args))
-        return t, tr, b
-
-    t192, tr192, b192 = timed(cases[1][1])
-    print(f"[jacobi_packed_stream] seeded random SPD (4096, 192, 192): B6b {t192['ms']:.4f} ms "
-          f"({ratio_text(t192, b192)}), resident B6 {tr192['ms']:.4f} ms "
-          f"({ratio_text(tr192, b192)}), plain torch {t192['plain_ms']:.4f} ms; bound "
-          f"{b192['bound_ms']:.4f} ms ({b192['bound_by']}: {b192['bytes']} bytes)")
-    tag, main_args = firsts[0][0], cases[2][1]
-    t, tr, b = timed(main_args)
+    tag, main_args = firsts[0][0], cases[1][1]
+    t = timings("jacobi_packed_stream_kernel", lambda: solve_lcp_jacobi_packed_stream(*main_args),
+                lambda: solve_lcp_jacobi_packed_plain(*main_args))
+    tr = timings("jacobi_packed_kernel", lambda: solve_lcp_jacobi_packed(*main_args, stream=False),
+                 lambda: solve_lcp_jacobi_packed_plain(*main_args))
+    b = bound(moved_bytes(main_args, solve_lcp_jacobi_packed_stream(*main_args)),
+              _fused_flops("jacobi_packed", main_args))
     print(f"[jacobi_packed_stream] inputs of {tag}, A {tuple(main_args[0].shape)}: "
           f"{timing_text(t)}, {ratio_text(t, b)}; resident B6 on the same inputs {tr['ms']:.4f} "
           f"ms, {ratio_text(tr, b)}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
@@ -785,16 +817,19 @@ def phase_jacobi_packed_form(dev, tag, kernel_name, block, pyramid_mu, first):
     return {"max_abs_err": err, **t, **b}
 
 
-def phase_jacobi_block(dev, main_lcp):
-    """B6c' against its plain version on the seeded SPD system and on the
-    unfused slice's first LCP (relative bound 1e-5 of max |x|), then its
-    path: one call of its entry `solve_lcp_jacobi(block=True)` with every
-    launch counter at 0 just before must launch it once and nothing else."""
+def phase_jacobi_block(dev, main_lcp, joints_lcp):
+    """B6c' against its plain version on the seeded SPD system, the unfused
+    slice's first LCP and the joints slice's (m = 30, element loads)
+    (relative bound 1e-5 of max |x|), then its path: one call of its entry
+    `solve_lcp_jacobi(block=True)` with every launch counter at 0 just
+    before must launch it once and nothing else."""
     from eggshell_tpu_torch.ops.pgs_kernel import solve_lcp_jacobi, solve_lcp_jacobi_plain
 
     iters, omega, beta = 16, 0.3, 0.45
     cases = [("SPD (4096, 60, 60)", random_spd_lcp(dev)),
-             (f"main-path inputs {tuple(main_lcp[0].shape)}", main_lcp)]
+             (f"main-path inputs {tuple(main_lcp[0].shape)}", main_lcp),
+             (f"first-step inputs of [slice_joints_unfused] {tuple(joints_lcp[0].shape)}",
+              joints_lcp)]
     err = 0.0
     for what, args in cases:
         got = solve_lcp_jacobi(*args, iters, omega, beta, block=True)
@@ -802,8 +837,8 @@ def phase_jacobi_block(dev, main_lcp):
         e = float((got - want).abs().max())
         rel = e / float(want.abs().max())
         err = max(err, e)
-        print(f"[jacobi_block] {what}, iters 16: max |dx| {e:.3e}, relative {rel:.3e} "
-              f"(bound 1e-5); bit for bit {torch.equal(got, want)}")
+        print(f"[jacobi_block] {what}, iters 16, {plan_text(args[1].shape[1], True)}: max |dx| "
+              f"{e:.3e}, relative {rel:.3e} (bound 1e-5); bit for bit {torch.equal(got, want)}")
         check(bool(torch.isfinite(got).all()), "jacobi_block output not finite")
         check(rel <= 1e-5, f"jacobi_block relative error {rel}")
 
@@ -811,25 +846,27 @@ def phase_jacobi_block(dev, main_lcp):
         "jacobi_block", "jacobi_block",
         lambda: solve_lcp_jacobi(*main_lcp, iters, omega, beta, block=True))
 
-    t = timings("block_jacobi_kernel",
-                lambda: solve_lcp_jacobi(*main_lcp, iters, omega, beta, block=True),
-                lambda: solve_lcp_jacobi_plain(*main_lcp, iters, omega, block=True))
-    Bm, mm = main_lcp[1].shape
-    b = bound(moved_bytes(main_lcp, out), Bm * iters * (2.0 * mm * mm + 16.0 * mm))
-    print(f"[jacobi_block] main-path shape {tuple(main_lcp[0].shape)}: {timing_text(t)}, "
-          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes)")
-    return {"max_abs_err": err, **t, **b, "launches": launches}
+    res = {"max_abs_err": err, "launches": launches}
+    for what, args in (("joints slice", joints_lcp), ("main-path", main_lcp)):
+        t = timings("block_jacobi_kernel",
+                    lambda: solve_lcp_jacobi(*args, iters, omega, beta, block=True),
+                    lambda: solve_lcp_jacobi_plain(*args, iters, omega, block=True))
+        Bm, mm = args[1].shape
+        b = bound(moved_bytes(args, solve_lcp_jacobi(*args, iters, omega, beta, block=True)),
+                  Bm * iters * (2.0 * mm * mm + 16.0 * mm))
+        print(f"[jacobi_block] {what} shape {tuple(args[0].shape)}: {timing_text(t)}, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes), "
+              f"{ratio_text(t, b)}")
+        res.update({**t, **b} if what == "main-path" else
+                   {"ms_extra": t["ms"], "plain_ms_extra": t["plain_ms"],
+                    "bound_ms_extra": b["bound_ms"]})
+    return res
 
 
 def wide_unfused_lcp(dev):
     """B6c's inputs at the first step of the unfused slice with
-    contact_capacity 80: m = 240 rows, past the shared form's 232."""
-    from eggshell_tpu_torch.physics import scenes, stepper
-
-    spec, states, _ = scenes.baseline_batch("box_stack4", B_SLICE, device=dev)
-    sys_, A, rhs, _, _, _ = stepper._pre_solve(spec, states,
-                                               slice_cfg().replace(contact_capacity=80))
-    return tuple(x.contiguous() for x in (A, rhs, sys_.is_eq, sys_.lo, sys_.hi))
+    contact_capacity 80: m = 240 rows, past the resident form's 128 rows."""
+    return unfused_first_lcp(dev, cfg=slice_cfg().replace(contact_capacity=80))
 
 
 def one_call_launches(tag, counter_name, fn):
@@ -847,53 +884,61 @@ def one_call_launches(tag, counter_name, fn):
     return out, launches[counter_name]
 
 
-def phase_jacobi_global(dev):
-    """B6c and B6c' past the shared form's m = 232, where
-    `jacobi_launch_plan` reads A's rows from device memory every sweep: at
-    m = 240 (the unfused slice's first LCP at contact_capacity 80, B=4096)
-    and m = 480 (a seeded SPD system, B=512), each against its plain
-    version (relative bounds 1e-4 and 1e-5 of max |x|, as `[jacobi]` and
-    `[jacobi_block]`), then one call of each at m = 240 counted and timed."""
+def phase_jacobi_cluster(dev):
+    """B6c and B6c' past the resident form's 128 rows, where
+    `jacobi_launch_plan` splits a scenario's rows over a thread-block
+    cluster: at m = 240 (the unfused slice's first LCP at contact_capacity
+    80, B=4096, one tensor copy) and m = 480 (a seeded SPD system, B=512,
+    one bulk copy a row), each against its plain version (relative bounds
+    1e-4 and 1e-5 of max |x|, as `[jacobi]` and `[jacobi_block]`), then one
+    call of each at m = 240 counted and timed.  Past what a cluster of 8
+    holds, the global-rows form: m = 672 (seeded, B=64) against the plain
+    version, one call counted and timed."""
     from eggshell_tpu_torch.ops.pgs_kernel import (jacobi_launch_plan, solve_lcp_jacobi,
                                                    solve_lcp_jacobi_plain)
 
     iters, omega, beta = 16, 0.3, 0.45
     wide = wide_unfused_lcp(dev)
+    past = random_spd_lcp(dev, B=64, m=672)
     cases = [(f"first-step inputs of the unfused slice at contact_capacity 80, "
-              f"{tuple(wide[0].shape)}", wide),
-             ("seeded random SPD (512, 480, 480)", random_spd_lcp(dev, B=512, m=480))]
+              f"{tuple(wide[0].shape)}", wide, "cluster"),
+             ("seeded random SPD (512, 480, 480)", random_spd_lcp(dev, B=512, m=480), "cluster"),
+             ("seeded random SPD (64, 672, 672)", past, "global rows")]
     res = {}
-    for block, tag, bound_rel in ((False, "jacobi_global", 1e-4),
-                                  (True, "jacobi_block_global", 1e-5)):
-        err = 0.0
-        for what, args in cases:
+    for block, bound_rel in ((False, 1e-4), (True, 1e-5)):
+        name = "jacobi_block" if block else "jacobi"
+        err = {"cluster": 0.0, "global rows": 0.0}
+        for what, args, route in cases:
             m = args[1].shape[1]
-            plan = jacobi_launch_plan(m, block)
-            check(plan.route == "global rows", f"{tag}: m = {m} takes the {plan.route} form")
+            check(jacobi_launch_plan(m, block).route == route,
+                  f"{name}: m = {m} takes the {jacobi_launch_plan(m, block).route} form")
             got = solve_lcp_jacobi(*args, iters, omega, beta, block=block)
             want = (solve_lcp_jacobi_plain(*args, iters, omega, block=True) if block
                     else solve_lcp_jacobi_plain(*args, iters, omega, beta))
             e = float((got - want).abs().max())
             rel = e / float(want.abs().max())
-            err = max(err, e)
-            print(f"[{tag}] {what}, iters 16, {plan.route} ({plan.rows.threads} threads, "
-                  f"{plan.rows.shared_bytes} bytes of shared memory): max |dx| {e:.3e}, relative "
-                  f"{rel:.3e} (bound {bound_rel:.0e}); bit for bit {torch.equal(got, want)}")
+            err[route] = max(err[route], e)
+            tag = f"{name}_{'cluster' if route == 'cluster' else 'global'}"
+            print(f"[{tag}] {what}, iters 16, {plan_text(m, block)}: max |dx| {e:.3e}, "
+                  f"relative {rel:.3e} (bound {bound_rel:.0e}); bit for bit "
+                  f"{torch.equal(got, want)}")
             check(bool(torch.isfinite(got).all()), f"{tag} output not finite on {what}")
             check(rel <= bound_rel, f"{tag} relative error {rel} on {what}")
-        counter = "jacobi_block" if block else "jacobi"
-        call = lambda: solve_lcp_jacobi(*wide, iters, omega, beta, block=block)
-        out, launches = one_call_launches(tag, counter, call)
-        kname = "block_jacobi_global_kernel" if block else "jacobi_global_kernel"
-        plain = ((lambda: solve_lcp_jacobi_plain(*wide, iters, omega, block=True)) if block
-                 else (lambda: solve_lcp_jacobi_plain(*wide, iters, omega, beta)))
-        t = timings(kname, call, plain)
-        Bm, mm = wide[1].shape
         per_row = 16.0 if block else 10.0
-        b = bound(moved_bytes(wide, out), Bm * iters * (2.0 * mm * mm + per_row * mm))
-        print(f"[{tag}] m={mm}, B={Bm}: {timing_text(t)}, bound {b['bound_ms']:.4f} ms "
-              f"({b['bound_by']}: {b['bytes']} bytes), {ratio_text(t, b)}")
-        res[tag] = {"max_abs_err": err, **t, **b, "launches": launches}
+        for route, args, kname in (
+                ("cluster", wide, f"{'block_' if block else ''}jacobi_cluster_kernel"),
+                ("global rows", past, f"{'block_' if block else ''}jacobi_global_kernel")):
+            tag = f"{name}_{'cluster' if route == 'cluster' else 'global'}"
+            call = lambda: solve_lcp_jacobi(*args, iters, omega, beta, block=block)
+            out, launches = one_call_launches(tag, name, call)
+            plain = ((lambda: solve_lcp_jacobi_plain(*args, iters, omega, block=True)) if block
+                     else (lambda: solve_lcp_jacobi_plain(*args, iters, omega, beta)))
+            t = timings(kname, call, plain)
+            Bm, mm = args[1].shape
+            b = bound(moved_bytes(args, out), Bm * iters * (2.0 * mm * mm + per_row * mm))
+            print(f"[{tag}] m={mm}, B={Bm}: {timing_text(t)}, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}: {b['bytes']} bytes), {ratio_text(t, b)}")
+            res[tag] = {"max_abs_err": err[route], **t, **b, "launches": launches}
     return res
 
 
@@ -1229,34 +1274,44 @@ UNFUSED_PATH = ("narrowphase", "jacobi")
 PYRAMID_PATH = FUSED_PATH[:5] + ("jacobi_packed_pyramid", "integrate")
 BLOCK_PATH = FUSED_PATH[:5] + ("jacobi_packed_block", "integrate")
 SCENES = {
-    # scene: (kernels of its path, physical check)
+    # scene: (kernels of its path, physical check); every scene's solve
+    # (mp 32 to 96) is below the resident/cluster crossing: B6
     "box_drop": (("compact", "prep", "jassembly", "amat", "jacobi_packed", "integrate"), rests),
     "pendulum_chain6": (("compact", "prep", "jassembly", "amat", "jacobi_packed", "integrate"),
                         joints_hold),
-    "box_stack8": (("narrowphase_packed", "compact", "prep", "jassembly", "amat",
-                    "jacobi_packed_stream", "integrate"), stands),
-    "living_room": (("narrowphase_packed", "compact", "prep", "jassembly", "amat",
-                     "jacobi_packed_stream", "integrate"), above_floor),
+    "box_stack8": (FUSED_PATH, stands),
+    "living_room": (FUSED_PATH, above_floor),
 }
+# box_stack8 at contact_capacity 64 (mp = 192): past the crossing, B6b
+WIDE_CAPACITY = 64
+WIDE_PATH = FUSED_PATH[:5] + ("jacobi_packed_stream", "integrate")
 
 
-# Kernels `[ptxas]` reports beside the 25 templates of the packed Jacobi
-# kernels (B6's four forms and B6b, at 5 row lengths each): B4, B5 and the
-# global-rows forms of B6c, B6c' and B6b.
-PTXAS_TEMPLATES = 25
+def wide_cfg():
+    """The bench configuration at contact_capacity 64."""
+    return bench_cfg().replace(contact_capacity=WIDE_CAPACITY)
+
+
+# Kernels `[ptxas]` reports beside the 41 templates of the Jacobi kernels
+# (B6's four forms and B6b at 5 row lengths each, the resident and cluster
+# forms of B6c and B6c' at 4): B4, B5 and the global-rows forms of B6c,
+# B6c' and B6b.
+PTXAS_TEMPLATES = 41
 PTXAS_PLAIN = ("jassembly_kernel", "amat_kernel", "jacobi_global_kernel",
                "block_jacobi_global_kernel", "jacobi_packed_rows_kernel")
 
 
 def phase_ptxas():
-    """Registers, stack and spills of the packed Jacobi kernels (B6's four
-    forms at each row length, B6b), of B4 and B5, and of the global-rows
-    forms, as ptxas reported them at the build; none may spill."""
+    """Registers, stack and spills of the Jacobi kernels (B6's four forms,
+    B6b, B6c's and B6c''s resident and cluster forms, at each row length),
+    of B4 and B5, and of the global-rows forms, as ptxas reported them at
+    the build; none may spill."""
     from eggshell_tpu_torch import kernels
 
     found = 0
     for entry, use in sorted(kernels.ptxas_usage().items()):
-        m = re.search(r"(?<=\d)(jacobi_packed\w*?_kernel)ILi(\d+)E", entry)
+        m = re.search(r"(?<=\d)((?:block_)?jacobi(?:_packed\w*?|_cluster)?_kernel)ILi(\d+)E",
+                      entry)
         plain = re.search(r"\d(" + "|".join(PTXAS_PLAIN) + r")E", entry)
         if m:
             name = f"{m.group(1)}<{m.group(2)}>"
@@ -1290,9 +1345,12 @@ def main() -> int:
     phase_ptxas()
 
     nargs, lcp = main_path_inputs(dev)
-    res = {"narrowphase": phase_narrowphase(dev, nargs), "jacobi": phase_jacobi(dev, lcp),
-           "jacobi_block": phase_jacobi_block(dev, lcp)}
+    joints_lcp = unfused_first_lcp(dev, "pendulum_chain6", joints_unfused_cfg())
+    res = {"narrowphase": phase_narrowphase(dev, nargs),
+           "jacobi": phase_jacobi(dev, lcp, joints_lcp),
+           "jacobi_block": phase_jacobi_block(dev, lcp, joints_lcp)}
     first = {name: fused_inputs(dev, name) for name in ("box_stack4", *SCENES)}
+    first_wide = fused_inputs(dev, "box_stack8", wide_cfg())
     forms = {"slice_pyramid": pyramid_cfg(), "slice_block": block_cfg()}
     first_forms = {tag: fused_inputs(dev, "box_stack4", cfg)["jacobi_packed"]
                    for tag, cfg in forms.items()}
@@ -1306,9 +1364,15 @@ def main() -> int:
         # B4 and B5 also at K = 32, on box_stack8's first step
         extra = (("first-step inputs of [scene_box_stack8], K=32", first["box_stack8"][name])
                  if name in ("jassembly", "amat") else None)
-        res[name] = phase_fused_kernel(name, (amat_routes if name == "amat" else []) + [
+        # B6 also on the solves of box_stack8's and living_room's paths (mp = 96)
+        scene_solves = [
+            (f"first-step inputs of [scene_{scene}], mp={first[scene][name][1].shape[1]}",
+             first[scene][name])
+            for scene in ("box_stack8", "living_room")] if name == "jacobi_packed" else []
+        cases = (amat_routes if name == "amat" else []) + scene_solves + [
             ("seeded random inputs", rand[name]),
-            ("first-step inputs of [slice_fused]", first["box_stack4"][name])], extra)
+            ("first-step inputs of [slice_fused]", first["box_stack4"][name])]
+        res[name] = phase_fused_kernel(name, cases, extra)
     res["narrowphase_packed"] = phase_narrowphase_packed(dev, [
         (f"[{tag}]", first[name]["narrowphase"])
         for tag, name in (("slice_fused", "box_stack4"), ("scene_box_stack8", "box_stack8"),
@@ -1318,9 +1382,7 @@ def main() -> int:
         for tag, name in (("slice_fused", "box_stack4"), ("scene_box_stack8", "box_stack8"),
                           ("scene_living_room", "living_room"), ("scene_box_drop", "box_drop"))]))
     res["jacobi_packed_stream"] = phase_jacobi_packed_stream(dev, [
-        (f"[{tag}]", first[name]["jacobi_packed_stream"])
-        for tag, name in (("scene_box_stack8", "box_stack8"),
-                          ("scene_living_room", "living_room"))])
+        ("[scene_box_stack8_k64]", first_wide["jacobi_packed_stream"])])
 
     res["jacobi_packed_block"] = phase_jacobi_packed_form(
         dev, "jacobi_packed_block", "jacobi_packed_block_kernel", True, 0.0,
@@ -1328,7 +1390,7 @@ def main() -> int:
     res["jacobi_packed_pyramid"] = phase_jacobi_packed_form(
         dev, "jacobi_packed_pyramid", "jacobi_packed_pyramid_kernel", False,
         pyramid_cfg().friction_mu, ("slice_pyramid", first_forms["slice_pyramid"]))
-    res.update(phase_jacobi_global(dev))
+    res.update(phase_jacobi_cluster(dev))
     res["jacobi_packed_rows"] = phase_jacobi_packed_rows(dev)
     res["fdtd2d"] = phase_fdtd2d(dev)
 
@@ -1341,6 +1403,8 @@ def main() -> int:
     for scene, (path, physical) in SCENES.items():
         scene_launches[scene], _ = phase_rollout(dev, f"scene_{scene}", scene, path, physical)
         phase_agreement(dev, f"scene_{scene}", scene)
+    wide_launches, _ = phase_rollout(dev, "scene_box_stack8_k64", "box_stack8", WIDE_PATH, stands,
+                                     cfg=wide_cfg())
     form_launches = {}
     for tag, path in (("slice_pyramid", PYRAMID_PATH), ("slice_block", BLOCK_PATH)):
         form_launches[tag], _ = phase_rollout(dev, tag, "box_stack4", path, stands,
@@ -1363,8 +1427,8 @@ def main() -> int:
             ("jacobi", "eggshell_tpu_torch/csrc/jacobi.cu", "eggshell_tpu/ops/pgs_kernel.py:47",
              "unfused", unfused_launches["jacobi"]),
             ("jacobi_packed_stream", "eggshell_tpu_torch/csrc/jacobi_packed_stream.cu",
-             "eggshell_tpu/ops/pgs_kernel.py:355", "scene_box_stack8",
-             scene_launches["box_stack8"]["jacobi_packed_stream"])]
+             "eggshell_tpu/ops/pgs_kernel.py:355", "scene_box_stack8_k64",
+             wide_launches["jacobi_packed_stream"])]
     rows += [(name, FUSED_KERNELS[name][3], FUSED_KERNELS[name][4], "fused",
               fused_launches[name]) for name in FUSED_KERNELS]
     rows += [("jacobi_packed_block", "eggshell_tpu_torch/csrc/jacobi_packed.cu",
@@ -1378,12 +1442,19 @@ def main() -> int:
               res["jacobi_block"]["launches"]),
              ("fdtd2d", "eggshell_tpu_torch/csrc/fdtd2d.cu", "eggshell_tpu/fem/fdtd.py:113",
               "fdtd2d_rollout", fdtd_launches),
-             ("jacobi_global", "eggshell_tpu_torch/csrc/jacobi.cu",
+             ("jacobi_cluster", "eggshell_tpu_torch/csrc/jacobi.cu",
               "eggshell_tpu/ops/pgs_kernel.py:47", "solve_lcp_jacobi at m=240, one call",
+              res["jacobi_cluster"]["launches"]),
+             ("jacobi_block_cluster", "eggshell_tpu_torch/csrc/jacobi.cu",
+              "eggshell_tpu/ops/pgs_kernel.py:86",
+              "solve_lcp_jacobi(block=True) at m=240, one call",
+              res["jacobi_block_cluster"]["launches"]),
+             ("jacobi_global", "eggshell_tpu_torch/csrc/jacobi.cu",
+              "eggshell_tpu/ops/pgs_kernel.py:47", "solve_lcp_jacobi at m=672, one call",
               res["jacobi_global"]["launches"]),
              ("jacobi_block_global", "eggshell_tpu_torch/csrc/jacobi.cu",
               "eggshell_tpu/ops/pgs_kernel.py:86",
-              "solve_lcp_jacobi(block=True) at m=240, one call",
+              "solve_lcp_jacobi(block=True) at m=672, one call",
               res["jacobi_block_global"]["launches"]),
              ("jacobi_packed_rows", "eggshell_tpu_torch/csrc/jacobi_packed_stream.cu",
               "eggshell_tpu/ops/pgs_kernel.py:355",

@@ -1,184 +1,113 @@
-// Batched under-relaxed projected Jacobi for mixed LCPs, float32: scalar
-// heavy-ball sweeps and exact 3x3 block-Jacobi sweeps.
+// Batched under-relaxed projected Jacobi for mixed LCPs with per-row
+// bounds, float32: scalar heavy-ball sweeps (B6c) and exact 3x3
+// block-Jacobi sweeps (B6c').
 //
-// `jacobi_kernel` replaces the TPU kernel `_jacobi_kernel` of
-// eggshell_tpu/ops/pgs_kernel.py (reached through `solve_lcp_jacobi_pallas`,
-// block=False).  Semantics, per scenario, with rows padded to a multiple of
-// 8 (unit diagonal, b = 0, equality): x0 = proj(b), then `iters` sweeps of
-//   x <- proj((1 - omega) x + omega (b - A x + D x) D^-1 + beta (x - x_prev))
+// Replaces the TPU kernels `_jacobi_kernel` (B6c) and `_block_jacobi_kernel`
+// (B6c') of eggshell_tpu/ops/pgs_kernel.py, both reached through
+// `solve_lcp_jacobi_pallas` (block=False / True).  Semantics, per
+// scenario, with rows padded to mp = m rounded up to 8 (unit diagonal,
+// b = 0, equality) and hi = +-inf read as 3.4e38, as the TPU kernel's
+// wrapper has it: x0 = proj(b), then `iters` sweeps of
+//   scalar: x <- proj((1 - omega) x + omega (b - A x + D x) D^-1 + beta (x - x_prev)),
+//   block (m % 3 == 0): rv = b - A x;  y_i = x_i + sum_c inv(A_kk)[r, c] rv_3k+c
+//          (i = 3k + r);  x <- proj((1 - omega) x + omega y),
 // where proj clamps inequality rows to [lo, hi] and leaves equality rows
-// free.  The padded rows stay at exactly 0 and never touch the real rows.
-//
-// `block_jacobi_kernel` replaces `_block_jacobi_kernel` of the same file
-// (`solve_lcp_jacobi_pallas(block=True)`, m % 3 == 0): each sweep solves
-// every 3-row constraint block exactly, with no momentum,
-//   rv = b - A x;  y_i = x_i + sum_c inv(A_kk)[r, c] rv_3k+c  (i = 3k + r < m),
-//   y_i = x_i + rv_i / D_i on the padding rows;  x <- proj((1 - omega) x + omega y).
-// Each thread builds its row of its block's inverse once (csrc/block3.cuh,
-// the adjugate), and the block's three threads read rv from shared memory
-// after a barrier.
+// free.  The padding rows stay at exactly 0 and never touch the real rows,
+// so the kernels leave them out: they are idle threads whose iterate is 0.
 //
 // What bounds them on an H100: each sweep is a dense (m x m) mat-vec, so a
 // scenario costs iters * 2 m^2 flops against one read of A (4 m^2 bytes):
-// about 8 flops per byte at iters = 16.  Streaming A from device memory on
-// every sweep would make it bandwidth-bound; the design reads A once.  One
-// thread block per scenario holds A in shared memory (m_pad <= 64 on the
-// main path: 16.6 KB with the row padding below), one thread per row, all
-// sweeps inside the kernel, x in shared memory and the previous iterate in
-// a register, __syncthreads() between sweeps.  Rows are stored with a
-// stride of m_pad + 1 floats so that the threads of a warp, each reading
-// its own row at the same column, hit 32 different banks.  The TPU kernel's
-// (m, m, lanes) transpose is not carried over: A stays (B, m, m) row-major.
-// The tensor cores are not used; a warp-per-scenario or wgmma form is work
-// for a later change.
+// about 8 flops a byte at 16 sweeps, at the ridge of the card's float32
+// rate and HBM bandwidth.  At m = 60, B = 4096 the bytes bound is 0.0189
+// ms.  Both hold only if A is read from device memory once and each
+// product reads a_ij from a register: read from shared memory, as the first
+// design did (A copied element by element, a_ij and x_j both from shared
+// memory, two barriers a sweep), the shared loads alone cost about 0.07 ms
+// at m = 60, and the kernel took 0.1496 ms.  The tensor cores do not apply:
+// each scenario multiplies its own A by one vector, with no reuse across a
+// tile, and TF32 would change the numerics.
 //
-// Where A with the row stride m_pad + 1 does not fit one block's 232,448
-// bytes of shared memory (m_pad > 232), `jacobi_global_kernel` and
-// `block_jacobi_global_kernel` read A's rows from device memory on every
-// sweep instead (csrc/rows_global.cuh: tiles of 32 columns, a warp a row
-// segment, coalesced, double-buffered with cp.async), and keep only the
-// iterate, the row sums and the block inverses' rows in shared memory.
-// Each row is summed over j in increasing order as in the shared form, so
-// the two return the same bits on any m both take.  The caller picks the
-// form (`ops/pgs_kernel.py:jacobi_launch_plan`).  Reading A every sweep
-// makes these forms bound by 16 reads of A; their redesign is queued.
+// Three forms, one launch plan (`ops/pgs_kernel.py:jacobi_launch_plan`):
+//
+// - Resident (`jacobi_kernel`, `block_jacobi_kernel`), B6's design
+//   (csrc/jacobi_packed.cu) with B6c's inputs.  A persistent grid of
+//   `cudaOccupancyMaxActiveBlocksPerMultiprocessor` x SMs blocks, each
+//   walking the scenarios; one thread a row, T = mp rounded up to a warp.
+//   A scenario's m rows arrive in one stage of shared memory with row
+//   stride mp + 4 (csrc/jacobi_rows.cuh): by one 2D tensor TMA over A seen
+//   as (B m, m), a box of (mp + 4) x m, so the columns past m fall out of
+//   the tensor and arrive as zeros and the box stops at the scenario's
+//   last row; where m % 4 != 0 a row's stride is not a multiple of 16
+//   bytes, which a tensor map needs, and the threads copy the rows
+//   themselves with 4-byte `cp.async`, a warp a row, into the same layout
+//   (the zero columns written once).  diag is read from the stage; the
+//   rows, of up to 128 floats (mp <= 128), then move into registers
+//   (template RL = 32, 64, 96, 128) and the stage is refilled with the
+//   block's next scenario while this one sweeps.  A longer row would keep
+//   part of itself in the stage, and each of its products would cost a
+//   shared load of a_ij beside x_j's: a build of this form that did so
+//   took 0.3534 ms at m = 136 against 0.1461 at m = 128 with the row in
+//   registers, and 0.3876 ms at mp = 136 against 0.3140 for the cluster
+//   form (tools/jacobi_probe.py, H100 SXM at 700 W), so past 128 rows the
+//   cluster form takes over.  The iterate is double-buffered in shared
+//   memory, zero past m, read as float4 broadcasts: one barrier a sweep
+//   (two in the block form, whose 3-row residuals pass through shared
+//   memory).  The next scenario's b, lo, hi and flags are read ahead into
+//   registers.
+// - Cluster (`jacobi_cluster_kernel`, `block_jacobi_cluster_kernel`), B6b's
+//   design (csrc/jacobi_packed_stream.cu), past 128 rows.  One scenario's
+//   rows are split over a cluster of c <= 8 blocks, R rows each (the last
+//   block fewer), and read once; the block form splits at multiples of 3,
+//   so no 3-row block straddles two blocks.  Each block keeps the whole
+//   iterate; each sweep a row's new value goes to every block by
+//   `st.async`, completing on the receiving block's mbarrier, with no
+//   cluster barrier inside a scenario.  A row's first 128 columns are held
+//   in registers and the rest of a longer row is summed from the stage,
+//   which is refilled only after the sweeps.  The tensor map's box is R
+//   rows, so a last block of fewer rows takes its rows by one bulk copy a
+//   row instead: no block reads rows of the next scenario.  Rows wider than
+//   252 floats (past a tensor box's 256 columns) arrive by one bulk copy a
+//   row in every block.  Each row's sum is one chain of m dependent adds
+//   (the bits forbid splitting it), and one scenario's A fills an SM's
+//   shared memory at m = 240, so each SM has about 8 warps of rows to hide
+//   that chain with: the form runs at 3.1 to 3.8x its bytes bound there.
+// - Global rows (`jacobi_global_kernel`, `block_jacobi_global_kernel`),
+//   past what a cluster of 8 holds: one block a scenario reads A's rows
+//   from device memory every sweep (csrc/rows_global.cuh), bound by those
+//   16 reads.  It stays the reference for the other forms' bits.
+//
+// Every form sums each row over j in increasing order, one product and one
+// add at a time (--fmad=false), and updates it in the same expressions, so
+// the three return the same bits on any m they all take.
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "block3.cuh"
+#include "jacobi_rows.cuh"
 #include "rows_global.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+using namespace jacobi_rows;
+
+// How a stage is filled; the caller's launch plan names it.
+enum Copy : int {
+  kTensorMap = 0,  // one 2D tensor copy (m % 4 == 0, mp + 4 <= 256)
+  kBulkRows = 1,   // one bulk copy a row (m % 4 == 0)
+  kElements = 2,   // 4-byte cp.async by every thread
+};
 
 __device__ __forceinline__ float proj(float x, bool eq, float lo, float hi) {
   return eq ? x : fminf(fmaxf(x, lo), hi);
 }
 
-__global__ void jacobi_kernel(const float* __restrict__ A, const float* __restrict__ b,
-                              const uint8_t* __restrict__ is_eq,
-                              const float* __restrict__ lo, const float* __restrict__ hi,
-                              float* __restrict__ x_out, int m, int mp, int iters,
-                              float omega, float beta) {
-  extern __shared__ float smem[];
-  const int ld = mp + 1;
-  float* sA = smem;            // mp rows of stride ld
-  float* sx = smem + mp * ld;  // current iterate
-  const int64_t s = blockIdx.x;
-  const float* As = A + s * (int64_t)m * m;
-
-  for (int idx = threadIdx.x; idx < mp * mp; idx += blockDim.x) {
-    const int i = idx / mp, j = idx % mp;
-    float v;
-    if (i < m && j < m) v = As[i * m + j];
-    else v = (i == j) ? 1.f : 0.f;
-    sA[i * ld + j] = v;
-  }
-
-  const int i = threadIdx.x;
-  const bool row = i < mp;
-  const bool real = i < m;
-  const float bi = real ? b[s * m + i] : 0.f;
-  const bool eqi = real ? (is_eq[s * m + i] != 0) : true;
-  const float loi = real ? lo[s * m + i] : 0.f;
-  const float hii = real ? hi[s * m + i] : 0.f;
-  __syncthreads();
-
-  float diag = 1.f, inv_diag = 1.f, x = 0.f, xprev = 0.f;
-  if (row) {
-    diag = sA[i * ld + i];
-    inv_diag = 1.f / diag;
-    x = proj(bi, eqi, loi, hii);
-    xprev = x;
-    sx[i] = x;
-  }
-  __syncthreads();
-
-  for (int it = 0; it < iters; ++it) {
-    float xn = 0.f;
-    if (row) {
-      const float* a = sA + i * ld;
-      float ax = 0.f;
-      for (int j = 0; j < mp; ++j) ax = ax + a[j] * sx[j];
-      const float r = bi - ax + diag * x;
-      xn = proj((1.f - omega) * x + omega * r * inv_diag + beta * (x - xprev), eqi, loi, hii);
-    }
-    __syncthreads();
-    if (row) {
-      sx[i] = xn;
-      xprev = x;
-      x = xn;
-    }
-    __syncthreads();
-  }
-  if (real) x_out[s * m + i] = x;
-}
-
-__global__ void block_jacobi_kernel(const float* __restrict__ A, const float* __restrict__ b,
-                                    const uint8_t* __restrict__ is_eq,
-                                    const float* __restrict__ lo, const float* __restrict__ hi,
-                                    float* __restrict__ x_out, int m, int mp, int iters,
-                                    float omega) {
-  extern __shared__ float smem[];
-  const int ld = mp + 1;
-  float* sA = smem;            // mp rows of stride ld
-  float* sx = smem + mp * ld;  // current iterate
-  float* srv = sx + mp;        // b - A x of the sweep
-  const int64_t s = blockIdx.x;
-  const float* As = A + s * (int64_t)m * m;
-
-  for (int idx = threadIdx.x; idx < mp * mp; idx += blockDim.x) {
-    const int i = idx / mp, j = idx % mp;
-    float v;
-    if (i < m && j < m) v = As[i * m + j];
-    else v = (i == j) ? 1.f : 0.f;
-    sA[i * ld + j] = v;
-  }
-
-  const int i = threadIdx.x;
-  const int k = i / 3;
-  const bool row = i < mp;
-  const bool real = i < m;
-  const float bi = real ? b[s * m + i] : 0.f;
-  const bool eqi = real ? (is_eq[s * m + i] != 0) : true;
-  const float loi = real ? lo[s * m + i] : 0.f;
-  const float hii = real ? hi[s * m + i] : 0.f;
-  __syncthreads();
-
-  float inv_diag = 1.f, x = 0.f;
-  float bc[3] = {0.f, 0.f, 0.f};
-  if (row) {
-    inv_diag = 1.f / sA[i * ld + i];
-    x = proj(bi, eqi, loi, hii);
-    sx[i] = x;
-  }
-  if (real) block_inverse_row(sA, ld, k, i % 3, bc);
-  __syncthreads();
-
-  for (int it = 0; it < iters; ++it) {
-    float rv = 0.f;
-    if (row) {
-      const float* a = sA + i * ld;
-      float ax = 0.f;
-      for (int j = 0; j < mp; ++j) ax = ax + a[j] * sx[j];
-      rv = bi - ax;
-      srv[i] = rv;
-    }
-    __syncthreads();
-    if (row) {
-      const float y = real ? x + bc[0] * srv[3 * k] + bc[1] * srv[3 * k + 1] +
-                                 bc[2] * srv[3 * k + 2]
-                           : x + rv * inv_diag;
-      x = proj((1.f - omega) * x + omega * y, eqi, loi, hii);
-      sx[i] = x;
-    }
-    __syncthreads();
-  }
-  if (real) x_out[s * m + i] = x;
-}
-
-// Row i's b, lo, hi and equality flag; padding rows (i >= m) have b = 0 and
-// are equality rows.
+// Row i's b, lo, hi (an infinite hi read as 3.4e38) and equality flag;
+// padding rows (i >= m) have b = 0 and are equality rows.
 struct RowIn {
   float b, lo, hi;
   bool eq;
@@ -190,8 +119,309 @@ __device__ __forceinline__ RowIn row_in(const float* __restrict__ b,
                                         int64_t s, int m, int i) {
   if (i >= m) return {0.f, 0.f, 0.f, true};
   const int64_t r = s * m + i;
-  return {b[r], lo[r], hi[r], is_eq[r] != 0};
+  const float h = hi[r];
+  return {b[r], lo[r], isinf(h) ? kHiInf : h, is_eq[r] != 0};
 }
+
+// Zero columns m..ld-1 of the stage's `rows` rows, which the bulk and
+// element copies do not write.
+__device__ __forceinline__ void zero_pad_columns(float* stage, int rows, int m, int ld) {
+  const int w = ld - m;
+  for (int e = threadIdx.x; e < rows * w; e += blockDim.x) stage[(e / w) * ld + m + e % w] = 0.f;
+}
+
+// Start the copy of `nrows` rows of A, from row row0 of the (B m, m) view,
+// into the stage (row stride mp + 4).  Called by every thread.  A tensor
+// copy moves `box_rows` rows, the box the map was encoded with.
+__device__ __forceinline__ void fill_stage(int copy, float* stage, const CUtensorMap* tmap,
+                                           const float* __restrict__ A, int64_t row0, int nrows,
+                                           int box_rows, int m, int mp, uint64_t* bar) {
+  if (copy == kElements) {
+    const int ld = mp + 4, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+    for (int r = threadIdx.x / 32; r < nrows; r += nwarps) {
+      const float* src = A + (row0 + r) * m;
+      for (int j = lane; j < m; j += 32) __pipeline_memcpy_async(stage + r * ld + j, src + j, 4);
+    }
+    __pipeline_commit();
+    return;
+  }
+  if (threadIdx.x < 32)
+    load_rows(stage, copy == kTensorMap ? tmap : nullptr, A, row0,
+              copy == kTensorMap ? box_rows : nrows, mp, m, bar);
+}
+
+// Row i's A x: its first RL columns from registers, then, for rows longer
+// than 128 (RL = 128 only), the rest from the stage, summed on in
+// increasing j.
+template <int RL>
+__device__ __forceinline__ float row_dot(const RegRow<RL>& a, const float* row, const float* x,
+                                         int mp) {
+  float ax = a.dot(x);
+  if (RL == 128 && mp > RL) {
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+#pragma unroll 4
+    for (int c = RL / 4; c < mp / 4; ++c) {
+      const float4 v = r4[c];
+      const float4 w = x4[c];
+      ax = ax + v.x * w.x;
+      ax = ax + v.y * w.y;
+      ax = ax + v.z * w.z;
+      ax = ax + v.w * w.w;
+    }
+  }
+  return ax;
+}
+
+// Wait until the stage's copy has landed, for every thread of the block.
+__device__ __forceinline__ void wait_stage(int copy, uint64_t* bar, uint32_t parity) {
+  if (copy == kElements) {
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  } else {
+    mbar_wait(bar, parity);
+  }
+}
+
+// The resident form, mp <= RL.  Shared memory: the stage (m rows of stride
+// mp + 4, rounded up to 128 bytes), 16 bytes of mbarrier, two iterates of T
+// floats and the block form's residual, T floats.
+template <int RL, bool kBlock>
+__device__ __forceinline__ void resident_body(
+    const CUtensorMap* tmap, int copy, const float* __restrict__ A, const float* __restrict__ b,
+    const uint8_t* __restrict__ is_eq, const float* __restrict__ lo,
+    const float* __restrict__ hi, float* __restrict__ x_out, int64_t B, int m, int mp,
+    int iters, float omega, float beta) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int T = blockDim.x;
+  const int ld = mp + 4;
+  float* sA = reinterpret_cast<float*>(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + stage_bytes(m, mp));
+  float* sx = reinterpret_cast<float*>(bar + 2);  // 2 iterates of T floats
+  float* srv = sx + 2 * T;                        // block form: b - A x
+  const int i = threadIdx.x;
+  const bool row = i < m;
+  const int k = i / 3;
+
+  if (i == 0) {
+    mbar_init(bar, 1);
+    fence_mbar_init();
+  }
+  if (copy != kTensorMap) zero_pad_columns(sA, m, m, ld);
+  __syncthreads();
+  fill_stage(copy, sA, tmap, A, blockIdx.x * (int64_t)m, m, m, m, mp, bar);
+
+  uint32_t parity = 0;  // of the stage's phase this scenario waits for
+  RowIn ahead = row_in(b, is_eq, lo, hi, blockIdx.x, m, i);
+  for (int64_t s = blockIdx.x; s < B; s += gridDim.x, parity ^= 1u) {
+    const int64_t next = s + gridDim.x;
+    const RowIn in = ahead;
+    if (next < B) ahead = row_in(b, is_eq, lo, hi, next, m, i);
+    float x = row ? proj(in.b, in.eq, in.lo, in.hi) : 0.f;
+    float xprev = x;
+
+    wait_stage(copy, bar, parity);
+    const float d = row ? sA[i * ld + i] : 1.f, inv_d = 1.f / d;
+    RegRow<RL> a;
+    a.load(sA + (row ? i : 0) * ld, row ? mp : 0);
+    float bc[3] = {0.f, 0.f, 0.f};
+    if (kBlock && row) block_inverse_row(sA, ld, k, i % 3, bc);
+    sx[i] = x;  // 0 past m
+    __syncthreads();  // x0 visible; the stage is read
+    if (next < B) fill_stage(copy, sA, tmap, A, next * m, m, m, m, mp, bar);
+
+    for (int it = 0; it < iters; ++it) {
+      const float* xc = sx + (it & 1) * T;
+      float* xn_buf = sx + ((it + 1) & 1) * T;
+      float xn = 0.f, rv = 0.f;
+      if (row) {
+        rv = in.b - a.dot(xc);
+        if (!kBlock) xn = scalar_update(rv, x, xprev, d, inv_d, omega, beta, !in.eq, in.lo, in.hi);
+      }
+      if (kBlock) {
+        srv[i] = rv;
+        __syncthreads();
+        if (row) {
+          const float y = x + bc[0] * srv[3 * k] + bc[1] * srv[3 * k + 1] + bc[2] * srv[3 * k + 2];
+          xn = proj((1.f - omega) * x + omega * y, in.eq, in.lo, in.hi);
+        }
+      }
+      xn_buf[i] = xn;
+      if (row) {
+        xprev = x;
+        x = xn;
+      }
+      __syncthreads();
+    }
+    if (row) x_out[s * m + i] = x;
+  }
+}
+
+// The cluster form.  Block `rank` holds rows rank R .. rank R + nr - 1.
+// Shared memory: the stage (R rows of stride mp + 4, rounded up to 128
+// bytes), 32 bytes of mbarriers (the stage's, one an iterate buffer), two
+// iterates of X floats (X = mp rounded up to a warp) and the block form's
+// residual, T floats.  Rows 0..m-1 of an iterate are sent; the rest stays 0.
+template <int RL, bool kBlock>
+__device__ __forceinline__ void cluster_body(
+    const CUtensorMap* tmap, int copy, const float* __restrict__ A, const float* __restrict__ b,
+    const uint8_t* __restrict__ is_eq, const float* __restrict__ lo,
+    const float* __restrict__ hi, float* __restrict__ x_out, int64_t B, int m, int mp, int R,
+    int iters, float omega, float beta) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int X = ((mp + 31) / 32) * 32;
+  const int ld = mp + 4;
+  float* sA = reinterpret_cast<float*>(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + stage_bytes(R, mp));
+  uint64_t* xbars = bar + 1;
+  float* xfull = reinterpret_cast<float*>(bar + 4);  // 2 x X: the whole iterate
+  float* srv = xfull + 2 * X;                        // block form: b - A x of this block's rows
+  const int r0 = rank * R;
+  const int nr = min(R, m - r0);  // rows of this block (the plan leaves none empty)
+  const int li = threadIdx.x;     // local row
+  const int i = r0 + li;          // row of the scenario
+  const bool row = li < nr;
+  const int ri = row ? i : m;     // idle threads read nothing
+  const int lg = li - li % 3;     // block form: the local row of this row's 3-row block
+  const bool tail = RL == 128 && mp > RL;  // tails stay in the stage: refill after the sweeps
+  const int64_t q0 = blockIdx.x / c, nclusters = gridDim.x / c;
+  // a box of R rows would overrun a shorter last block into the next scenario
+  if (copy == kTensorMap && nr < R) copy = kBulkRows;
+
+  if (li == 0) {
+    mbar_init(bar, 1);
+    mbar_init(&xbars[0], 1);
+    mbar_init(&xbars[1], 1);
+    fence_mbar_init();
+  }
+  for (int j = li; j < 2 * X; j += blockDim.x) xfull[j] = 0.f;  // stays 0 past m
+  if (copy != kTensorMap) zero_pad_columns(sA, R, m, ld);
+  cluster.sync();  // every block runs and has its barriers before any store reaches it
+  fill_stage(copy, sA, tmap, A, q0 * m + r0, nr, R, m, mp, bar);
+
+  uint32_t parity = 0;  // bit b: parity of the phase buffer b's barrier is in
+  uint32_t stage_parity = 0;
+  RowIn ahead = row_in(b, is_eq, lo, hi, q0, m, ri);
+  for (int64_t s = q0; s < B; s += nclusters, stage_parity ^= 1u) {
+    const int64_t next = s + nclusters;
+    const RowIn in = ahead;
+    if (next < B) ahead = row_in(b, is_eq, lo, hi, next, m, ri);
+    float x = row ? proj(in.b, in.eq, in.lo, in.hi) : 0.f;
+    float xprev = x;
+
+    wait_stage(copy, bar, stage_parity);
+    const float d = row ? sA[li * ld + i] : 1.f, inv_d = 1.f / d;
+    RegRow<RL> a;
+    a.load(sA + (row ? li : 0) * ld, row ? mp : 0);
+    float bc[3] = {0.f, 0.f, 0.f};
+    if (kBlock && row) block_inverse_row(sA + lg * ld + (i - li % 3), ld, 0, li % 3, bc);
+    __syncthreads();  // the stage is read (rows of at most RL)
+    if (!tail && next < B) fill_stage(copy, sA, tmap, A, next * m + r0, nr, R, m, mp, bar);
+
+    // x_t goes to buffer t & 1 of every block; buffer b's barrier expects
+    // m * 4 bytes a phase, armed by thread 0 once the phase before is done.
+    // A buffer is written again two sweeps later, only by a block that has
+    // received all of the sweep between, which every thread of this block
+    // sends after it has read the buffer (and, in the block form, its
+    // residuals): the data flow keeps a write from overtaking a read.
+    if (iters > 0) {
+      if (li == 0) mbar_expect(&xbars[0], (uint32_t)m * 4u);
+      if (row)
+        for (int r = 0; r < c; ++r) send(cluster_addr(xfull + i, r), x, cluster_addr(&xbars[0], r));
+    }
+    for (int it = 0; it < iters; ++it) {
+      const int bb = it & 1;
+      mbar_wait(&xbars[bb], (parity >> bb) & 1u);
+      parity ^= 1u << bb;
+      const bool more = it + 1 < iters;
+      if (more && li == 0) mbar_expect(&xbars[bb ^ 1], (uint32_t)m * 4u);
+      float xn = 0.f, rv = 0.f;
+      if (row) {
+        const float* xc = xfull + bb * X;
+        const float ax = row_dot(a, sA + li * ld, xc, mp);
+        rv = in.b - ax;
+        if (!kBlock) xn = scalar_update(rv, x, xprev, d, inv_d, omega, beta, !in.eq, in.lo, in.hi);
+      }
+      if (kBlock) {
+        srv[li] = rv;
+        __syncthreads();
+        if (row) {
+          const float y =
+              x + bc[0] * srv[lg] + bc[1] * srv[lg + 1] + bc[2] * srv[lg + 2];
+          xn = proj((1.f - omega) * x + omega * y, in.eq, in.lo, in.hi);
+        }
+      }
+      if (row) {
+        if (more)
+          for (int r = 0; r < c; ++r)
+            send(cluster_addr(xfull + (bb ^ 1) * X + i, r), xn, cluster_addr(&xbars[bb ^ 1], r));
+        xprev = x;
+        x = xn;
+      }
+    }
+    if (row) x_out[s * m + i] = x;
+    cluster.sync();  // every block is done with this scenario's iterates and stage
+    if (tail && next < B) fill_stage(copy, sA, tmap, A, next * m + r0, nr, R, m, mp, bar);
+  }
+}
+
+// One signature for every on-chip form: R (rows a block) is read by the
+// cluster forms only, beta by the scalar forms only.  A resident block of
+// RL threads is held to 128 registers a thread up to RL = 64 (16 and 8
+// blocks an SM) and 170 at RL = 96 (4 blocks).
+#define RESIDENT_KERNEL(name, block)                                                          \
+  template <int RL>                                                                           \
+  __global__ void __launch_bounds__(RL, RL == 32 ? 16 : RL == 64 ? 8 : RL == 96 ? 4 : 1)      \
+      name(                                                                                   \
+      const __grid_constant__ CUtensorMap tmap, int copy, const float* __restrict__ A,        \
+      const float* __restrict__ b, const uint8_t* __restrict__ is_eq,                         \
+      const float* __restrict__ lo, const float* __restrict__ hi, float* __restrict__ x_out,  \
+      int64_t B, int m, int mp, int R, int iters, float omega, float beta) {                  \
+    resident_body<RL, block>(&tmap, copy, A, b, is_eq, lo, hi, x_out, B, m, mp, iters, omega, \
+                             beta);                                                           \
+  }
+
+#define CLUSTER_KERNEL(name, block)                                                            \
+  template <int RL>                                                                            \
+  __global__ void __launch_bounds__(96, 1) name(                                               \
+      const __grid_constant__ CUtensorMap tmap, int copy, const float* __restrict__ A,         \
+      const float* __restrict__ b, const uint8_t* __restrict__ is_eq,                          \
+      const float* __restrict__ lo, const float* __restrict__ hi, float* __restrict__ x_out,   \
+      int64_t B, int m, int mp, int R, int iters, float omega, float beta) {                   \
+    cluster_body<RL, block>(&tmap, copy, A, b, is_eq, lo, hi, x_out, B, m, mp, R, iters, omega, \
+                            beta);                                                             \
+  }
+
+RESIDENT_KERNEL(jacobi_kernel, false)
+RESIDENT_KERNEL(block_jacobi_kernel, true)
+CLUSTER_KERNEL(jacobi_cluster_kernel, false)
+CLUSTER_KERNEL(block_jacobi_cluster_kernel, true)
+
+typedef void (*OnChipKernel)(const CUtensorMap, int, const float*, const float*, const uint8_t*,
+                             const float*, const float*, float*, int64_t, int, int, int, int,
+                             float, float);
+
+// `name##_for(rl)`: the instantiation that holds `rl` columns of a row in
+// registers (128: the first 128 of a longer row), or null for a length
+// that is not instantiated.
+#define FORM_TABLE(name)                    \
+  OnChipKernel name##_for(int rl) {         \
+    switch (rl) {                           \
+      case 32: return name<32>;             \
+      case 64: return name<64>;             \
+      case 96: return name<96>;             \
+      case 128: return name<128>;           \
+      default: return nullptr;              \
+    }                                       \
+  }
+
+FORM_TABLE(jacobi_kernel)
+FORM_TABLE(block_jacobi_kernel)
+FORM_TABLE(jacobi_cluster_kernel)
+FORM_TABLE(block_jacobi_cluster_kernel)
 
 // A_ii of the padded matrix.
 __device__ __forceinline__ float diag_of(const rows_global::Rows& a, int i) {
@@ -283,59 +513,134 @@ __global__ void block_jacobi_global_kernel(const float* __restrict__ A,
   for (int i = threadIdx.x; i < m; i += T) x_out[s * m + i] = sx[i];
 }
 
-}  // namespace
+enum Route : int { kResident = 0, kCluster = 1, kGlobalRows = 2 };
 
-// Shared memory of the shared form: A with the row stride mp + 1, the
-// iterate and the block form's residual.
-static size_t shared_form_bytes(int mp) { return (size_t)(mp * (mp + 1) + 2 * mp) * sizeof(float); }
+int warps(int n) { return ((n + 31) / 32) * 32; }
 
-// Shared memory of the global-rows forms with `threads` threads: the
-// tiles and `vectors` floats a row.
-static size_t global_form_bytes(int mp, int threads, int vectors) {
-  return (size_t)(rows_global::tile_floats(threads) + vectors * mp) * sizeof(float);
+// Whether `copy` can fill a stage of rows of m floats from A.
+bool copy_ok(int copy, const float* A, int m, int mp) {
+  if (copy == kElements) return true;
+  if (copy != kTensorMap && copy != kBulkRows) return false;
+  if (m % 4 != 0 || reinterpret_cast<uintptr_t>(A) % 16 != 0) return false;
+  return copy == kBulkRows || mp + 4 <= 256;  // a tensor copy's box is at most 256 wide
 }
 
-// Launch `shared_kernel` with one thread a row and A in shared memory, or,
-// with `global_rows`, `global_kernel` with `threads` threads and `vectors`
-// floats a row of shared memory; both as the caller's launch plan says
-// (`ops/pgs_kernel.py:jacobi_launch_plan`).
-template <typename Kernel, typename... Args>
-static int launch_form(Kernel shared_kernel, Kernel global_kernel, int global_rows, int threads,
-                       int vectors, int64_t B, int mp, void* stream, Args... args) {
-  Kernel kernel = global_rows ? global_kernel : shared_kernel;
-  size_t smem;
-  if (global_rows) {
+// Launch one form as the caller's launch plan says
+// (`ops/pgs_kernel.py:jacobi_launch_plan`): `route`, `copy`, `rl` (columns
+// of a row in registers: mp rounded up to a warp, at most 128), `cluster` blocks of
+// `rows` rows (cluster route) and `threads` (global-rows route).  A plan
+// this file does not take is refused.
+int launch(bool block, const float* A, const float* b, const uint8_t* is_eq, const float* lo,
+           const float* hi, float* x, int64_t B, int m, int mp, int iters, float omega,
+           float beta, int route, int copy, int rl, int cluster, int rows, int threads,
+           void* stream) {
+  if (B <= 0 || m <= 0) return 0;
+  if (mp != (m + 7) / 8 * 8) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (route == kGlobalRows) {
     if (threads < 32 || threads > 1024 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
-    smem = global_form_bytes(mp, threads, vectors);
-  } else {
-    threads = ((mp + 31) / 32) * 32;
-    smem = shared_form_bytes(mp);
-  }
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+    const size_t smem = (size_t)(rows_global::tile_floats(threads) + (block ? 5 : 3) * mp) * 4;
+    const void* kernel = block ? (const void*)block_jacobi_global_kernel
+                               : (const void*)jacobi_global_kernel;
+    e = allow_shared(kernel, smem);
     if (e != cudaSuccess) return (int)e;
+    if (block)
+      block_jacobi_global_kernel<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
+          A, b, is_eq, lo, hi, x, m, mp, iters, omega);
+    else
+      jacobi_global_kernel<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
+          A, b, is_eq, lo, hi, x, m, mp, iters, omega, beta);
+    return (int)cudaGetLastError();
   }
-  kernel<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(args...);
+  if (!copy_ok(copy, A, m, mp)) return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * m > INT32_MAX) return (int)cudaErrorInvalidValue;  // a box's row coordinate
+  const int X = warps(mp);
+  if (rl != (X < 128 ? X : 128)) return (int)cudaErrorInvalidValue;
+  int err = 0;
+  const int sms = sm_count(&err);
+  if (err != 0) return err;
+
+  if (route == kResident) {
+    const OnChipKernel kernel = block ? block_jacobi_kernel_for(rl) : jacobi_kernel_for(rl);
+    if (kernel == nullptr || X != rl) return (int)cudaErrorInvalidValue;  // rows in registers
+    const size_t smem = stage_bytes(m, mp) + 16 + 4 * (size_t)(block ? 3 : 2) * X;
+    e = allow_shared((const void*)kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, X, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const int64_t grid = B < (int64_t)per_sm * sms ? B : (int64_t)per_sm * sms;
+    CUtensorMap tmap = {};
+    if (copy == kTensorMap) {
+      const int enc = encode_rows_map(&tmap, A, B * m, m, mp, m);
+      if (enc != 0) return enc;
+    }
+    kernel<<<(unsigned)grid, X, smem, (cudaStream_t)stream>>>(tmap, copy, A, b, is_eq, lo, hi, x,
+                                                              B, m, mp, m, iters, omega, beta);
+    return (int)cudaGetLastError();
+  }
+  if (route != kCluster) return (int)cudaErrorInvalidValue;
+  const OnChipKernel kernel =
+      block ? block_jacobi_cluster_kernel_for(rl) : jacobi_cluster_kernel_for(rl);
+  // every block holds at least one row, and no 3-row block straddles two
+  if (kernel == nullptr || cluster < 1 || cluster > 8 || rows < 1 ||
+      (int64_t)rows * cluster < m || (int64_t)rows * (cluster - 1) >= m || (block && rows % 3))
+    return (int)cudaErrorInvalidValue;
+  const int T = warps(rows);
+  if (T > 96) return (int)cudaErrorInvalidValue;  // the kernels' launch bounds
+  const size_t smem = stage_bytes(rows, mp) + 32 + 4 * ((size_t)2 * X + (block ? T : 0));
+  e = allow_shared((const void*)kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster);
+  cfg.blockDim = dim3((unsigned)T);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  const int64_t n = B < clusters ? B : clusters;
+  cfg.gridDim = dim3((unsigned)(n * cluster));
+  CUtensorMap tmap = {};
+  if (copy == kTensorMap) {
+    const int enc = encode_rows_map(&tmap, A, B * m, m, mp, rows);
+    if (enc != 0) return enc;
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel, tmap, copy, A, b, is_eq, lo, hi, x, B, m, mp, rows, iters,
+                         omega, beta);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
 extern "C" int eggshell_jacobi_f32(const float* A, const float* b, const uint8_t* is_eq,
-                                   const float* lo, const float* hi, float* x,
-                                   int64_t B, int m, int mp, int iters, float omega,
-                                   float beta, int global_rows, int threads, void* stream) {
-  if (B <= 0 || m <= 0) return 0;
-  return launch_form(jacobi_kernel, jacobi_global_kernel, global_rows, threads, 3, B, mp, stream,
-                     A, b, is_eq, lo, hi, x, m, mp, iters, omega, beta);
+                                   const float* lo, const float* hi, float* x, int64_t B, int m,
+                                   int mp, int iters, float omega, float beta, int route,
+                                   int copy, int rl, int cluster, int rows, int threads,
+                                   void* stream) {
+  return launch(false, A, b, is_eq, lo, hi, x, B, m, mp, iters, omega, beta, route, copy, rl,
+                cluster, rows, threads, stream);
 }
 
 extern "C" int eggshell_jacobi_block_f32(const float* A, const float* b, const uint8_t* is_eq,
                                          const float* lo, const float* hi, float* x, int64_t B,
-                                         int m, int mp, int iters, float omega, int global_rows,
-                                         int threads, void* stream) {
-  if (B <= 0 || m <= 0) return 0;
-  return launch_form(block_jacobi_kernel, block_jacobi_global_kernel, global_rows, threads, 5, B,
-                     mp, stream, A, b, is_eq, lo, hi, x, m, mp, iters, omega);
+                                         int m, int mp, int iters, float omega, int route,
+                                         int copy, int rl, int cluster, int rows, int threads,
+                                         void* stream) {
+  if (m % 3 != 0) return (int)cudaErrorInvalidValue;
+  return launch(true, A, b, is_eq, lo, hi, x, B, m, mp, iters, omega, 0.f, route, copy, rl,
+                cluster, rows, threads, stream);
 }
 
 extern "C" const char* eggshell_cuda_error_string(int code) {

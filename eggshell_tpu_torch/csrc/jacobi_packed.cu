@@ -102,7 +102,7 @@ __device__ __forceinline__ void jacobi_packed_body(
     fence_mbar_init();
   }
   __syncthreads();
-  if (i < 32) load_rows(sA, tmap, A, blockIdx.x * (int64_t)mp, mp, mp, bar);
+  if (i < 32) load_rows(sA, tmap, A, blockIdx.x * (int64_t)mp, mp, mp, mp, bar);
 
   uint32_t parity = 0;  // of the stage's phase this scenario waits for
   RowInputs ahead = row_inputs(rhs, diag, act, eq, blockIdx.x, K, mp, i);
@@ -126,7 +126,7 @@ __device__ __forceinline__ void jacobi_packed_body(
     if (kBlock && real) block_inverse_row(sA, ld, k, i % 3, bc);
     sx[i] = x;  // 0 past mp
     __syncthreads();  // x0 visible; the stage is read (register rows)
-    if (RL > 0 && i < 32 && next < B) load_rows(sA, tmap, A, next * mp, mp, mp, bar);
+    if (RL > 0 && i < 32 && next < B) load_rows(sA, tmap, A, next * mp, mp, mp, mp, bar);
 
     for (int it = 0; it < iters; ++it) {
       const float* xc = sx + (it & 1) * T;
@@ -163,7 +163,7 @@ __device__ __forceinline__ void jacobi_packed_body(
     if (row) x_out[s * mp + i] = x;
     if (RL == 0) {
       __syncthreads();  // the stage's rows are read (also with no sweep)
-      if (i < 32 && next < B) load_rows(sA, tmap, A, next * mp, mp, mp, bar);
+      if (i < 32 && next < B) load_rows(sA, tmap, A, next * mp, mp, mp, mp, bar);
     }
   }
 }
@@ -229,7 +229,7 @@ int launch(PackedKernel kernel, bool block, const float* A, const float* diag, c
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int64_t grid = B < (int64_t)per_sm * sms ? B : (int64_t)per_sm * sms;
   CUtensorMap tmap;
-  const int enc = encode_rows_map(&tmap, A, B * mp, mp, mp);
+  const int enc = encode_rows_map(&tmap, A, B * mp, mp, mp, mp);
   if (enc != 0) return enc;
   kernel<<<(unsigned)grid, T, smem, (cudaStream_t)stream>>>(
       tmap, A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, pyramid_mu);

@@ -79,22 +79,6 @@ namespace {
 
 using namespace jacobi_rows;
 
-// The shared::cluster address of `p` in block `rank` of the cluster.
-__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
-  return out;
-}
-
-// Store `v` at `addr` (shared::cluster) and count its 4 bytes on the
-// mbarrier at `bar` of the same block.
-__device__ __forceinline__ void send(uint32_t addr, float v, uint32_t bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];" ::"r"(
-                   addr),
-               "f"(v), "r"(bar)
-               : "memory");
-}
-
 // Rows of 96 in registers (mp 72..96, 36..48 rows a block of 64 threads)
 // are held to 170 registers, so that 6 blocks fit an SM (175 registers left
 // 5): each sweep waits for the other blocks' stores, and more blocks hide
@@ -133,7 +117,7 @@ __global__ void __launch_bounds__(RL == 0 ? 96 : 64, RL == 96 ? 6 : 1)
   }
   for (int j = li; j < 2 * X; j += blockDim.x) xfull[j] = 0.f;  // stays 0 past mp
   cluster.sync();  // every block runs and has its barriers before any store reaches it
-  if (li < 32) load_rows(sA, map, A, q0 * mp + rank * R, R, mp, bar);
+  if (li < 32) load_rows(sA, map, A, q0 * mp + rank * R, R, mp, mp, bar);
 
   uint32_t parity = 0;  // bit b: parity of the phase buffer b's barrier is in
   uint32_t stage_parity = 0;
@@ -153,7 +137,8 @@ __global__ void __launch_bounds__(RL == 0 ? 96 : 64, RL == 96 ? 6 : 1)
     RegRow<(RL > 0 ? RL : 4)> a;
     if (RL > 0) a.load(sA + (row ? li : 0) * ld, row ? mp : 0);
     __syncthreads();  // the stage is read (register rows)
-    if (RL > 0 && li < 32 && next < B) load_rows(sA, map, A, next * mp + rank * R, R, mp, bar);
+    if (RL > 0 && li < 32 && next < B)
+      load_rows(sA, map, A, next * mp + rank * R, R, mp, mp, bar);
 
     // x_t goes to buffer t & 1 of every block; buffer b's barrier expects
     // mp * 4 bytes a phase, armed by thread 0 once the phase before is done.
@@ -183,7 +168,8 @@ __global__ void __launch_bounds__(RL == 0 ? 96 : 64, RL == 96 ? 6 : 1)
     }
     if (row) x_out[s * mp + i] = x;
     cluster.sync();  // every block is done with this scenario's iterates and stage
-    if (RL == 0 && li < 32 && next < B) load_rows(sA, map, A, next * mp + rank * R, R, mp, bar);
+    if (RL == 0 && li < 32 && next < B)
+      load_rows(sA, map, A, next * mp + rank * R, R, mp, mp, bar);
   }
 }
 
@@ -285,7 +271,7 @@ extern "C" int eggshell_jacobi_packed_stream_f32(const float* A, const float* di
   CUtensorMap tmap = {};
   const bool use_tmap = mp + 4 <= 256;  // a tensor copy's box is at most 256 wide
   if (use_tmap) {
-    const int enc = encode_rows_map(&tmap, A, B * mp, mp, R);
+    const int enc = encode_rows_map(&tmap, A, B * mp, mp, mp, R);
     if (enc != 0) return enc;
   }
   e = cudaLaunchKernelEx(&cfg, kernel, tmap, use_tmap, A, diag, rhs, act, eq, x, B, K, mp, iters,

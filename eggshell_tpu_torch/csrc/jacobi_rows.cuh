@@ -1,9 +1,11 @@
 // What the packed Jacobi kernels B6 (csrc/jacobi_packed.cu) and B6b
 // (csrc/jacobi_packed_stream.cu) share: the TMA copy of a scenario's rows of
 // A into a ring stage of shared memory, a row of A held in registers, the
-// row sums of A x, and the lane bounds and the heavy-ball update of a row.
-// B6b must return the bits of B6's scalar form, so both compute a row
-// through these functions alone.
+// row sums of A x, the lane bounds and the heavy-ball update of a row, and
+// the cluster's stores of the iterate.  B6b must return the bits of B6's
+// scalar form, so both compute a row through these functions alone.  The
+// unfused solves B6c and B6c' (csrc/jacobi.cu) take the copy, the register
+// row, the update and the stores from here too.
 //
 // Row layout in a ring stage: row r of the copy at r * ld floats, ld = mp + 4,
 // columns mp..mp+3 zero.  The copy is one 2D tensor TMA a stage: a box of
@@ -68,16 +70,34 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// Load `nrows` rows of A from row `row0` of the (B mp, mp) view into `dst`
-// (row stride ld = mp + 4, zero past mp), completing on `bar`.  Called by
-// every thread of warp 0.  With a tensor map, lane 0 issues one 2D tensor
-// copy of (mp + 4) x nrows; without, the lanes issue one bulk copy a row.
-// The stage was last read through ordinary loads, before a barrier of the
-// whole block; the proxy fence orders those reads before the asynchronous
-// writes.
+// The shared::cluster address of `p` in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// Store `v` at `addr` (shared::cluster) and count its 4 bytes on the
+// mbarrier at `bar` of the same block (the cluster kernels' iterate).
+__device__ __forceinline__ void send(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];" ::"r"(
+                   addr),
+               "f"(v), "r"(bar)
+               : "memory");
+}
+
+// Load `nrows` rows of A from row `row0` of the (rows, lda) view into `dst`
+// (row stride ld = mp + 4, zero past lda), completing on `bar`.  lda is mp
+// for the packed solves' A and m for the unfused solves' (B6c, B6c').
+// Called by every thread of warp 0.  With a tensor map (`encode_rows_map`),
+// lane 0 issues one 2D tensor copy of (mp + 4) x nrows; without, the lanes
+// issue one bulk copy a row of lda floats (lda % 4 == 0), and the columns
+// lda..ld-1 of `dst` must already be zero.  The stage was last read
+// through ordinary loads, before a barrier of the whole block; the proxy
+// fence orders those reads before the asynchronous writes.
 __device__ __forceinline__ void load_rows(float* dst, const CUtensorMap* tmap,
                                           const float* __restrict__ A, int64_t row0, int nrows,
-                                          int mp, uint64_t* bar) {
+                                          int mp, int lda, uint64_t* bar) {
   const int lane = threadIdx.x;
   const int ld = mp + 4;
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -92,14 +112,14 @@ __device__ __forceinline__ void load_rows(float* dst, const CUtensorMap* tmap,
     }
     return;
   }
-  const uint32_t row_bytes = (uint32_t)mp * 4u;
+  const uint32_t row_bytes = (uint32_t)lda * 4u;
   if (lane == 0) mbar_expect(bar, row_bytes * (uint32_t)nrows);
   __syncwarp();
   for (int r = lane; r < nrows; r += 32) {
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
             "r"(smem_u32(dst + (int64_t)r * ld)),
-        "l"(A + (row0 + r) * mp), "r"(row_bytes), "r"(smem_u32(bar))
+        "l"(A + (row0 + r) * lda), "r"(row_bytes), "r"(smem_u32(bar))
         : "memory");
   }
 }
@@ -224,11 +244,13 @@ inline int sm_count(int* err) {
   return cached[dev];
 }
 
-// The tensor map of A seen as (rows, mp) floats, read in boxes of
-// (mp + 4) x box_rows (columns past mp come back as zeros), for
-// `load_rows`.  The encoder lives in libcuda; the runtime hands it over by
-// name, so the library needs no link to libcuda.  Returns 0 or a cudaError_t.
-inline int encode_rows_map(CUtensorMap* map, const float* A, int64_t rows, int mp, int box_rows) {
+// The tensor map of A seen as (rows, cols) floats, read in boxes of
+// (mp + 4) x box_rows (columns past cols come back as zeros), for
+// `load_rows`; cols % 4 == 0 (a row's stride is a multiple of 16 bytes).
+// The encoder lives in libcuda; the runtime hands it over by name, so the
+// library needs no link to libcuda.  Returns 0 or a cudaError_t.
+inline int encode_rows_map(CUtensorMap* map, const float* A, int64_t rows, int cols, int mp,
+                           int box_rows) {
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -249,8 +271,8 @@ inline int encode_rows_map(CUtensorMap* map, const float* A, int64_t rows, int m
       return (int)cudaErrorSymbolNotFound;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)mp, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)mp * 4};
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
   const cuuint32_t box[2] = {(cuuint32_t)(mp + 4), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(A), dims,

@@ -49,10 +49,12 @@ _SIGNATURES = {
     # p, q, hs, gen, pp_pos, pp_nrm, pp_dep, pp_act, pair_i, pair_j, b0, b1, pos, nrm, dep, act,
     # B, n, P, K, eps2, cap, stream
     "eggshell_compact_f32": [_P] * 16 + [_I64, _I, _I, _I, _F, _F, _P],
-    # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, beta, global_rows, threads, stream
-    "eggshell_jacobi_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _I, _I, _P],
-    # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, global_rows, threads, stream
-    "eggshell_jacobi_block_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _I, _I, _P],
+    # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, beta, route, copy, reg_rows, cluster,
+    # rows, threads, stream
+    "eggshell_jacobi_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F] + [_I] * 6 + [_P],
+    # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, route, copy, reg_rows, cluster, rows,
+    # threads, stream
+    "eggshell_jacobi_block_f32": [_P] * 6 + [_I64, _I, _I, _I, _F] + [_I] * 6 + [_P],
     # q, v, w, ext, inv_mass, Ib, invIb, uhat, invIg, F, B, n, inv_dt, gx, gy, gz, stream
     "eggshell_prep_f32": [_P] * 10 + [_I64, _I, _F, _F, _F, _F, _P],
     # b0, b1, pos, pos1, nrm, dep, act, eq, p, uhat, Jc, rhs, B, K, n, erp_dt2, stream

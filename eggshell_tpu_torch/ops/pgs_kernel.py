@@ -3,31 +3,35 @@ their wrappers.
 
 - `solve_lcp_jacobi`: counterpart of
   `eggshell_tpu.ops.pgs_kernel.solve_lcp_jacobi_pallas`, with bounds given
-  per row.  Scalar heavy-ball sweeps (B6c), kernel `csrc/jacobi.cu`
-  `jacobi_kernel`; with `block=True`, `solve_lcp_jacobi_block` (B6c'):
-  exact 3x3 block-Jacobi, kernel `block_jacobi_kernel` of the same file.
+  per row.  Scalar heavy-ball sweeps (B6c); with `block=True`,
+  `solve_lcp_jacobi_block` (B6c'): exact 3x3 block-Jacobi.  Both in
+  `csrc/jacobi.cu`, in the form `jacobi_launch_plan` names: resident (one
+  block a scenario's A, rows in registers behind a TMA stage, on a
+  persistent grid: `jacobi_kernel`, `block_jacobi_kernel`), cluster (A's
+  rows split over a thread-block cluster, read once:
+  `jacobi_cluster_kernel`, `block_jacobi_cluster_kernel`) or, past what a
+  cluster holds, global rows (read from device memory every sweep:
+  `jacobi_global_kernel`, `block_jacobi_global_kernel`).  All three return
+  the same bits.
 - `solve_lcp_jacobi_packed`: counterpart of
   `eggshell_tpu.ops.pgs_kernel.solve_lcp_jacobi_packed`, the fused chain's
-  solve, with box or Coulomb-pyramid bounds built from the lane masks.  It
-  takes the JAX package's resident/streamed switch (`stream`, see
-  `streams_a`).  Resident (B6), `csrc/jacobi_packed.cu`, A read once by TMA
-  and each thread's row held in registers: scalar sweeps with box bounds
+  solve, with box or Coulomb-pyramid bounds built from the lane masks.
+  Resident (B6), `csrc/jacobi_packed.cu`, A read once by TMA and each
+  thread's row held in registers: scalar sweeps with box bounds
   (`jacobi_packed_kernel`), scalar sweeps with pyramid bounds
   (`solve_lcp_jacobi_packed_pyramid`, `jacobi_packed_pyramid_kernel`) or
   3x3 block sweeps with either (`solve_lcp_jacobi_packed_block`,
   `jacobi_packed_block_kernel` and `jacobi_packed_block_pyramid_kernel`).
-  "Streamed" (B6b, scalar sweeps with box bounds only):
-  `solve_lcp_jacobi_packed_stream`, kernel `csrc/jacobi_packed_stream.cu`,
-  which holds one scenario's A across a thread-block cluster, read once,
-  and returns the resident kernel's bits; where a cluster of 8 cannot
-  hold its rows (mp > 664), it reads them from device memory every sweep
-  (`jacobi_packed_rows_kernel`), with the same bits.  `packed_launch_plan`
-  picks how both run at a given row count.
-
-B6c and B6c' hold one scenario's A in a block's shared memory up to
-m = 232 rows and read its rows from device memory every sweep above
-(`jacobi_global_kernel`, `block_jacobi_global_kernel`), with the same
-bits; `jacobi_launch_plan` picks the form.
+  Cluster (B6b, scalar sweeps with box bounds only; the JAX package's
+  "streamed" solve): `solve_lcp_jacobi_packed_stream`, kernel
+  `csrc/jacobi_packed_stream.cu`, which holds one scenario's A across a
+  thread-block cluster, read once, and returns the resident kernel's bits;
+  where a cluster of 8 cannot hold its rows (mp > 664), it reads them from
+  device memory every sweep (`jacobi_packed_rows_kernel`), with the same
+  bits.  `packed_launch_plan` picks how both run at a given row count and
+  `packed_streams` which of the two the solve takes: the crossing measured
+  on the card.  What the solve refuses follows the JAX package's rule
+  (`streams_a`).
 
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 its plain version.  A CUDA input that the kernel does not take raises;
@@ -48,16 +52,37 @@ from eggshell_tpu_torch.ops.amat_kernel import MAX_SHARED_BYTES, ROW_BLOCK, padd
 HI_INF = 3.4e38
 # The JAX package's switch to the streamed solve (`pgs_kernel.py:343`,
 # `:523-524`): the double-buffered A of 128 scenarios over 5 MiB of TPU
-# VMEM, i.e. mp >= 72 (K >= 22 lanes, joints counted).  It is a TPU budget,
-# kept so that the port takes the streamed kernel on the same
-# configurations; the card's own switch is ROADMAP work.
+# VMEM, i.e. mp >= 72 (K >= 22 lanes, joints counted).  It is a TPU budget:
+# the port keeps it only for what the solve refuses (block sweeps and
+# pyramid bounds where the JAX package streams), and takes B6 or B6b by
+# the crossing measured on the card (`packed_streams`).
 _TPU_LANES = 128
 _VMEM_A_BUDGET = 5 * 1024 * 1024
 
 
 def streams_a(mp: int) -> bool:
-    """Whether `solve_lcp_jacobi_packed(stream=None)` streams A for mp rows."""
+    """Whether the JAX package's `solve_lcp_jacobi_packed` streams A for mp
+    rows: where it does, the port refuses block sweeps and pyramid bounds."""
     return mp * mp * _TPU_LANES * 4 * 2 > _VMEM_A_BUDGET
+
+
+# The largest mp at which the resident B6 beats the cluster B6b (0.4165
+# against 0.5744 ms at mp = 160, 0.7625 against 0.5343 at 168, where B6's
+# stage leaves one block an SM), and the largest mp (m rounded up to 8) at
+# which B6c / B6c' take their resident form: a row of up to 128 floats in
+# registers.  Past that the cluster form holds them (B6c 0.3140 ms against
+# 0.3876 for a resident form with rows longer than 128 at mp = 136;
+# tools/jacobi_packed_probe.py, tools/jacobi_probe.py, B = 4096, on an
+# H100 SXM at 700 W; PERF.md section 6).
+PACKED_RESIDENT_MAX_MP = 160
+JACOBI_RESIDENT_MAX_MP = 128
+
+
+def packed_streams(mp: int) -> bool:
+    """Whether `solve_lcp_jacobi_packed(stream=None)` takes B6b (the
+    cluster, "streamed" in the JAX package's words) for mp rows: past the
+    measured crossing, or where B6 does not fit one block."""
+    return mp > PACKED_RESIDENT_MAX_MP or packed_launch_plan(mp).resident is None
 
 
 # Row lengths for which the packed kernels hold a row of A in registers
@@ -165,34 +190,109 @@ def packed_launch_plan(mp: int) -> PackedPlan:
     return PackedPlan(resident, ClusterPlan(c, R, _warps(R), reg_rows, need), None)
 
 
-def _shared_bytes(mp: int) -> int:
-    """Shared memory of one scenario's block of `csrc/jacobi.cu`'s shared
-    form: A with a row stride of mp + 1 floats, the iterate and the block
-    sweeps' residual."""
-    return (mp * (mp + 1) + 2 * mp) * 4
-
-
 class JacobiPlan(NamedTuple):
-    """How B6c and B6c' (`csrc/jacobi.cu`) run at m rows: `route` "shared"
-    (A in one block's shared memory, one thread a row) or "global rows"
-    (`rows`, A's rows read from device memory every sweep)."""
+    """How B6c and B6c' (`csrc/jacobi.cu`) run at m rows (mp = m rounded up
+    to 8): `route` "resident" (one block a scenario), "cluster" (`cluster`
+    blocks a scenario of at most `rows` rows each) or "global rows" (A's
+    rows read from device memory every sweep); `copy`, how an on-chip
+    route fills its stage: "tensor map" (one TMA copy, m % 4 == 0 and
+    mp + 4 <= 256), "bulk rows" (one bulk copy a row, m % 4 == 0) or
+    "element loads" (4-byte `cp.async` by every thread); `reg_rows`, the
+    columns of a row held in registers (mp rounded up to a warp, at most
+    128: a cluster form's longer row has its tail read from the stage; 0
+    for global rows);
+    `threads` a block and `shared_bytes` of dynamic shared memory."""
     route: str
     mp: int
-    rows: RowsPlan | None
+    copy: str
+    reg_rows: int
+    cluster: int
+    rows: int
+    threads: int
+    shared_bytes: int
+
+
+# The C entries' codes of a route and a copy, and the cluster kernels'
+# launch bound (`csrc/jacobi.cu`).
+JACOBI_ROUTES = {"resident": 0, "cluster": 1, "global rows": 2}
+JACOBI_COPIES = {"tensor map": 0, "bulk rows": 1, "element loads": 2}
+CLUSTER_MAX_THREADS = 96
+# A tensor copy's box is at most 256 floats wide; the stage's rows are mp + 4.
+_BOX_COLS = 256
+
+
+def jacobi_copy(m: int) -> str:
+    """How an on-chip form of B6c / B6c' fills its stage at m rows: a tensor
+    map needs a row stride that is a multiple of 16 bytes and a box of at
+    most 256 columns."""
+    if m % 4:
+        return "element loads"
+    return "tensor map" if round_rows(m) + 4 <= _BOX_COLS else "bulk rows"
+
+
+def jacobi_resident_plan(m: int, block: bool = False) -> JacobiPlan | None:
+    """The resident form at m rows, or None past JACOBI_RESIDENT_MAX_MP,
+    where a row no longer fits registers.  Shared memory: the stage (m rows
+    of stride mp + 4), an mbarrier, two iterates and the block form's
+    residual."""
+    mp = round_rows(m)
+    if mp > JACOBI_RESIDENT_MAX_MP:
+        return None
+    T = _warps(mp)
+    need = _stage_shared_bytes(m, mp, 16, (3 if block else 2) * T)
+    return JacobiPlan("resident", mp, jacobi_copy(m), T, 1, m, T, need)
+
+
+def _register_columns(mp: int) -> int:
+    """Columns of a row B6c and B6c' hold in registers at mp rows."""
+    return min(_warps(mp), max(REGISTER_ROW_LENGTHS))
+
+
+def jacobi_cluster_rows(m: int, c: int, block: bool) -> int:
+    """Rows a block of a c-block cluster holds: m / c rounded up, to a
+    multiple of 3 in the block form, so that no 3-row block straddles two
+    blocks (the last block holds fewer)."""
+    g = 3 if block else 1
+    return g * -(-m // (g * c))
+
+
+def jacobi_cluster_plan(m: int, block: bool = False, c: int | None = None) -> JacobiPlan | None:
+    """The cluster form at m rows, or None where c blocks cannot hold them:
+    every block needs at least one row, at most 96 threads, and its stage,
+    three mbarriers, two whole iterates and the block form's residual.  By
+    default c is the size from 2 to 8 that leaves the fewest idle threads
+    over the cluster (c T - m), and of those the largest: the fastest size
+    at every m measured (m = 192, 240 and 480, both forms;
+    tools/jacobi_probe.py, H100 SXM at 700 W)."""
+    if c is None:
+        fits = [p for c in range(2, MAX_CLUSTER + 1) if (p := jacobi_cluster_plan(m, block, c))]
+        return min(fits, key=lambda p: (p.cluster * p.threads - m, -p.cluster), default=None)
+    mp = round_rows(m)
+    R = jacobi_cluster_rows(m, c, block)
+    T = _warps(R)
+    need = _stage_shared_bytes(R, mp, 32, 2 * _warps(mp) + (T if block else 0))
+    if (c - 1) * R >= m or T > CLUSTER_MAX_THREADS or need > MAX_SHARED_BYTES:
+        return None
+    return JacobiPlan("cluster", mp, jacobi_copy(m), _register_columns(mp), c, R, T, need)
 
 
 @functools.lru_cache(maxsize=None)
 def jacobi_launch_plan(m: int, block: bool = False) -> JacobiPlan:
-    """The form of B6c (or with `block`, B6c') at m rows: A in shared memory
-    while it fits one block with the row stride mp + 1 (mp = m rounded up
-    to 8, up to 232), else its rows read from device memory (the block form
-    keeps 5 floats a row on chip, the scalar form 3)."""
+    """The form of B6c (or with `block`, B6c') at m rows: resident up to
+    mp = JACOBI_RESIDENT_MAX_MP, then the cluster; past what 8 blocks hold
+    (mp above about 664), global rows (the block form keeps 5 floats a row
+    on chip, the scalar form 3)."""
     if m < 1:
         raise ValueError(f"m = {m}: the solve needs at least one row")
+    return (jacobi_resident_plan(m, block) or jacobi_cluster_plan(m, block)
+            or jacobi_global_plan(m, block))
+
+
+def jacobi_global_plan(m: int, block: bool = False) -> JacobiPlan:
+    """The global-rows form at m rows: no stage, `copy` "none"."""
     mp = round_rows(m)
-    if _shared_bytes(mp) <= MAX_SHARED_BYTES:
-        return JacobiPlan("shared", mp, None)
-    return JacobiPlan("global rows", mp, rows_plan(mp, 5 if block else 3))
+    rows = rows_plan(mp, 5 if block else 3)
+    return JacobiPlan("global rows", mp, "none", 0, 1, 0, rows.threads, rows.shared_bytes)
 
 
 def solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, iters: int, omega: float,
@@ -245,17 +345,19 @@ def _check_lcp_args(A, b, is_eq, lo, hi):
         kernels.check_arg(name, x, shape, dtype, A.device)
 
 
-def _launch_jacobi(fn_name, A, b, is_eq, lo, hi, block, *params):
-    """Launch B6c or B6c' (`fn_name`) in the form its plan names."""
+def launch_jacobi_plan(fn_name, plan: JacobiPlan, A, b, is_eq, lo, hi, *params):
+    """Launch B6c or B6c' (`fn_name`) in the form `plan` names, which need
+    not be the one `jacobi_launch_plan` picks, and return x (B, m)."""
     from eggshell_tpu_torch import kernels
 
     _check_lcp_args(A, b, is_eq, lo, hi)
+    if plan.copy in ("tensor map", "bulk rows") and A.data_ptr() % 16:
+        raise ValueError("A must be 16-byte aligned: its rows are copied by TMA")
     B, m = b.shape
-    plan = jacobi_launch_plan(m, block)
-    hi = torch.where(torch.isinf(hi), torch.full_like(hi, HI_INF), hi)
     out = torch.empty((B, m), dtype=torch.float32, device=A.device)
     kernels.launch(fn_name, A.device, A, b, is_eq, lo, hi, out, B, m, plan.mp, *params,
-                   int(plan.rows is not None), plan.rows.threads if plan.rows else 0)
+                   JACOBI_ROUTES[plan.route], JACOBI_COPIES.get(plan.copy, -1), plan.reg_rows,
+                   plan.cluster, plan.rows, plan.threads)
     return out
 
 
@@ -271,8 +373,8 @@ def solve_lcp_jacobi_block(A, b, is_eq, lo, hi, iters: int, omega: float):
         return solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, iters, omega, block=True)
     if A.device.type != "cuda":
         raise ValueError(f"unsupported device {A.device}")
-    out = _launch_jacobi("eggshell_jacobi_block_f32", A, b, is_eq, lo, hi, True, int(iters),
-                         float(omega))
+    out = launch_jacobi_plan("eggshell_jacobi_block_f32", jacobi_launch_plan(m, True), A, b,
+                             is_eq, lo, hi, int(iters), float(omega))
     solve_lcp_jacobi_block.launches += 1
     return out
 
@@ -292,8 +394,8 @@ def solve_lcp_jacobi(A, b, is_eq, lo, hi, iters: int, omega: float,
         return solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, iters, omega, beta)
     if A.device.type != "cuda":
         raise ValueError(f"unsupported device {A.device}")
-    out = _launch_jacobi("eggshell_jacobi_f32", A, b, is_eq, lo, hi, False, int(iters),
-                         float(omega), float(beta))
+    out = launch_jacobi_plan("eggshell_jacobi_f32", jacobi_launch_plan(b.shape[-1]), A, b, is_eq,
+                             lo, hi, int(iters), float(omega), float(beta))
     solve_lcp_jacobi.launches += 1
     return out
 
@@ -471,15 +573,18 @@ def solve_lcp_jacobi_packed(A, diag, rhs, act, eq, K: int, mu: float, iters: int
                             omega: float, beta: float, block: bool = False,
                             pyramid_mu: float = 0.0, stream=None):
     """x (B, mp) of the fused chain's LCP; see `solve_lcp_jacobi_packed_plain`
-    for the arguments.  `stream` None takes the JAX package's rule
-    (`streams_a`); True goes to `solve_lcp_jacobi_packed_stream`, where, as
-    in the JAX package, `block=True` and `pyramid_mu > 0` raise ValueError.
-    Resident, `block` goes to `solve_lcp_jacobi_packed_block` and
-    pyramid_mu > 0 alone to `solve_lcp_jacobi_packed_pyramid`; this
-    function launches the scalar box-bounds kernel itself."""
+    for the arguments.  `stream` None takes the card's rule
+    (`packed_streams`) and refuses `block=True` and `pyramid_mu > 0` where
+    the JAX package streams (`streams_a`); True goes to
+    `solve_lcp_jacobi_packed_stream` and refuses them too.  Resident,
+    `block` goes to `solve_lcp_jacobi_packed_block` and pyramid_mu > 0
+    alone to `solve_lcp_jacobi_packed_pyramid`; this function launches the
+    scalar box-bounds kernel itself."""
+    refuse = stream
     if stream is None:
-        stream = streams_a(padded_rows(K))
-    if stream:
+        mp = padded_rows(K)
+        refuse, stream = streams_a(mp), packed_streams(mp)
+    if refuse:
         if block:
             raise ValueError(
                 "solve_lcp_jacobi_packed: block-Jacobi (jacobi_block=True) is not available on "
@@ -489,6 +594,7 @@ def solve_lcp_jacobi_packed(A, diag, rhs, act, eq, K: int, mu: float, iters: int
             raise ValueError(
                 "solve_lcp_jacobi_packed: COULOMB_PYRAMID bounds are not available on the "
                 "streamed-A path; reduce contact_capacity below the stream threshold")
+    if stream:
         return solve_lcp_jacobi_packed_stream(A, diag, rhs, act, eq, K, mu, iters, omega, beta)
     if block:
         return solve_lcp_jacobi_packed_block(A, diag, rhs, act, eq, K, mu, iters, omega, beta,

@@ -34,8 +34,8 @@ from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes_packed
 from eggshell_tpu_torch.ops.compact_kernel import compact_contacts
 from eggshell_tpu_torch.ops.integrate_kernel import integrate_step
 from eggshell_tpu_torch.ops.jassembly_kernel import contact_jacobian_blocks
-from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi, solve_lcp_jacobi_packed,
-                                               streams_a)
+from eggshell_tpu_torch.ops.pgs_kernel import (packed_streams, solve_lcp_jacobi,
+                                               solve_lcp_jacobi_packed)
 from eggshell_tpu_torch.ops.prep_kernel import prep_bodies
 from eggshell_tpu_torch.physics import scene as scn
 from eggshell_tpu_torch.physics.constraints import ConstraintSystem, build_constraints
@@ -224,9 +224,9 @@ def _with_joint_lanes(spec: SceneSpec, states: State, cs: ContactSet, eps2: floa
 
 def jacobi_phase(K: int) -> str:
     """The fused step's solve phase for K lanes (joints counted):
-    "jacobi_packed_stream" where `solve_lcp_jacobi_packed` streams A,
-    else "jacobi_packed"."""
-    return "jacobi_packed_stream" if streams_a(padded_rows(K)) else "jacobi_packed"
+    "jacobi_packed_stream" where `solve_lcp_jacobi_packed` takes the cluster
+    B6b, else "jacobi_packed"."""
+    return "jacobi_packed_stream" if packed_streams(padded_rows(K)) else "jacobi_packed"
 
 
 def _fused_step(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
@@ -235,7 +235,7 @@ def _fused_step(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
     B: B2p (packed narrowphase, when the scene has pairs), B3 (compaction,
     depth cap and dedupe), the ball joints as equality lanes, then B1 (body
     prep), B4 (Jacobian blocks), B5 (A = J M^-1 J^T with cfm_always), B6 or
-    B6b (packed heavy-ball Jacobi, A resident or streamed) and B7
+    B6b (packed heavy-ball Jacobi, A resident or held by a cluster) and B7
     (integrate) on the compact (B, 3Kx, 12) blocks.  No dense Jacobian, no
     CFM check and no torch compaction.  B6 runs 3x3 block sweeps with
     cfg.jacobi_block and Coulomb-pyramid bounds under COULOMB_PYRAMID.

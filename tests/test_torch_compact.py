@@ -231,12 +231,14 @@ def test_streamed_jacobi_plain_matches_pallas_kernel():
 
 
 def test_stream_switch_follows_the_jax_rule():
-    """mp >= 72 streams (K >= 22 lanes); the dispatch on the CPU runs the
-    plain version either way, and the streamed side refuses block and
-    pyramid as the JAX package does."""
+    """The JAX package streams from mp >= 72 (K >= 22 lanes), and there the
+    port refuses block and pyramid as the JAX package does; the port takes
+    the cluster B6b only past the crossing measured on the card (K = 32,
+    mp = 96, stays on B6; K = 64, mp = 192, does not).  The dispatch on the
+    CPU runs the plain version either way."""
     assert not streams_a(padded_rows(21)) and streams_a(padded_rows(22))
     assert tstep.jacobi_phase(20) == "jacobi_packed" and tstep.jacobi_phase(32) == \
-        "jacobi_packed_stream"
+        "jacobi_packed" and tstep.jacobi_phase(64) == "jacobi_packed_stream"
     A, diag, rhs, act, eq = (torch.tensor(x) for x in _lcp_inputs(6))
     want = solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K_STREAM, 1.0, 4, 0.3, 0.45)
     for stream in (None, True, False):

@@ -116,8 +116,7 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
         collide_boxes_lanes(p1, R1[:4], h1, p2, R2, h2)
     A = torch.eye(300, device=dev).expand(2, 300, 300).contiguous()
     v = torch.zeros(2, 300, device=dev)
-    # m = 300 is past the shared form and takes the global-rows one; a
-    # float mask is still refused
+    # m = 300 takes the cluster form; a float mask is still refused
     with pytest.raises(TypeError):
         solve_lcp_jacobi(A, v, v, v, v, 4, 0.3)
     d = _fused_inputs(dev, B=8)
@@ -311,17 +310,25 @@ def test_streamed_jacobi_kernel_matches_plain_and_resident(dev, K):
     """B6b with the cluster the plan picks (2 blocks at mp = 96, 3 at 192,
     4 at 256) against the plain version and, bit for bit, the resident B6;
     at mp = 256, past the resident kernel's reach and a tensor copy's box
-    width, against the plain version only."""
+    width, against the plain version only.  `solve_lcp_jacobi_packed`
+    takes B6b past the measured crossing (mp 192 and 256), B6 below it."""
+    from eggshell_tpu_torch.ops.pgs_kernel import packed_streams
+
     lcp = _random_packed_lcp(dev, B=256, K=K, seed=1)
     mp = lcp[1].shape[1]
     plan = packed_launch_plan(mp)
     assert plan.cluster.cluster == {96: 2, 192: 3, 256: 4}[mp]
+    assert packed_streams(mp) == (mp > 96)
     before = (solve_lcp_jacobi_packed_stream.launches, solve_lcp_jacobi_packed.launches)
-    got = solve_lcp_jacobi_packed(*lcp)                   # mp >= 72 streams
+    dispatched = solve_lcp_jacobi_packed(*lcp)
+    got = solve_lcp_jacobi_packed_stream(*lcp)
     resident = solve_lcp_jacobi_packed(*lcp, stream=False) if plan.resident else None
     torch.cuda.synchronize()
+    streamed = int(packed_streams(mp))
     assert (solve_lcp_jacobi_packed_stream.launches - before[0],
-            solve_lcp_jacobi_packed.launches - before[1]) == (1, int(resident is not None))
+            solve_lcp_jacobi_packed.launches - before[1]) == \
+        (1 + streamed, 1 - streamed + int(resident is not None))
+    assert torch.equal(dispatched, got)
     assert resident is None or torch.equal(got, resident)
     _close((got,), (solve_lcp_jacobi_packed_plain(*lcp),), rel=1e-4)
 
@@ -337,10 +344,22 @@ def test_baseline_scene_goes_through_its_kernels(dev, name):
     out = rollout_batched(spec, states, cfg, 3)
     torch.cuda.synchronize()
     got = {k: f.launches - before[k] for k, f in wrappers.items()}
-    pairs, streamed = spec.num_pairs > 0, cfg.contact_capacity == 32
-    assert got == {"narrowphase_packed": 3 if pairs else 0, "compact": 3,
-                   "jacobi_packed": 0 if streamed else 3,
-                   "jacobi_packed_stream": 3 if streamed else 0, "integrate": 3}
+    # every scene's solve (mp 32 to 96) is below the resident/cluster crossing
+    assert got == {"narrowphase_packed": 3 if spec.num_pairs > 0 else 0, "compact": 3,
+                   "jacobi_packed": 3, "jacobi_packed_stream": 0, "integrate": 3}
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+
+
+def test_wide_scene_goes_through_the_cluster_solve(dev):
+    """box_stack8 at contact_capacity 64 (mp = 192, past the crossing)
+    solves through B6b, once a step."""
+    spec, states, cfg = scenes.baseline_batch("box_stack8", 64, device=dev)
+    cfg = cfg.replace(contact_capacity=64)
+    before = (solve_lcp_jacobi_packed.launches, solve_lcp_jacobi_packed_stream.launches)
+    out = rollout_batched(spec, states, cfg, 3)
+    torch.cuda.synchronize()
+    assert (solve_lcp_jacobi_packed.launches - before[0],
+            solve_lcp_jacobi_packed_stream.launches - before[1]) == (0, 3)
     assert all(bool(torch.isfinite(x).all()) for x in out)
 
 
@@ -388,46 +407,59 @@ def _random_lcp(dev, B, m, seed):
     return A, b, is_eq, lo, hi
 
 
-def _launch_global_rows(fn_name, A, b, is_eq, lo, hi, *params):
-    """B6c or B6c' (`fn_name`) in its global-rows form whatever m is, as
-    the plan takes it past m = 232."""
-    from eggshell_tpu_torch import kernels
-    from eggshell_tpu_torch.ops.pgs_kernel import HI_INF, ROWS_THREADS
+def _solve_in(plan, A, b, is_eq, lo, hi, block):
+    """B6c or B6c' in the form `plan` names, whatever m is."""
+    from eggshell_tpu_torch.ops.pgs_kernel import launch_jacobi_plan
 
-    B, m = b.shape
-    hi = torch.where(torch.isinf(hi), torch.full_like(hi, HI_INF), hi)
-    out = torch.empty_like(b)
-    kernels.launch(fn_name, A.device, A, b, is_eq, lo, hi, out, B, m, -(-m // 8) * 8, *params, 1,
-                   min(ROWS_THREADS, -(-m // 32) * 32))
-    return out
+    if block:
+        return launch_jacobi_plan("eggshell_jacobi_block_f32", plan, A, b, is_eq, lo, hi, 16, 0.3)
+    return launch_jacobi_plan("eggshell_jacobi_f32", plan, A, b, is_eq, lo, hi, 16, 0.3, 0.45)
 
 
 @pytest.mark.parametrize("block", [False, True], ids=["scalar", "block"])
-def test_unfused_jacobi_global_rows_matches_shared_form_and_plain(dev, block):
-    """Past m = 232 B6c and B6c' read A's rows from device memory every
-    sweep: at m = 240 and 480 against the plain version (1e-4 and 1e-5 of
-    max |x|, as their shared forms); at m = 60 the global-rows form
-    returns the shared form's bits."""
-    from eggshell_tpu_torch.ops.pgs_kernel import jacobi_launch_plan
+def test_unfused_jacobi_forms_match_plain_and_global_rows(dev, block):
+    """B6c and B6c' in the form their plan picks: resident at m = 30 (rows
+    copied by element loads, m % 4 != 0) and 60 (one tensor copy), cluster
+    at m = 132 (one tensor copy a block but the last, whose fewer rows
+    come one bulk copy a row), 240 (one tensor copy a block) and 480 (one
+    bulk copy a row), each against the plain version (1e-4 and 1e-5 of
+    max |x|) and bit for bit against the global-rows form; the cluster
+    form forced at m = 60 returns the resident form's bits; past the
+    cluster's limit (m = 672) the plan takes global rows, against the
+    plain version."""
+    from eggshell_tpu_torch.ops.pgs_kernel import (jacobi_cluster_plan, jacobi_global_plan,
+                                                   jacobi_launch_plan)
 
     rel = 1e-5 if block else 1e-4
-    for B, m in ((256, 240), (64, 480)):
-        A, b, is_eq, lo, hi = _random_lcp(dev, B, m, seed=m)
-        assert jacobi_launch_plan(m, block).route == "global rows"
-        n0 = (solve_lcp_jacobi_block if block else solve_lcp_jacobi).launches
-        got = solve_lcp_jacobi(A, b, is_eq, lo, hi, 16, 0.3, 0.45, block=block)
-        want = (solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, 16, 0.3, block=True) if block
-                else solve_lcp_jacobi_plain(A, b, is_eq, lo, hi, 16, 0.3, 0.45))
+    counter = solve_lcp_jacobi_block if block else solve_lcp_jacobi
+
+    def plain(*args):
+        return (solve_lcp_jacobi_plain(*args, 16, 0.3, block=True) if block
+                else solve_lcp_jacobi_plain(*args, 16, 0.3, 0.45))
+
+    for B, m, route, copy in ((256, 30, "resident", "element loads"),
+                              (256, 60, "resident", "tensor map"),
+                              (256, 132, "cluster", "tensor map"),
+                              (256, 240, "cluster", "tensor map"),
+                              (64, 480, "cluster", "bulk rows"), (16, 672, "global rows", "none")):
+        args = _random_lcp(dev, B, m, seed=m)
+        plan = jacobi_launch_plan(m, block)
+        assert (plan.route, plan.copy) == (route, copy)
+        assert m != 132 or plan.cluster * plan.rows > m     # a shorter last block
+        n0 = counter.launches
+        got = solve_lcp_jacobi(*args, 16, 0.3, 0.45, block=block)
+        want = plain(*args)
+        rows = _solve_in(jacobi_global_plan(m, block), *args, block)
         torch.cuda.synchronize()
-        assert (solve_lcp_jacobi_block if block else solve_lcp_jacobi).launches == n0 + 1
-        assert float((got - want).abs().max()) <= rel * float(want.abs().max())
-    A, b, is_eq, lo, hi = _random_lcp(dev, 256, 60, seed=60)
-    shared = solve_lcp_jacobi(A, b, is_eq, lo, hi, 16, 0.3, 0.45, block=block)
-    params = (16, 0.3) if block else (16, 0.3, 0.45)
-    fn = "eggshell_jacobi_block_f32" if block else "eggshell_jacobi_f32"
-    rows = _launch_global_rows(fn, A, b, is_eq, lo, hi, *params)
+        assert counter.launches == n0 + 1
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= rel * float(want.abs().max()), m
+        assert torch.equal(rows, got), m
+    args = _random_lcp(dev, 256, 60, seed=61)
+    resident = solve_lcp_jacobi(*args, 16, 0.3, 0.45, block=block)
+    cluster = _solve_in(jacobi_cluster_plan(60, block), *args, block)
     torch.cuda.synchronize()
-    assert torch.equal(rows, shared)
+    assert torch.equal(cluster, resident)
 
 
 def test_packed_global_rows_matches_plain_and_the_cluster_kernel(dev):

@@ -2,7 +2,8 @@
 A-formation kernel B5, on the CPU.
 
 `packed_launch_plan(mp)` picks how the CUDA kernels of
-`csrc/jacobi_packed.cu` and `csrc/jacobi_packed_stream.cu` run,
+`csrc/jacobi_packed.cu` and `csrc/jacobi_packed_stream.cu` run and
+`packed_streams(mp)` which of the two the fused solve takes,
 `jacobi_launch_plan(m)` the form of `csrc/jacobi.cu`, `amat_launch_plan(K)`
 the tiles of `csrc/amat.cu`; the kernels refuse a plan they do not take.
 These checks need no card.
@@ -13,9 +14,10 @@ import pytest
 from eggshell_tpu_torch.ops.amat_kernel import (AMAT_THREADS,
                                                 MAX_SHARED_BYTES as AMAT_MAX_SHARED,
                                                 amat_launch_plan, amat_shared_bytes, padded_rows)
-from eggshell_tpu_torch.ops.pgs_kernel import (MAX_CLUSTER, MAX_SHARED_BYTES,
-                                               REGISTER_ROW_LENGTHS, _shared_bytes,
-                                               jacobi_launch_plan, packed_launch_plan)
+from eggshell_tpu_torch.ops.pgs_kernel import (JACOBI_RESIDENT_MAX_MP, MAX_CLUSTER,
+                                               MAX_SHARED_BYTES, PACKED_RESIDENT_MAX_MP,
+                                               REGISTER_ROW_LENGTHS, jacobi_launch_plan,
+                                               packed_launch_plan, packed_streams, streams_a)
 
 # The largest mp of each kernel: B6 holds a scenario's A in one block;
 # B6b spreads it over at most 8 blocks, and past that reads its rows from
@@ -27,12 +29,18 @@ RESIDENT_LIMIT, CLUSTER_LIMIT = 232, 664
 FUSED_MAX_K = 2048
 
 
+def _first_design_bytes(mp: int) -> int:
+    """Shared memory of the first design of B6 and B6c: A with a row stride
+    of mp + 1 floats, the iterate and the block sweeps' residual."""
+    return (mp * (mp + 1) + 2 * mp) * 4
+
+
 def test_every_row_count_up_to_the_limit_gets_a_plan():
     for mp in range(8, CLUSTER_LIMIT + 1, 8):
         plan = packed_launch_plan(mp)
         assert (plan.resident is not None) == (mp <= RESIDENT_LIMIT), mp
     # every mp the first design of B6 took (A with a row stride of mp + 1)
-    first = [mp for mp in range(8, 1024, 8) if _shared_bytes(mp) <= MAX_SHARED_BYTES]
+    first = [mp for mp in range(8, 1024, 8) if _first_design_bytes(mp) <= MAX_SHARED_BYTES]
     assert max(first) == RESIDENT_LIMIT
     assert all(packed_launch_plan(mp).resident is not None for mp in first)
 
@@ -81,26 +89,92 @@ def test_the_packed_solve_takes_every_multiple_of_8():
     assert packed_launch_plan(672).rows is not None
 
 
-@pytest.mark.parametrize("m,block,route", [
-    (192, False, "shared"), (192, True, "shared"), (232, False, "shared"),
-    (240, False, "global rows"), (240, True, "global rows"), (480, True, "global rows"),
+@pytest.mark.parametrize("m,block,route,copy", [
+    (30, False, "resident", "element loads"), (30, True, "resident", "element loads"),
+    (60, False, "resident", "tensor map"), (60, True, "resident", "tensor map"),
+    (128, False, "resident", "tensor map"), (129, True, "cluster", "element loads"),
+    (136, False, "cluster", "tensor map"), (232, False, "cluster", "tensor map"),
+    (228, True, "cluster", "tensor map"), (240, False, "cluster", "tensor map"),
+    (240, True, "cluster", "tensor map"), (480, True, "cluster", "bulk rows"),
+    (664, False, "cluster", "bulk rows"), (672, False, "global rows", "none"),
+    (672, True, "global rows", "none"),
 ])
-def test_the_unfused_solve_reads_rows_from_device_memory_past_232(m, block, route):
+def test_the_unfused_solve_takes_its_route_by_row_count(m, block, route, copy):
+    """The joints slice's m = 30 copies its rows by element loads (m % 4 !=
+    0), the unfused slice's m = 60 by one tensor copy; the cluster takes
+    over past 128 rows and rows wider than a tensor box (mp + 4 > 256)
+    arrive one bulk copy a row; past what 8 blocks hold, global rows."""
     plan = jacobi_launch_plan(m, block)
-    assert plan.route == route
+    assert (plan.route, plan.copy) == (route, copy)
     assert plan.mp == -(-m // 8) * 8
-    if route == "shared":
-        assert plan.rows is None and _shared_bytes(plan.mp) <= MAX_SHARED_BYTES
-    else:
-        assert _shared_bytes(plan.mp) > MAX_SHARED_BYTES
-        assert plan.rows.threads % 32 == 0 and plan.rows.shared_bytes <= MAX_SHARED_BYTES
+    assert plan.shared_bytes <= MAX_SHARED_BYTES
+    if route == "cluster":
+        assert plan.cluster * plan.rows >= m > (plan.cluster - 1) * plan.rows
 
 
 def test_the_unfused_solve_takes_every_row_count_up_to_2048():
-    for m in range(1, 2049):
-        for block in (False, True):
+    """For every m from 1 to 2048 and both forms: the route (resident up
+    to mp = 128, the cluster while 8 blocks hold the rows, then global
+    rows), the copy by m % 4, shared memory that fits, and a cluster split
+    in which every block holds a row and, in the block form, no 3-row
+    block straddles two blocks."""
+    last_cluster = {}
+    for block in (False, True):
+        for m in range(3 if block else 1, 2049, 3 if block else 1):
             plan = jacobi_launch_plan(m, block)
-            assert (plan.route == "shared") == (plan.mp <= RESIDENT_LIMIT), m
+            mp = -(-m // 8) * 8
+            assert plan.mp == mp and plan.shared_bytes <= MAX_SHARED_BYTES, m
+            assert (plan.route == "resident") == (mp <= 128), m
+            if plan.route == "global rows":
+                assert plan.copy == "none" and plan.threads % 32 == 0, m
+                continue
+            want = ("element loads" if m % 4 else
+                    "tensor map" if mp + 4 <= 256 else "bulk rows")
+            assert plan.copy == want, m
+            # a row's first 128 columns at most in registers, the tail in the stage
+            assert plan.reg_rows == min(-(-mp // 32) * 32, 128), m
+            if plan.route == "resident":
+                assert (plan.rows, plan.threads) == (m, -(-mp // 32) * 32), m
+                continue
+            last_cluster[block] = m
+            c, R = plan.cluster, plan.rows
+            assert 2 <= c <= MAX_CLUSTER and c * R >= m > (c - 1) * R, m
+            assert plan.threads % 32 == 0 and R <= plan.threads <= 96, m
+            if block:
+                # block k's rows 3k..3k+2 lie in the block of rank 3k // R
+                assert R % 3 == 0, m
+                assert all((3 * k) // R == (3 * k + 2) // R for k in range(m // 3)), m
+    # the cluster holds rows up to mp = 664 (m = 663 in the block form)
+    assert last_cluster == {False: 664, True: 663}
+
+
+@pytest.mark.parametrize("mp,stream,refused", [
+    (32, False, False), (64, False, False), (72, False, True), (96, False, True),
+    (160, False, True), (168, True, True), (192, True, True), (672, True, True),
+])
+def test_the_packed_solve_takes_its_route_by_row_count(mp, stream, refused):
+    """The fused solve takes B6 up to mp = 160 and B6b past it (every
+    scene's mp, 32 to 96, on B6; box_stack8 at contact_capacity 64, mp =
+    192, on B6b); what it refuses, block sweeps and pyramid bounds, still
+    follows the JAX package's rule, mp >= 72."""
+    assert packed_streams(mp) == stream == (mp > PACKED_RESIDENT_MAX_MP)
+    assert streams_a(mp) == refused
+    assert (packed_launch_plan(mp).resident is None) <= stream
+
+
+def test_the_resident_unfused_form_holds_its_rows_in_registers():
+    """The resident form of B6c and B6c' holds every row whole in registers
+    (the kernel has no stage-read tail): it stops at the longest register
+    row, and past it the cluster takes every m of both forms."""
+    assert JACOBI_RESIDENT_MAX_MP == max(REGISTER_ROW_LENGTHS)
+    for block in (False, True):
+        for m in range(3 if block else 1, 2 * JACOBI_RESIDENT_MAX_MP, 3 if block else 1):
+            plan = jacobi_launch_plan(m, block)
+            if plan.route == "resident":
+                assert plan.reg_rows == plan.threads >= plan.mp, m
+                assert plan.reg_rows in REGISTER_ROW_LENGTHS, m
+            else:
+                assert plan.route == "cluster" and plan.mp > JACOBI_RESIDENT_MAX_MP, m
 
 
 def test_amat_tiles_fit_a_block_at_every_k_of_the_fused_chain():

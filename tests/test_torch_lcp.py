@@ -2,7 +2,8 @@
 `eggshell_tpu_torch` (`ops.pgs_kernel.solve_lcp_jacobi_plain`, the plain
 version of the CUDA Jacobi kernel) against the JAX package's Pallas
 kernel `solve_lcp_jacobi_pallas` run in interpret mode, float64, within
-1e-9.  m = 24 needs no row padding; m = 60 is padded to 64."""
+1e-9.  m = 24 needs no row padding; m = 30 (the joints slice's row count)
+is padded to 32 and m = 60 to 64; the block-Jacobi form at m = 30 and 60."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,13 +34,26 @@ def _problem(B, m, seed):
     return A, b, is_eq, lo, hi
 
 
-@pytest.mark.parametrize("m", [24, 60])
+@pytest.mark.parametrize("m", [24, 30, 60])
 def test_plain_jacobi_matches_pallas_kernel(m):
     A, b, is_eq, lo, hi = _problem(8, m, seed=m)
     kw = dict(iters=16, omega=0.3, beta=0.45)
     want = solve_lcp_jacobi_pallas(*[jnp.asarray(x) for x in (A, b, is_eq, lo, hi)],
                                    interpret=True, **kw)
     got = solve_lcp_jacobi_plain(*[torch.tensor(x) for x in (A, b, is_eq, lo, hi)], **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
+    x = got.numpy()
+    assert (x[~is_eq] >= lo[~is_eq]).all() and (x[~is_eq] <= hi[~is_eq]).all()
+
+
+@pytest.mark.parametrize("m", [30, 60])
+def test_plain_block_jacobi_matches_pallas_kernel(m):
+    A, b, is_eq, lo, hi = _problem(8, m, seed=m + 1)
+    kw = dict(iters=16, omega=0.3)
+    want = solve_lcp_jacobi_pallas(*[jnp.asarray(x) for x in (A, b, is_eq, lo, hi)],
+                                   interpret=True, block=True, **kw)
+    got = solve_lcp_jacobi_plain(*[torch.tensor(x) for x in (A, b, is_eq, lo, hi)], block=True,
+                                 **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
     x = got.numpy()
     assert (x[~is_eq] >= lo[~is_eq]).all() and (x[~is_eq] <= hi[~is_eq]).all()

@@ -4,14 +4,16 @@
     python tools/jacobi_packed_probe.py
 
 On one GPU, on the seeded SPD systems of `chip_smoke.random_lcp` at
-B = 4096 and 16 sweeps, for mp = 64, 96 and 192: the resident B6 (scalar
-form) with rows in registers where its plan holds them and with rows read
-from shared memory, and B6b at every cluster size from 2 to 8 that
-divides mp.  Each is timed as `chip_smoke.timings` times a kernel (device
-time a call from one torch.profiler window of 20 calls, L2 overwritten
-before each call), and B6 and B6b at their plans' settings also with the
-L2 overwritten and then read before each call, which leaves no dirty line
-to write back during the kernel.  Prints one line per mp and the card.
+B = 4096 and 16 sweeps, for mp = 64, 96, 128, 136, 160, 168, 176, 184 and
+192: the resident B6 (scalar form) with rows in registers where its plan
+holds them and with rows read from shared memory, and B6b at every
+cluster size from 2 to 8 that divides mp.  B6 against B6b at the plans'
+settings is the measurement behind `PACKED_RESIDENT_MAX_MP`.  Each is
+timed as `chip_smoke.timings` times a kernel (device time a call from one
+torch.profiler window of 20 calls, L2 overwritten before each call), and
+B6 and B6b at their plans' settings also with the L2 overwritten and then
+read before each call, which leaves no dirty line to write back during
+the kernel.  Prints one line per mp and the card.
 It needs a CUDA device and imports nothing of JAX.
 """
 
@@ -55,7 +57,7 @@ def main() -> int:
         buf.fill_(1)
         buf.sum(dtype=torch.int32)
 
-    for K in (20, 32, 64):
+    for K in (20, 32, 42, 45, 53, 56, 58, 59, 64):
         A, diag, rhs, act, eq, K, mu, iters, omega, beta = chip_smoke.random_lcp(
             dev, 4096, K, chip_smoke.SEED + 7)
         B, mp = diag.shape
