@@ -5,12 +5,19 @@
 
 Builds the CUDA kernels from `eggshell_tpu_torch/csrc/`, prints the
 registers, stack and spills ptxas reported for the Jacobi kernels (B6,
-B6b, and B6c's and B6c''s resident, cluster and global-rows forms), B4
-and B5 (`[ptxas]`; none may spill), and holds each kernel against its
+B6b, and B6c's and B6c''s resident, cluster and global-rows forms), the
+narrowphase's two entries B2 and B2p, B4 and B5 (`[ptxas]`; none may
+spill), and holds each kernel against its
 plain PyTorch version on the card, on seeded random inputs and on the
 inputs of its path's first step, with the bound printed beside the error,
 the device times of kernel and plain version, and the kernel's bound and
-its ratio to it.  `[jacobi]` and `[jacobi_block]` also run the joints
+its ratio to it.  `[narrowphase]` and `[narrowphase_packed]` also run
+seven degenerate poses (aligned stacks, touching, coincident, separated,
+deep penetration, a turned stack, generic) at B = 4099, where B2's
+contact codes must agree with the plain version's on every pair, its
+flags on every lane off the reference face and, on each pose, as the card
+measured them, and `[narrowphase_packed]` is timed on box_stack8's first
+step too.  `[jacobi]` and `[jacobi_block]` also run the joints
 slice's first LCP (m = 30, rows copied by element loads) and print the
 route and copy each case took.  `[jacobi_packed]` also holds the resident
 B6 on box_stack8's and living_room's first-step solves (mp = 96, the
@@ -260,17 +267,49 @@ def compare_contacts(what: str, got, want, generic=None) -> float:
 
 
 def phase_narrowphase(dev, main_args):
+    """B2 against its plain version on 65,536 seeded pairs, on the
+    degenerate poses of `ops.collision_poses` (N = 4099; every code from 0
+    to 16 but the edge-edge codes must occur, the codes must agree on every
+    pair, the flags on every lane off the reference face and on each pose
+    as the card measured them) and on the main path's inputs; timed on the
+    main path's inputs."""
     from eggshell_tpu_torch.ops.collision import collide_boxes
-    from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes
+    from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes, gather_pairs
+    from eggshell_tpu_torch.ops.collision_poses import (DEGENERATE_FLAG_AGREEMENT,
+                                                        class_agreement, degenerate_args)
+    from eggshell_tpu_torch.ops.quaternion import quat_to_mat
 
     rng = np.random.default_rng(SEED)
     arrays, kind = narrowphase_pairs(65536, rng)
     args = [torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous() for a in arrays]
     err = compare_contacts("65536 pairs", collide_boxes_lanes(*args), collide_boxes(*args),
                            generic=torch.as_tensor(kind < 4, device=dev))
+    (p, q, hs, pi, pj), pose = degenerate_args(dev, seed=SEED + 3)
+    dargs = gather_pairs(p, quat_to_mat(q), hs, pi, pj)
+    dout = collide_boxes_lanes(*dargs)
+    dwant = collide_boxes(*dargs)
+    err = max(err, compare_contacts(f"degenerate poses N={p.shape[0]}", dout, dwant))
+    codes = torch.bincount(dout.code.long(), minlength=17).tolist()
+    print(f"[narrowphase] degenerate poses: pairs a contact code 0-16 {codes}")
+    check(codes[0] > 0 and codes[16] > 0 and sum(codes[1:7]) > 0,
+          f"degenerate poses miss codes 0, 16 or a face code: {codes}")
+    agreement = class_agreement(dout, dwant, pose)
+    for name, (code_agree, flag_agree, off_face) in agreement.items():
+        print(f"[narrowphase] degenerate poses, {name}: code agreement {code_agree:.6f} "
+              f"(bound 1), active-lane agreement where codes agree {flag_agree:.6f} "
+              f"(bound {DEGENERATE_FLAG_AGREEMENT[name]:.6f}), on lanes off the reference "
+              f"face {off_face:.6f} (bound 1)")
+    for name, (code_agree, flag_agree, off_face) in agreement.items():
+        check(code_agree == 1.0, f"narrowphase code agreement {code_agree} on {name}")
+        check(flag_agree >= DEGENERATE_FLAG_AGREEMENT[name],
+              f"narrowphase flag agreement {flag_agree} on {name}")
+        check(off_face == 1.0, f"narrowphase flag agreement off the face {off_face} on {name}")
     out = collide_boxes_lanes(*main_args)
-    err = max(err, compare_contacts(f"main-path inputs N={main_args[0].shape[0]}",
-                                    out, collide_boxes(*main_args)))
+    want = collide_boxes(*main_args)
+    err = max(err, compare_contacts(f"main-path inputs N={main_args[0].shape[0]}", out, want))
+    same = torch.equal(out.code, want.code)
+    print(f"[narrowphase] main-path inputs: code agreement on every pair: {same}")
+    check(same, "narrowphase codes differ from the plain version's on the main path")
 
     t = timings("narrowphase_kernel", lambda: collide_boxes_lanes(*main_args),
                 lambda: collide_boxes(*main_args))
@@ -530,21 +569,6 @@ def phase_fused_kernel(name, cases, extra=None):
     return out
 
 
-def _pair_list(n):
-    i, j = np.triu_indices(n, 1)
-    return i.astype(np.int64), j.astype(np.int64)
-
-
-def random_bodies(rng, B, n, xy=(-0.4, 0.4), z=(-0.4, 0.4)):
-    """Seeded random poses of n boxes in B scenarios, float64 numpy: p with
-    x and y in `xy`, z in `z`, unit q, half extents (n, 3) in [0.1, 0.3]."""
-    p = rng.uniform(*xy, (B, n, 3))
-    p[..., 2] = rng.uniform(*z, (B, n))
-    q = rng.normal(size=(B, n, 4))
-    q /= np.linalg.norm(q, axis=-1, keepdims=True)
-    return p, q, rng.uniform(0.1, 0.3, (n, 3))
-
-
 def packed_pair_agreement(what, got, want):
     """Hold the packed narrowphase's lanes against the plain version's.
     The contact normal must agree within 1e-4 on at least 99 % of the
@@ -577,23 +601,27 @@ def packed_pair_agreement(what, got, want):
 
 def phase_narrowphase_packed(dev, firsts):
     """B2p: seeded random bodies (8 boxes in [-1, 1]^3, half extents 0.05
-    to 0.6, all 28 pairs, B=4096) and the first-step inputs of each path
-    with pairs; on each, the kernel against its plain version, and against
-    the lanes entry (B2) on the same gathered pairs, which runs the same
-    device function and must agree bit for bit."""
+    to 0.6, all 28 pairs, B=4096), the degenerate poses of
+    `ops.collision_poses` and the first-step inputs of each path with
+    pairs; on each, the kernel against its plain version, and against the
+    lanes entry (B2) on the same gathered pairs, which runs the same device
+    function and must agree bit for bit.  Timed on the main path's inputs
+    and on box_stack8's first step."""
     from eggshell_tpu_torch.ops.collision_kernel import (collide_boxes_lanes,
                                                         collide_boxes_lanes_packed,
                                                         collide_boxes_lanes_packed_plain,
                                                         gather_pairs)
+    from eggshell_tpu_torch.ops.collision_poses import degenerate_args, pair_list, random_bodies
     from eggshell_tpu_torch.ops.quaternion import quat_to_mat
 
     rng = np.random.default_rng(SEED + 2)
     p, q, _ = random_bodies(rng, 4096, 8, xy=(-1.0, 1.0), z=(-1.0, 1.0))
     hs = rng.uniform(0.05, 0.6, (8, 3))
-    pi, pj = _pair_list(8)
+    pi, pj = pair_list(8)
     f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
     i = lambda x: torch.as_tensor(x, dtype=torch.int64, device=dev).contiguous()
-    cases = [("seeded random, B=4096, 8 boxes, 28 pairs", (f(p), f(q), f(hs), i(pi), i(pj)))]
+    cases = [("seeded random, B=4096, 8 boxes, 28 pairs", (f(p), f(q), f(hs), i(pi), i(pj))),
+             ("degenerate poses, B=4099, 1 pair", degenerate_args(dev, seed=SEED + 3)[0])]
     cases += [(f"first-step inputs of {tag}", a) for tag, a in firsts]
     err = 0.0
     for what, args in cases:
@@ -609,15 +637,22 @@ def phase_narrowphase_packed(dev, firsts):
         print(f"[narrowphase_packed] {what}: bit for bit the lanes entry's on the gathered "
               f"pairs: {same}")
         check(same, f"narrowphase_packed differs from the lanes entry on {what}")
-    main_args = cases[1][1]
-    t = timings("narrowphase_packed_kernel", lambda: collide_boxes_lanes_packed(*main_args),
-                lambda: collide_boxes_lanes_packed_plain(*main_args))
-    pairs = main_args[0].shape[0] * main_args[3].shape[0]
-    # the SAT of csrc/narrowphase.cu, about 2,000 flops a pair, and R from q
-    b = bound(moved_bytes(main_args, collide_boxes_lanes_packed(*main_args)), 2060.0 * pairs)
-    print(f"[narrowphase_packed] main-path shapes ({pairs} pairs): {timing_text(t)}, bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes)")
-    return {"max_abs_err": err, **t, **b}
+
+    def timed(what, args):
+        t = timings("narrowphase_packed_kernel", lambda: collide_boxes_lanes_packed(*args),
+                    lambda: collide_boxes_lanes_packed_plain(*args))
+        pairs = args[0].shape[0] * args[3].shape[0]
+        # the SAT of csrc/narrowphase.cu, about 2,000 flops a pair, and R from q
+        b = bound(moved_bytes(args, collide_boxes_lanes_packed(*args)), 2060.0 * pairs)
+        print(f"[narrowphase_packed] {what} ({pairs} pairs): {timing_text(t)}, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes), {ratio_text(t, b)}")
+        return t, b
+
+    # the main path's, then box_stack8's first step
+    t, b = timed("main-path shapes", cases[2][1])
+    te, be = timed("first-step shapes of [scene_box_stack8]", cases[3][1])
+    return {"max_abs_err": err, **t, **b, "ms_extra": te["ms"], "plain_ms_extra": te["plain_ms"],
+            "bound_ms_extra": be["bound_ms"]}
 
 
 def random_compact_cases(dev, B=4096, n=4):
@@ -626,12 +661,14 @@ def random_compact_cases(dev, B=4096, n=4):
     pair with min_constraint_distance raised to 0.05, so the dedupe drops
     lanes; a finite depth cap; and the ground-only variant (K=8).  One body
     has ground contacts disabled."""
+    from eggshell_tpu_torch.ops.collision_poses import pair_list, random_bodies
+
     rng = np.random.default_rng(SEED + 3)
     f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
     i = lambda x: torch.as_tensor(x, dtype=torch.int64, device=dev).contiguous()
     p, q, hs = random_bodies(rng, B, n, z=(0.0, 0.3))
     gen = torch.tensor([True, True, False, True], device=dev)
-    pi, pj = _pair_list(n)
+    pi, pj = pair_list(n)
     P = len(pi)
     nrm = rng.normal(size=(B, P, 3))
     nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
@@ -1292,11 +1329,12 @@ def wide_cfg():
     return bench_cfg().replace(contact_capacity=WIDE_CAPACITY)
 
 
-# Kernels `[ptxas]` reports beside the 41 templates of the Jacobi kernels
-# (B6's four forms and B6b at 5 row lengths each, the resident and cluster
-# forms of B6c and B6c' at 4): B4, B5 and the global-rows forms of B6c,
-# B6c' and B6b.
-PTXAS_TEMPLATES = 41
+# Kernels `[ptxas]` reports: 43 templates, those of the Jacobi kernels (B6's
+# four forms and B6b at 5 row lengths each, the resident and cluster forms
+# of B6c and B6c' at 4) and the narrowphase's two entries (on the lanes a
+# pair, built at one), and beside them B4, B5 and the global-rows forms of
+# B6c, B6c' and B6b.
+PTXAS_TEMPLATES = 43
 PTXAS_PLAIN = ("jassembly_kernel", "amat_kernel", "jacobi_global_kernel",
                "block_jacobi_global_kernel", "jacobi_packed_rows_kernel")
 
@@ -1304,14 +1342,14 @@ PTXAS_PLAIN = ("jassembly_kernel", "amat_kernel", "jacobi_global_kernel",
 def phase_ptxas():
     """Registers, stack and spills of the Jacobi kernels (B6's four forms,
     B6b, B6c's and B6c''s resident and cluster forms, at each row length),
-    of B4 and B5, and of the global-rows forms, as ptxas reported them at
-    the build; none may spill."""
+    of B2 and B2p, of B4 and B5, and of the global-rows forms, as ptxas
+    reported them at the build; none may spill."""
     from eggshell_tpu_torch import kernels
 
     found = 0
     for entry, use in sorted(kernels.ptxas_usage().items()):
-        m = re.search(r"(?<=\d)((?:block_)?jacobi(?:_packed\w*?|_cluster)?_kernel)ILi(\d+)E",
-                      entry)
+        m = re.search(r"(?<=\d)((?:block_)?jacobi(?:_packed\w*?|_cluster)?_kernel"
+                      r"|narrowphase(?:_packed)?_kernel)ILi(\d+)E", entry)
         plain = re.search(r"\d(" + "|".join(PTXAS_PLAIN) + r")E", entry)
         if m:
             name = f"{m.group(1)}<{m.group(2)}>"

@@ -8,28 +8,48 @@
 // fused chain's entry: (B, n) body state and the scene's pair lists in, the
 // bodies gathered and R formed from q in the kernel, and only what the
 // compaction kernel csrc/compact.cu reads written out).  Both run the one
-// SAT device function `sat_contacts`.  Same semantics as
-// the plain version `eggshell_tpu_torch.ops.collision.collide_boxes`:
-// 15 separating axes, contact codes 1-16, the incident face clipped by the
-// six halfspaces of the reference box into at most MAX_POLY points, the
-// edge-edge contact and the deep-penetration fallback (code 16).
+// SAT device function `sat_group`.  Same semantics as the plain version
+// `eggshell_tpu_torch.ops.collision.collide_boxes`: 15 separating axes,
+// contact codes 1-16, the incident face clipped by the six halfspaces of
+// the reference box into at most MAX_POLY points, the edge-edge contact and
+// the deep-penetration fallback (code 16).
 //
-// What bounds it on an H100: arithmetic and registers, not bytes.  A pair
-// reads 30 floats and writes 66 floats plus 12 flags, against a few
-// thousand floating-point operations (the clip alone is six passes over a
-// 12-vertex polygon with a 12x12 one-hot emission).  The design: one
-// thread per pair (per scenario and pair on the packed entry), every
-// intermediate in registers, every loop statically
-// unrolled so that the polygon arrays stay in registers (no dynamic
-// indexing, no local memory), and the same branchless selection logic as
-// the TPU kernel.  Outputs are written pair-major in the `PairContacts`
-// layout (pos (N,12,3), normal (N,3), depth (N,12), active (N,12), code,
-// info_depth, separating axis), so no relayout follows the launch; the
-// packed entry writes pos (B,P,12,3), normal (B,P,3), depth and active
-// (B,P,12), and its gathers of p and q (28 bytes a body, the n bodies of a
-// scenario read by its P threads) come from L1 after the first.  Those
-// stores are strided across a warp; coalescing them through shared memory
-// is work for a later change.
+// What bounds it on an H100: instruction issue, not bytes.  A pair reads
+// 30 floats and writes 66 floats and 12 flags, against some 2,000
+// float32 operations of one long dependent chain (axes, set-up, six clip
+// passes, contact lanes), each product and sum its own instruction
+// (--fmad=false).  A thread a pair would leave 1.5 warps a scheduler at
+// the bench shape, too few to hide that chain.  The design: a group
+// of G = kLanes = 4 lanes of one warp a pair, 32 / G pairs a warp.  The
+// code is written for any G of 2, 4, 8 and 16; 4 was the fastest of them
+// on the card at every shape the paths launch (PERF.md), and only it is
+// built into the library.
+// - Axes: lane l evaluates axes l, l + G, ... of the 15 (6 face normals,
+//   then the 9 edge-edge axes a-major), with the expressions of the scan
+//   term for term; a butterfly of shuffles finds the best face and edge
+//   axis with the scan's tie rule (the first of equal seps wins, a NaN or
+//   an invalid edge axis is never taken), one ballot finds separation.
+// - The pair's frame, the edge-edge contact and the reference/incident
+//   set-up are group-uniform and computed by every lane alike (a warp
+//   issues them once for all its pairs).
+// - Clip: lane l holds vertices l, l + G, ... of the polygon in registers.
+//   For each halfspace a lane gets its next vertex by shuffle, two ballots
+//   and popcounts give each vertex's output slot, and each lane stores at
+//   most its vertex and its crossing point into a per-group buffer in
+//   shared memory (v + 0.f: the plain version's one-hot emission gives
+//   +0 for a -0 vertex), then reads back its own slots; slots at or past
+//   the new count read 0.  A slot no pair of the warp has a vertex in, a
+//   crossing point no edge of the warp needs and a halfspace parallel to
+//   every pair's incident face are skipped, by warp-uniform branches:
+//   shuffles and ballots always run on the whole warp.
+// - Contact lanes: a lane computes its vertices' points and depths once,
+//   one ballot decides whether any face point is kept, and each lane
+//   writes its own lanes.
+// Outputs are written pair-major in the `PairContacts` layout (pos (N,12,3),
+// normal (N,3), depth (N,12), active (N,12), code, info_depth, separating
+// axis); the packed entry writes pos (B,P,12,3), normal (B,P,3), depth and
+// active (B,P,12).  Lanes past the last pair compute on the last pair's
+// inputs and store nothing.
 //
 // The library is built with --fmad=false: every product and sum is rounded
 // on its own, as in the plain version's elementwise torch ops.  Exactly
@@ -37,14 +57,29 @@
 // plain version may pick different, equally valid, axes there.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int MAX_POLY = 12;
+constexpr int N_AXES = 15;
 constexpr float ALIGN_TOL = 0.9962f;
 constexpr float TOL = 1e-9f;
 constexpr float BIG = 1e30f;
+constexpr int NO_AXIS = 64;
+// Lanes a pair, threads a block, and the shared memory of a group: two
+// polygon buffers of MAX_POLY (x, y) points, used in turns by the clip
+// passes that run, and one point more, so that the groups' buffers start
+// on different banks.  tools/narrowphase_probe.py builds this file alone
+// with another EGGSHELL_NARROWPHASE_LANES to re-measure the group size.
+#ifndef EGGSHELL_NARROWPHASE_LANES
+#define EGGSHELL_NARROWPHASE_LANES 4
+#endif
+constexpr int kLanes = EGGSHELL_NARROWPHASE_LANES;
+constexpr int kThreads = 128;
+constexpr int kGroupPoints = 2 * MAX_POLY + 1;
+constexpr int kGroupsPerBlock = kThreads / kLanes;
 
 __device__ __forceinline__ float sgn(float x) { return x >= 0.f ? 1.f : -1.f; }
 
@@ -52,13 +87,128 @@ __device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
 
-// The contacts of one box pair: pos (12, 3), depth and active (12) on the
-// clipped polygon's lanes, the contact normal, the contact code (0 =
-// separated), the depth along the best axis and that axis.
-__device__ __forceinline__ void sat_contacts(
-    const float p1[3], const float R1[3][3], const float H1[3], const float p2[3],
-    const float R2[3][3], const float H2[3], float pos[MAX_POLY][3], float dep[MAX_POLY],
-    bool act[MAX_POLY], float nrm[3], int* code, float* idep, float iax[3]) {
+__device__ __forceinline__ float sel3(int k, float x0, float x1, float x2) {
+  return k == 0 ? x0 : (k == 1 ? x1 : x2);
+}
+
+// M[r][c] for runtime r, c in 0..2.
+__device__ __forceinline__ float at3(const float M[3][3], int r, int c) {
+  return sel3(r, sel3(c, M[0][0], M[0][1], M[0][2]), sel3(c, M[1][0], M[1][1], M[1][2]),
+              sel3(c, M[2][0], M[2][1], M[2][2]));
+}
+
+// The G lanes of one warp that work on one pair.  Every lane of the warp
+// runs every shuffle, ballot and warp barrier (full mask: no group of a
+// warp branches around one), so they compile to single instructions.
+template <int G>
+struct Group {
+  static_assert(G == 2 || G == 4 || G == 8 || G == 16, "a pair takes 2, 4, 8 or 16 lanes");
+  static constexpr unsigned kFull = 0xffffffffu;
+  static constexpr unsigned kBits = 0xffffffffu >> (32 - G);
+  int base;  // the group's first lane in the warp
+  int lane;  // this lane within the group
+  __device__ __forceinline__ Group() {
+    const int l = threadIdx.x & 31;
+    lane = l & (G - 1);
+    base = l - lane;
+  }
+  __device__ __forceinline__ float shfl(float v, int src) const {
+    return __shfl_sync(kFull, v, src, G);
+  }
+  __device__ __forceinline__ float shfl_xor(float v, int m) const {
+    return __shfl_xor_sync(kFull, v, m, G);
+  }
+  __device__ __forceinline__ int shfl_xor(int v, int m) const {
+    return __shfl_xor_sync(kFull, v, m, G);
+  }
+  // The group's votes, bit i for lane i of the group.
+  __device__ __forceinline__ unsigned ballot(bool p) const {
+    return (__ballot_sync(kFull, p) >> base) & kBits;
+  }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+};
+
+// Element i of a value spread over the group as x[s] on lane i - G s.
+template <int G, int N>
+__device__ __forceinline__ float fetch(const Group<G>& g, const float (&x)[N], int i) {
+  float r = g.shfl(x[0], i & (G - 1));
+#pragma unroll
+  for (int s = 1; s < N; ++s) {
+    const float o = g.shfl(x[s], i & (G - 1));
+    if (i / G == s) r = o;
+  }
+  return r;
+}
+
+// The clip's next vertex of vertex v = lane + G s held as x[s]: vertex
+// v + 1 (the next lane's slot s, or lane 0's slot s + 1 on the last lane),
+// or vertex 0 where `wrap`.
+template <int G, int N>
+__device__ __forceinline__ float next_vertex(const Group<G>& g, const float (&x)[N], int s,
+                                             bool wrap) {
+  const float first = g.shfl(x[0], 0);
+  const float right = g.shfl(x[s], (g.lane + 1) & (G - 1));
+  const float up = s + 1 < N ? g.shfl(x[s + 1 < N ? s + 1 : 0], 0) : first;
+  return wrap ? first : (g.lane + 1 < G ? right : up);
+}
+
+// The sequential scan's choice between a candidate axis (sep, idx) and the
+// best so far: the larger sep, and of equal seps the lower index.  Axes the
+// scan never takes (a NaN sep, an invalid edge axis: sep <= -BIG) enter as
+// (-inf, NO_AXIS), so the order is total and a butterfly gives every lane
+// the scan's result.
+__device__ __forceinline__ void take_better(float s, int i, float& best, int& idx) {
+  if (s > best || (s == best && i < idx)) {
+    best = s;
+    idx = i;
+  }
+}
+
+__device__ __forceinline__ void offer(float sep, int i, float& best, int& idx) {
+  const bool eligible = sep > -BIG;
+  take_better(eligible ? sep : -INFINITY, eligible ? i : NO_AXIS, best, idx);
+}
+
+template <int G>
+__device__ __forceinline__ void group_best(const Group<G>& g, float& best, int& idx) {
+#pragma unroll
+  for (int m = G / 2; m >= 1; m >>= 1) {
+    const float s = g.shfl_xor(best, m);
+    const int i = g.shfl_xor(idx, m);
+    take_better(s, i, best, idx);
+  }
+}
+
+struct PairIn {
+  float p1[3], R1[3][3], H1[3], p2[3], R2[3][3], H2[3];
+};
+
+// What a group's lane holds of its pair's contacts: its lanes l, l + G, ...
+// (pos, depth, active), and the pair's normal, code, depth along the best
+// axis and that axis.
+template <int G>
+struct LaneContacts {
+  static constexpr int NV = (MAX_POLY + G - 1) / G;
+  float pos[NV][3], dep[NV];
+  bool act[NV];
+  float nrm[3], iax[3], idep;
+  int code;
+};
+
+// The contacts of one box pair, computed by the G lanes of `g` together;
+// `poly` is the group's kGroupPoints of shared memory.
+template <int G>
+__device__ __forceinline__ void sat_group(const Group<G>& g, const PairIn& in, float2* poly,
+                                          LaneContacts<G>& out) {
+  constexpr int NA = (N_AXES + G - 1) / G;
+  constexpr int NV = LaneContacts<G>::NV;
+  const float(&R1)[3][3] = in.R1;
+  const float(&R2)[3][3] = in.R2;
+  const float* p1 = in.p1;
+  const float* p2 = in.p2;
+  const float* H1 = in.H1;
+  const float* H2 = in.H2;
+
   // box2 in box1's frame: R = R1^T R2, p = R1^T (p2 - p1)
   float R[3][3], Q[3][3], d[3], p[3];
 #pragma unroll
@@ -78,71 +228,88 @@ __device__ __forceinline__ void sat_contacts(
   for (int i = 0; i < 3; ++i)
     aacount += fmaxf(fmaxf(Q[0][i], Q[1][i]), Q[2][i]) > ALIGN_TOL ? 1 : 0;
 
-  // ---- 6 face-normal axes (ties keep the first index) ----
-  float sepFN = -BIG;
-  int codeFN = 0;
-  float axFN[3] = {0.f, 0.f, 0.f};
-  bool any_sep_face = false;
+  // ---- the 15 axes: axis a = lane + G s of this lane ----
+  float bestF = -INFINITY, bestE = -INFINITY;
+  int idxF = NO_AXIS, idxE = NO_AXIS;
+  bool sep_any = false;
+  float axf[3][NA], nE[3][NA], e1E[NA], lenE[NA];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    float e1, r, nrm[3];
-    if (i < 3) {
-      e1 = p[i];
-      r = H1[i] + (H2[0] * Q[i][0] + H2[1] * Q[i][1] + H2[2] * Q[i][2]);
+  for (int s = 0; s < NA; ++s) {
+    const int a = g.lane + G * s;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) nrm[c] = R1[c][i];
-    } else {
-      const int k = i - 3;
-      e1 = R[0][k] * p[0] + R[1][k] * p[1] + R[2][k] * p[2];
-      r = (H1[0] * Q[0][k] + H1[1] * Q[1][k] + H1[2] * Q[2][k]) + H2[k];
+    for (int c = 0; c < 3; ++c) axf[c][s] = nE[c][s] = 0.f;
+    e1E[s] = 0.f;
+    lenE[s] = 1.f;
+    if (a < 6) {
+      // face normal a: box1's axis a, or box2's axis a - 3 (codes 1-6)
+      const bool second = a >= 3;
+      const int k = second ? a - 3 : a;
+      const float e1 = second ? at3(R, 0, k) * p[0] + at3(R, 1, k) * p[1] + at3(R, 2, k) * p[2]
+                              : sel3(k, p[0], p[1], p[2]);
+      const float X = second ? sel3(k, H2[0], H2[1], H2[2]) : sel3(k, H1[0], H1[1], H1[2]);
+      const float h0 = second ? H1[0] : H2[0], h1 = second ? H1[1] : H2[1],
+                  h2 = second ? H1[2] : H2[2];
+      const float q0 = second ? at3(Q, 0, k) : at3(Q, k, 0);
+      const float q1 = second ? at3(Q, 1, k) : at3(Q, k, 1);
+      const float q2 = second ? at3(Q, 2, k) : at3(Q, k, 2);
+      const float r = X + (h0 * q0 + h1 * q1 + h2 * q2);
+      const float sep = fabsf(e1) - r;
+      sep_any = sep_any || (sep > 0.f);
+      offer(sep, a, bestF, idxF);
+      const float sg = sgn(e1);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) nrm[c] = R2[c][k];
-    }
-    const float sep = fabsf(e1) - r;
-    any_sep_face = any_sep_face || (sep > 0.f);
-    if (sep > sepFN) {
-      sepFN = sep;
-      codeFN = i + 1;
-      const float s = sgn(e1);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) axFN[c] = s * nrm[c];
-    }
-  }
-
-  // ---- 9 edge x edge axes, code 7 + 3a + b ----
-  float sepEE = -BIG, e1EE = 0.f, lenEE = 1.f;
-  int codeEE = 0;
-  float nEE[3] = {0.f, 0.f, 0.f};
-  bool any_sep_ee = false;
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      const float v0 = R[0][b], v1 = R[1][b], v2 = R[2][b];
+      for (int c = 0; c < 3; ++c) axf[c][s] = sg * (second ? at3(R2, c, k) : at3(R1, c, k));
+    } else if (a < N_AXES) {
+      // edge x edge axis 7 + 3 ea + eb
+      const int ea = (a - 6) / 3, eb = (a - 6) % 3;
+      const float v0 = at3(R, 0, eb), v1 = at3(R, 1, eb), v2 = at3(R, 2, eb);
       float nv[3];
-      if (a == 0) { nv[0] = 0.f; nv[1] = -v2; nv[2] = v1; }
-      else if (a == 1) { nv[0] = v2; nv[1] = 0.f; nv[2] = -v0; }
-      else { nv[0] = -v1; nv[1] = v0; nv[2] = 0.f; }
+      nv[0] = ea == 0 ? 0.f : (ea == 1 ? v2 : -v1);
+      nv[1] = ea == 0 ? -v2 : (ea == 1 ? 0.f : v0);
+      nv[2] = ea == 0 ? v1 : (ea == 1 ? -v0 : 0.f);
       const float length = sqrtf(dot3(nv, nv));
       const bool valid = length > TOL;
       const float e1 = dot3(nv, p);
       const float span1 = H1[0] * fabsf(nv[0]) + H1[1] * fabsf(nv[1]) + H1[2] * fabsf(nv[2]);
-      const float span2 = H2[(b + 1) % 3] * Q[a][(b + 2) % 3] + H2[(b + 2) % 3] * Q[a][(b + 1) % 3];
+      const int b1 = eb == 2 ? 0 : eb + 1, b2 = eb == 0 ? 2 : eb - 1;
+      const float span2 = sel3(b1, H2[0], H2[1], H2[2]) * at3(Q, ea, b2) +
+                          sel3(b2, H2[0], H2[1], H2[2]) * at3(Q, ea, b1);
       const float sep_raw = fabsf(e1) - (span1 + span2);
-      any_sep_ee = any_sep_ee || (valid && sep_raw > 0.f);
+      sep_any = sep_any || (valid && sep_raw > 0.f);
       const float safe_len = valid ? length : 1.f;
       const float sep = valid ? sep_raw / safe_len : -BIG;
-      if (sep > sepEE) {
-        sepEE = sep;
-        codeEE = 7 + 3 * a + b;
+      offer(sep, a - 6, bestE, idxE);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) nEE[c] = nv[c];
-        e1EE = e1;
-        lenEE = safe_len;
-      }
+      for (int c = 0; c < 3; ++c) nE[c][s] = nv[c];
+      e1E[s] = e1;
+      lenE[s] = safe_len;
     }
+  }
+  const bool separated = g.ballot(sep_any) != 0u;
+  group_best(g, bestF, idxF);
+  group_best(g, bestE, idxE);
 
-  const bool separated = any_sep_face || any_sep_ee;
+  // the best face axis and edge axis, from the lanes that evaluated them
+  const bool hasF = idxF != NO_AXIS, hasE = idxE != NO_AXIS;
+  const float sepFN = hasF ? bestF : -BIG;
+  const int codeFN = hasF ? idxF + 1 : 0;
+  float axFN[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float v = fetch(g, axf[c], hasF ? idxF : 0);
+    axFN[c] = hasF ? v : 0.f;
+  }
+  const float sepEE = hasE ? bestE : -BIG;
+  const int codeEE = hasE ? 7 + idxE : 0;
+  const int eaxis = hasE ? 6 + idxE : 6;
+  float nEE[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float v = fetch(g, nE[c], eaxis);
+    nEE[c] = hasE ? v : 0.f;
+  }
+  const float e1v = fetch(g, e1E, eaxis), lenv = fetch(g, lenE, eaxis);
+  const float e1EE = hasE ? e1v : 0.f, lenEE = hasE ? lenv : 1.f;
 
   float axEE[3];
   {
@@ -166,6 +333,7 @@ __device__ __forceinline__ void sat_contacts(
       sa1[j] = axEE[0] * R1[0][j] + axEE[1] * R1[1][j] + axEE[2] * R1[2][j];
       sa2[j] = axEE[0] * R2[0][j] + axEE[1] * R2[1][j] + axEE[2] * R2[2][j];
     }
+    // codeEE 0 (no valid edge axis) gives a_idx -2, b_idx -1: ua = ub = 0
     const int a_idx = (codeEE - 7) / 3, b_idx = (codeEE - 7) % 3;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -244,17 +412,20 @@ __device__ __forceinline__ void sat_contacts(
   const float Ad = -dot3(Afn, AfC);
 
   // ---- clip the incident rectangle by the 6 halfspaces of box A ----
+  // vertex v = lane + G s of the polygon in px[s], py[s]
   float Bc_rel[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) Bc_rel[c] = Ac[c] - Rc[c];
-  float px[MAX_POLY], py[MAX_POLY];
+  float px[NV], py[NV];
 #pragma unroll
-  for (int i = 0; i < MAX_POLY; ++i) { px[i] = 0.f; py[i] = 0.f; }
-  px[0] = -Rh0; py[0] = -Rh1;
-  px[1] = -Rh0; py[1] = Rh1;
-  px[2] = Rh0;  py[2] = Rh1;
-  px[3] = Rh0;  py[3] = -Rh1;
+  for (int s = 0; s < NV; ++s) {
+    const int v = g.lane + G * s;
+    px[s] = (v == 0 || v == 1) ? -Rh0 : ((v == 2 || v == 3) ? Rh0 : 0.f);
+    py[s] = (v == 0 || v == 3) ? -Rh1 : ((v == 1 || v == 2) ? Rh1 : 0.f);
+  }
   int cnt = 4;
+  int buf = 0;
+  const unsigned below = (1u << g.lane) - 1u;
 
 #pragma unroll
   for (int i_ax = 0; i_ax < 3; ++i_ax) {
@@ -264,98 +435,117 @@ __device__ __forceinline__ void sat_contacts(
                          Bn[0] * RR2[1] - Bn[1] * RR2[0]};
     const float crossn = sqrtf(dot3(cv, cv));
     const float Hn0 = dot3(RR0, Bn), Hn1 = dot3(RR1, Bn);
+    // A halfspace parallel to the incident face takes the polygon whole or
+    // drops it.  The clip is skipped where every pair of the warp is
+    // parallel there; elsewhere every group runs it and a parallel one
+    // drops its result.
     const bool parallel = crossn < TOL;
+    const bool skip = __all_sync(0xffffffffu, parallel);
 #pragma unroll
     for (int js = 0; js < 2; ++js) {
       const float jside = js == 0 ? -1.f : 1.f;
       const float Bd = -jside * BnBc - Ah[i_ax];
-      if (parallel) {
-        if (Bd > 0.f) cnt = 0;  // the whole polygon lies outside
-        continue;               // otherwise it lies inside: keep it
-      }
+      if (parallel && Bd > 0.f) cnt = 0;  // the whole polygon lies outside
+      if (skip) continue;                 // otherwise it lies inside: keep it
       const float nx = -jside * Hn0, ny = -jside * Hn1, dclip = -Bd;
-      float kv[MAX_POLY], cxp[MAX_POLY], cyp[MAX_POLY];
-      bool inside[MAX_POLY], crosses[MAX_POLY];
-      int offs[MAX_POLY];
+      float kv[NV];
 #pragma unroll
-      for (int i = 0; i < MAX_POLY; ++i) kv[i] = px[i] * nx + py[i] * ny + dclip;
+      for (int s = 0; s < NV; ++s) kv[s] = px[s] * nx + py[s] * ny + dclip;
+      bool inside[NV], crosses[NV];
+      float cxp[NV], cyp[NV];
+      unsigned mi[NV], mc[NV];
+#pragma unroll
+      for (int s = 0; s < NV; ++s) {
+        const int v = g.lane + G * s;
+        const bool valid = v < cnt && v < MAX_POLY;
+        inside[s] = crosses[s] = false;
+        cxp[s] = cyp[s] = 0.f;
+        mi[s] = mc[s] = 0u;
+        // Slot s is skipped where no pair of the warp has a vertex there:
+        // its vertices emit nothing, and no vertex before them wraps to
+        // them (the last vertex of a polygon wraps to vertex 0).
+        if (s > 0 && !__any_sync(0xffffffffu, valid)) continue;
+        // next vertex: v + 1, wrapping to 0 at v + 1 == cnt (slot 11 always wraps)
+        const bool wrap = (v >= MAX_POLY - 1) || (cnt == v + 1);
+        const float k2 = next_vertex(g, kv, s, wrap);
+        const float p2x = next_vertex(g, px, s, wrap);
+        const float p2y = next_vertex(g, py, s, wrap);
+        inside[s] = (kv[s] >= 0.f) && valid;
+        crosses[s] = (kv[s] * k2 < 0.f) && valid;
+        // a crossing point is only stored where its edge crosses
+        if (__any_sync(0xffffffffu, crosses[s])) {
+          const float tden = crosses[s] ? k2 - kv[s] : 1.f;
+          const float tt = kv[s] / tden;
+          cxp[s] = px[s] - tt * (p2x - px[s]);
+          cyp[s] = py[s] - tt * (p2y - py[s]);
+        }
+        mi[s] = g.ballot(inside[s]);
+        mc[s] = g.ballot(crosses[s]);
+      }
+      // vertex v's first output slot: what the vertices before it emit
+      float2* out_xy = poly + buf * MAX_POLY;
       int run = 0;
 #pragma unroll
-      for (int i = 0; i < MAX_POLY; ++i) {
-        // next vertex: i + 1, wrapping to 0 at i + 1 == cnt (slot 11 always wraps)
-        const bool wrap = (i == MAX_POLY - 1) || (cnt == i + 1);
-        const float k2 = wrap ? kv[0] : kv[(i + 1) % MAX_POLY];
-        const float p2x = wrap ? px[0] : px[(i + 1) % MAX_POLY];
-        const float p2y = wrap ? py[0] : py[(i + 1) % MAX_POLY];
-        const bool valid = i < cnt;
-        inside[i] = (kv[i] >= 0.f) && valid;
-        crosses[i] = (kv[i] * k2 < 0.f) && valid;
-        const float tden = crosses[i] ? k2 - kv[i] : 1.f;
-        const float tt = kv[i] / tden;
-        cxp[i] = px[i] - tt * (p2x - px[i]);
-        cyp[i] = py[i] - tt * (p2y - py[i]);
-        offs[i] = run;
-        run += (inside[i] ? 1 : 0) + (crosses[i] ? 1 : 0);
+      for (int s = 0; s < NV; ++s) {
+        const int offs = run + __popc(mi[s] & below) + __popc(mc[s] & below);
+        run += __popc(mi[s]) + __popc(mc[s]);
+        const int oc = offs + (inside[s] ? 1 : 0);
+        if (inside[s] && offs < MAX_POLY) out_xy[offs] = make_float2(px[s] + 0.f, py[s] + 0.f);
+        if (crosses[s] && oc < MAX_POLY) out_xy[oc] = make_float2(cxp[s] + 0.f, cyp[s] + 0.f);
       }
-      float npx[MAX_POLY], npy[MAX_POLY];
+      g.sync();
+      const int filled = min(run, MAX_POLY);
 #pragma unroll
-      for (int o = 0; o < MAX_POLY; ++o) {
-        float accx = 0.f, accy = 0.f;
-#pragma unroll
-        for (int i = 0; i < MAX_POLY; ++i) {
-          const bool sv = (offs[i] == o) && inside[i];
-          const bool sc = ((offs[i] + (inside[i] ? 1 : 0)) == o) && crosses[i];
-          accx = accx + (sv ? px[i] : 0.f) + (sc ? cxp[i] : 0.f);
-          accy = accy + (sv ? py[i] : 0.f) + (sc ? cyp[i] : 0.f);
-        }
-        npx[o] = accx;
-        npy[o] = accy;
+      for (int s = 0; s < NV; ++s) {
+        const int v = g.lane + G * s;
+        const float2 xy = v < filled ? out_xy[v] : make_float2(0.f, 0.f);
+        px[s] = parallel ? px[s] : xy.x;
+        py[s] = parallel ? py[s] : xy.y;
       }
-#pragma unroll
-      for (int i = 0; i < MAX_POLY; ++i) { px[i] = npx[i]; py[i] = npy[i]; }
-      cnt = run;
+      cnt = parallel ? cnt : run;
+      buf ^= 1;  // the next pass writes the other buffer, read before this sync
     }
   }
 
   // ---- contact lanes ----
-  bool any_face = false;
+  float fpos[NV][3], fdep[NV];
+  bool keep[NV];
+  bool any_keep = false;
 #pragma unroll
-  for (int i = 0; i < MAX_POLY; ++i) {
-    float fpos[3];
+  for (int s = 0; s < NV; ++s) {
+    const int v = g.lane + G * s;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) fpos[c] = Rc[c] + RR0[c] * px[i] + RR1[c] * py[i];
-    const float fdep = -(dot3(Afn, fpos) + Ad);
-    any_face = any_face || ((i < cnt) && (fabsf(fdep) > TOL || aacount >= 2));
+    for (int c = 0; c < 3; ++c) fpos[s][c] = Rc[c] + RR0[c] * px[s] + RR1[c] * py[s];
+    fdep[s] = -(dot3(Afn, fpos[s]) + Ad);
+    keep[s] = (v < cnt) && (v < MAX_POLY) && (fabsf(fdep[s]) > TOL || aacount >= 2);
+    any_keep = any_keep || keep[s];
   }
+  const bool any_face = g.ballot(any_keep) != 0u;
   const bool use_ee = (aacount == 0) && !best_is_FN;
   const float fb_depth = -sepFN;
 
 #pragma unroll
-  for (int i = 0; i < MAX_POLY; ++i) {
-    float fpos[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) fpos[c] = Rc[c] + RR0[c] * px[i] + RR1[c] * py[i];
-    const float fdep = -(dot3(Afn, fpos) + Ad);
-    const bool keep = (i < cnt) && (fabsf(fdep) > TOL || aacount >= 2);
+  for (int s = 0; s < NV; ++s) {
+    const int v = g.lane + G * s;
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      pos[i][c] = use_ee ? ee_pos[c] : (any_face ? fpos[c] : p2[c]);
-    dep[i] = use_ee ? ee_depth : (any_face ? fdep : fb_depth);
-    const bool lane_act = use_ee ? (i == 0) : (any_face ? keep : (i == 0));
-    act[i] = lane_act && !separated;
+      out.pos[s][c] = use_ee ? ee_pos[c] : (any_face ? fpos[s][c] : p2[c]);
+    out.dep[s] = use_ee ? ee_depth : (any_face ? fdep[s] : fb_depth);
+    const bool lane_act = use_ee ? (v == 0) : (any_face ? keep[s] : (v == 0));
+    out.act[s] = lane_act && !separated;
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    nrm[c] = use_ee ? axEE[c] : axFN[c];
-    iax[c] = best_is_FN ? axFN[c] : axEE[c];
+    out.nrm[c] = use_ee ? axEE[c] : axFN[c];
+    out.iax[c] = best_is_FN ? axFN[c] : axEE[c];
   }
-  *code = separated ? 0 : (use_ee ? codeEE : (any_face ? codeFN : 16));
-  *idep = separated ? 0.f : info_depth;
+  out.code = separated ? 0 : (use_ee ? codeEE : (any_face ? codeFN : 16));
+  out.idep = separated ? 0.f : info_depth;
 }
 
 // Row-major R of a unit quaternion (w, x, y, z): the expressions of
 // eggshell_tpu_torch.ops.quaternion.quat_to_mat, term for term.
-__device__ __forceinline__ void quat_rows(const float* q, float R[3][3]) {
+__device__ __forceinline__ void quat_rows(const float q[4], float R[3][3]) {
   const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
   const float xx = qx * qx, yy = qy * qy, zz = qz * qz;
   const float xy = qx * qy, xz = qx * qz, yz = qy * qz;
@@ -365,7 +555,42 @@ __device__ __forceinline__ void quat_rows(const float* q, float R[3][3]) {
   R[2][0] = 2.f * (xz - wy); R[2][1] = 2.f * (yz + wx); R[2][2] = 1.f - 2.f * (xx + yy);
 }
 
-__global__ void __launch_bounds__(128) narrowphase_kernel(
+// A pair's record of NE floats, element e = lane + G s loaded by one lane
+// into x[s] (by `load(e)`), then shared: f[e] on every lane.
+template <int G, int NE, typename Load>
+__device__ __forceinline__ void load_spread(const Group<G>& g, Load load, float (&f)[NE]) {
+  constexpr int NS = (NE + G - 1) / G;
+  float x[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int e = g.lane + G * s;
+    x[s] = e < NE ? load(e) : 0.f;
+  }
+#pragma unroll
+  for (int e = 0; e < NE; ++e) f[e] = g.shfl(x[e / G], e % G);
+}
+
+// Write this lane's contact lanes of pair t: pos (12, 3), depth, active.
+template <int G>
+__device__ __forceinline__ void store_lanes(const Group<G>& g, const LaneContacts<G>& o,
+                                            int64_t t, float* __restrict__ out_pos,
+                                            float* __restrict__ out_dep,
+                                            uint8_t* __restrict__ out_act) {
+#pragma unroll
+  for (int s = 0; s < LaneContacts<G>::NV; ++s) {
+    const int v = g.lane + G * s;
+    if (v < MAX_POLY) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) out_pos[t * (3 * MAX_POLY) + 3 * v + c] = o.pos[s][c];
+      out_dep[t * MAX_POLY + v] = o.dep[s];
+      out_act[t * MAX_POLY + v] = o.act[s] ? 1 : 0;
+    }
+  }
+}
+
+// A group of G lanes a pair, kThreads / G pairs a block.
+template <int G>
+__global__ void __launch_bounds__(kThreads) narrowphase_kernel(
     const float* __restrict__ gp1, const float* __restrict__ gr1,
     const float* __restrict__ gh1, const float* __restrict__ gp2,
     const float* __restrict__ gr2, const float* __restrict__ gh2,
@@ -373,82 +598,109 @@ __global__ void __launch_bounds__(128) narrowphase_kernel(
     float* __restrict__ out_dep, uint8_t* __restrict__ out_act,
     int32_t* __restrict__ out_code, float* __restrict__ out_idep,
     float* __restrict__ out_iax, int64_t n) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
+  extern __shared__ float2 smem[];
+  const Group<G> g;
+  const int group = threadIdx.x / G;
+  const int64_t t = (int64_t)blockIdx.x * (kThreads / G) + group;
+  const bool live = t < n;
+  const int64_t u = live ? t : n - 1;  // the tail's groups redo the last pair
 
-  float p1[3], p2[3], H1[3], H2[3], R1[3][3], R2[3][3];
+  // the pair's 30 floats: p1, R1 (row-major), H1, p2, R2, H2
+  float f[30];
+  load_spread<G>(g, [&](int e) {
+    if (e < 3) return gp1[3 * u + e];
+    if (e < 12) return gr1[9 * u + e - 3];
+    if (e < 15) return gh1[3 * u + e - 12];
+    if (e < 18) return gp2[3 * u + e - 15];
+    if (e < 27) return gr2[9 * u + e - 18];
+    return gh2[3 * u + e - 27];
+  }, f);
+  PairIn in;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    p1[c] = gp1[3 * t + c];
-    p2[c] = gp2[3 * t + c];
-    H1[c] = gh1[3 * t + c];
-    H2[c] = gh2[3 * t + c];
-  }
+    in.p1[c] = f[c];
+    in.H1[c] = f[12 + c];
+    in.p2[c] = f[15 + c];
+    in.H2[c] = f[27 + c];
 #pragma unroll
-  for (int r = 0; r < 3; ++r)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      R1[r][c] = gr1[9 * t + 3 * r + c];
-      R2[r][c] = gr2[9 * t + 3 * r + c];
+    for (int j = 0; j < 3; ++j) {
+      in.R1[c][j] = f[3 + 3 * c + j];
+      in.R2[c][j] = f[18 + 3 * c + j];
     }
+  }
 
-  float pos[MAX_POLY][3], dep[MAX_POLY], nrm[3], iax[3], idep;
-  bool act[MAX_POLY];
-  int code;
-  sat_contacts(p1, R1, H1, p2, R2, H2, pos, dep, act, nrm, &code, &idep, iax);
+  LaneContacts<G> o;
+  sat_group(g, in, smem + group * kGroupPoints, o);
+  if (!live) return;
+  store_lanes(g, o, t, out_pos, out_dep, out_act);
 #pragma unroll
-  for (int i = 0; i < MAX_POLY; ++i) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) out_pos[t * (3 * MAX_POLY) + 3 * i + c] = pos[i][c];
-    out_dep[t * MAX_POLY + i] = dep[i];
-    out_act[t * MAX_POLY + i] = act[i] ? 1 : 0;
+  for (int c = 0; c < 3; ++c)
+    if (g.lane == c % G) {
+      out_nrm[3 * t + c] = o.nrm[c];
+      out_iax[3 * t + c] = o.iax[c];
+    }
+  if (g.lane == 3 % G) {
+    out_code[t] = o.code;
+    out_idep[t] = o.idep;
   }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    out_nrm[3 * t + c] = nrm[c];
-    out_iax[3 * t + c] = iax[c];
-  }
-  out_code[t] = code;
-  out_idep[t] = idep;
 }
 
-// One thread per (scenario, pair): t = scenario * P + pair.
-__global__ void __launch_bounds__(128) narrowphase_packed_kernel(
+// Pair t = scenario * P + pair, a group of G lanes each.
+template <int G>
+__global__ void __launch_bounds__(kThreads) narrowphase_packed_kernel(
     const float* __restrict__ gp, const float* __restrict__ gq, const float* __restrict__ ghs,
     const int64_t* __restrict__ pair_i, const int64_t* __restrict__ pair_j,
     float* __restrict__ out_pos, float* __restrict__ out_nrm, float* __restrict__ out_dep,
     uint8_t* __restrict__ out_act, int64_t total, int n, int P) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int64_t s = t / P;
-  const int k = (int)(t % P);
+  extern __shared__ float2 smem[];
+  const Group<G> g;
+  const int group = threadIdx.x / G;
+  const int64_t t = (int64_t)blockIdx.x * (kThreads / G) + group;
+  const bool live = t < total;
+  // the tail's groups redo the last pair; total < 2^31 (the entry checks)
+  const uint32_t u = (uint32_t)(live ? t : total - 1);
+  const uint32_t s = u / (uint32_t)P;
+  const int k = (int)(u - s * (uint32_t)P);
   const int64_t i = pair_i[k], j = pair_j[k];
-  const int64_t bi = s * n + i, bj = s * n + j;
+  const int64_t bi = (int64_t)s * n + i, bj = (int64_t)s * n + j;
 
-  float p1[3], p2[3], H1[3], H2[3], R1[3][3], R2[3][3];
+  // p, q and half extents of body i, then of body j
+  float f[20];
+  load_spread<G>(g, [&](int e) {
+    if (e < 3) return gp[3 * bi + e];
+    if (e < 7) return gq[4 * bi + e - 3];
+    if (e < 10) return ghs[3 * i + e - 7];
+    if (e < 13) return gp[3 * bj + e - 10];
+    if (e < 17) return gq[4 * bj + e - 13];
+    return ghs[3 * j + e - 17];
+  }, f);
+  PairIn in;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    p1[c] = gp[3 * bi + c];
-    p2[c] = gp[3 * bj + c];
-    H1[c] = ghs[3 * i + c];
-    H2[c] = ghs[3 * j + c];
+    in.p1[c] = f[c];
+    in.H1[c] = f[7 + c];
+    in.p2[c] = f[10 + c];
+    in.H2[c] = f[17 + c];
   }
-  quat_rows(gq + 4 * bi, R1);
-  quat_rows(gq + 4 * bj, R2);
+  quat_rows(f + 3, in.R1);
+  quat_rows(f + 13, in.R2);
 
-  float pos[MAX_POLY][3], dep[MAX_POLY], nrm[3], iax[3], idep;
-  bool act[MAX_POLY];
-  int code;
-  sat_contacts(p1, R1, H1, p2, R2, H2, pos, dep, act, nrm, &code, &idep, iax);
+  LaneContacts<G> o;
+  sat_group(g, in, smem + group * kGroupPoints, o);
+  if (!live) return;
+  store_lanes(g, o, t, out_pos, out_dep, out_act);
 #pragma unroll
-  for (int l = 0; l < MAX_POLY; ++l) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) out_pos[t * (3 * MAX_POLY) + 3 * l + c] = pos[l][c];
-    out_dep[t * MAX_POLY + l] = dep[l];
-    out_act[t * MAX_POLY + l] = act[l] ? 1 : 0;
-  }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) out_nrm[3 * t + c] = nrm[c];
+  for (int c = 0; c < 3; ++c)
+    if (g.lane == c % G) out_nrm[3 * t + c] = o.nrm[c];
+}
+
+// The launch a plan names: `lanes` a pair, `threads` a block, `blocks`
+// blocks for n pairs and `shared_bytes` of dynamic shared memory; anything
+// else is refused.
+bool plan_taken(int64_t n, int lanes, int threads, int64_t blocks, int shared_bytes) {
+  return lanes == kLanes && threads == kThreads &&
+         blocks == (n + kGroupsPerBlock - 1) / kGroupsPerBlock &&
+         shared_bytes == kGroupsPerBlock * kGroupPoints * (int)sizeof(float2);
 }
 
 }  // namespace
@@ -457,11 +709,10 @@ extern "C" int eggshell_narrowphase_f32(
     const float* p1, const float* r1, const float* h1, const float* p2,
     const float* r2, const float* h2, float* pos, float* nrm, float* dep,
     uint8_t* act, int32_t* code, float* idep, float* iax, int64_t n,
-    void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 128;
-  const int64_t blocks = (n + threads - 1) / threads;
-  narrowphase_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+    int lanes, int threads, int64_t blocks, int shared_bytes, void* stream) {
+  if (n <= 0 || !plan_taken(n, lanes, threads, blocks, shared_bytes))
+    return (int)cudaErrorInvalidValue;
+  narrowphase_kernel<kLanes><<<(unsigned)blocks, threads, shared_bytes, (cudaStream_t)stream>>>(
       p1, r1, h1, p2, r2, h2, pos, nrm, dep, act, code, idep, iax, n);
   return (int)cudaGetLastError();
 }
@@ -469,12 +720,13 @@ extern "C" int eggshell_narrowphase_f32(
 extern "C" int eggshell_narrowphase_packed_f32(
     const float* p, const float* q, const float* hs, const int64_t* pair_i,
     const int64_t* pair_j, float* pos, float* nrm, float* dep, uint8_t* act, int64_t B,
-    int n, int P, void* stream) {
+    int n, int P, int lanes, int threads, int64_t blocks, int shared_bytes, void* stream) {
   const int64_t total = B * (int64_t)P;
-  if (total <= 0) return 0;
-  const int threads = 128;
-  const int64_t blocks = (total + threads - 1) / threads;
-  narrowphase_packed_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      p, q, hs, pair_i, pair_j, pos, nrm, dep, act, total, n, P);
+  if (total <= 0 || total >= (int64_t(1) << 31) ||
+      !plan_taken(total, lanes, threads, blocks, shared_bytes))
+    return (int)cudaErrorInvalidValue;
+  narrowphase_packed_kernel<kLanes>
+      <<<(unsigned)blocks, threads, shared_bytes, (cudaStream_t)stream>>>(
+          p, q, hs, pair_i, pair_j, pos, nrm, dep, act, total, n, P);
   return (int)cudaGetLastError();
 }

@@ -42,10 +42,12 @@ _I64 = ctypes.c_int64
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # p1, R1, hs1, p2, R2, hs2, pos, nrm, dep, act, code, idep, iax, n, stream
-    "eggshell_narrowphase_f32": [_P] * 13 + [_I64, _P],
-    # p, q, hs, pair_i, pair_j, pos, nrm, dep, act, B, n, P, stream
-    "eggshell_narrowphase_packed_f32": [_P] * 9 + [_I64, _I, _I, _P],
+    # p1, R1, hs1, p2, R2, hs2, pos, nrm, dep, act, code, idep, iax, n, lanes, threads, blocks,
+    # shared_bytes, stream
+    "eggshell_narrowphase_f32": [_P] * 13 + [_I64, _I, _I, _I64, _I, _P],
+    # p, q, hs, pair_i, pair_j, pos, nrm, dep, act, B, n, P, lanes, threads, blocks,
+    # shared_bytes, stream
+    "eggshell_narrowphase_packed_f32": [_P] * 9 + [_I64, _I, _I, _I, _I, _I64, _I, _P],
     # p, q, hs, gen, pp_pos, pp_nrm, pp_dep, pp_act, pair_i, pair_j, b0, b1, pos, nrm, dep, act,
     # B, n, P, K, eps2, cap, stream
     "eggshell_compact_f32": [_P] * 16 + [_I64, _I, _I, _I, _F, _F, _P],
@@ -136,8 +138,13 @@ def ptxas_usage() -> dict:
     """Each kernel entry of the built library (mangled name) -> its
     `registers`, `stack`, `spill_stores` and `spill_loads` in bytes, as
     ptxas reported them when the library was built."""
+    return parse_ptxas(_ptxas_log(build()).read_text())
+
+
+def parse_ptxas(log: str) -> dict:
+    """`ptxas_usage` of an `-Xptxas -v` log."""
     out, name = {}, None
-    for line in _ptxas_log(build()).read_text().splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)

@@ -9,18 +9,51 @@ their wrappers.
   chain's entry: the (B, n) state and the scene's pair lists in, and only
   what the compaction kernel (`ops.compact_kernel`) reads out.
 
-On a CUDA tensor a wrapper launches `csrc/narrowphase.cu`; on a CPU tensor
-it runs its plain version, built on `ops.collision.collide_boxes`.  There is
-no fallback from one to the other: a CUDA input that the kernel does not
-take raises.
+On a CUDA tensor a wrapper launches `csrc/narrowphase.cu` as
+`narrowphase_launch_plan` says; on a CPU tensor it runs its plain version,
+built on `ops.collision.collide_boxes`.  There is no fallback from one to
+the other: a CUDA input that the kernel does not take raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from eggshell_tpu_torch.ops.collision import MAX_POLY, PairContacts, collide_boxes
 from eggshell_tpu_torch.ops.quaternion import quat_to_mat
+
+# `csrc/narrowphase.cu`: the lanes of one warp a pair (its kLanes, the
+# fastest of 2, 4, 8 and 16 on the card at every shape the paths launch,
+# PERF.md), threads a block (its kThreads), the shared bytes a pair's group
+# uses (two clip buffers of MAX_POLY (x, y) points and one point of
+# padding, its kGroupPoints) and the pairs a launch takes (it indexes them
+# in 32 bits).
+LANES_PER_PAIR = 4
+NARROWPHASE_THREADS = 128
+GROUP_BYTES = (2 * MAX_POLY + 1) * 8
+MAX_PAIRS = 2 ** 31 - 1
+
+
+class NarrowphasePlan(NamedTuple):
+    """How `csrc/narrowphase.cu` runs on N pairs: a group of `lanes` lanes
+    of one warp a pair, `threads` a block, `blocks` blocks and
+    `shared_bytes` of dynamic shared memory a block."""
+    lanes: int
+    threads: int
+    blocks: int
+    shared_bytes: int
+
+
+def narrowphase_launch_plan(N: int) -> NarrowphasePlan:
+    """The launch of either entry on N pairs (N = B * P on the packed
+    entry); raises ValueError for N < 1 or N past MAX_PAIRS."""
+    if not 1 <= N <= MAX_PAIRS:
+        raise ValueError(f"N = {N}: the narrowphase kernels take 1 to {MAX_PAIRS} pairs")
+    pairs = NARROWPHASE_THREADS // LANES_PER_PAIR
+    return NarrowphasePlan(LANES_PER_PAIR, NARROWPHASE_THREADS, -(-N // pairs),
+                           pairs * GROUP_BYTES)
 
 
 def collide_boxes_lanes(p1, R1, hs1, p2, R2, hs2) -> PairContacts:
@@ -38,6 +71,7 @@ def collide_boxes_lanes(p1, R1, hs1, p2, R2, hs2) -> PairContacts:
                            ("hs1", hs1, (N, 3)), ("p2", p2, (N, 3)),
                            ("R2", R2, (N, 3, 3)), ("hs2", hs2, (N, 3))):
         kernels.check_arg(name, x, shape, torch.float32, dev)
+    plan = narrowphase_launch_plan(N)
     pos = torch.empty((N, MAX_POLY, 3), dtype=torch.float32, device=dev)
     nrm = torch.empty((N, 3), dtype=torch.float32, device=dev)
     dep = torch.empty((N, MAX_POLY), dtype=torch.float32, device=dev)
@@ -46,7 +80,7 @@ def collide_boxes_lanes(p1, R1, hs1, p2, R2, hs2) -> PairContacts:
     idep = torch.empty((N,), dtype=torch.float32, device=dev)
     iax = torch.empty((N, 3), dtype=torch.float32, device=dev)
     kernels.launch("eggshell_narrowphase_f32", dev, p1, R1, hs1, p2, R2, hs2, pos, nrm, dep, act,
-                   code, idep, iax, N)
+                   code, idep, iax, N, *plan)
     collide_boxes_lanes.launches += 1
     return PairContacts(
         position=pos,
@@ -107,12 +141,13 @@ def collide_boxes_lanes_packed(p, q, half_extents, pair_i, pair_j):
         ("pair_j", pair_j, (P,), torch.int64),
     ):
         kernels.check_arg(name, x, shape, dtype, dev)
+    plan = narrowphase_launch_plan(B * P)
     pos = torch.empty((B, P, MAX_POLY, 3), dtype=f32, device=dev)
     nrm = torch.empty((B, P, 3), dtype=f32, device=dev)
     dep = torch.empty((B, P, MAX_POLY), dtype=f32, device=dev)
     act = torch.empty((B, P, MAX_POLY), dtype=torch.bool, device=dev)
     kernels.launch("eggshell_narrowphase_packed_f32", dev, p, q, half_extents, pair_i, pair_j,
-                   pos, nrm, dep, act, B, n, P)
+                   pos, nrm, dep, act, B, n, P, *plan)
     collide_boxes_lanes_packed.launches += 1
     return pos, nrm, dep, act
 

@@ -32,7 +32,10 @@ from eggshell_tpu_torch.ops.amat_kernel import (amat_launch_plan, contact_system
 from eggshell_tpu_torch.ops.collision import collide_boxes
 from eggshell_tpu_torch.ops.collision_kernel import (collide_boxes_lanes,
                                                     collide_boxes_lanes_packed,
-                                                    collide_boxes_lanes_packed_plain, gather_pairs)
+                                                    collide_boxes_lanes_packed_plain, gather_pairs,
+                                                    narrowphase_launch_plan)
+from eggshell_tpu_torch.ops.collision_poses import (DEGENERATE_FLAG_AGREEMENT, class_agreement,
+                                                    degenerate_args, pair_list, random_bodies)
 from eggshell_tpu_torch.ops.compact_kernel import compact_contacts, compact_contacts_plain
 from eggshell_tpu_torch.ops.integrate_kernel import integrate_step, integrate_step_plain
 from eggshell_tpu_torch.ops.jassembly_kernel import (contact_jacobian_blocks,
@@ -268,6 +271,79 @@ def test_packed_narrowphase_kernel_matches_lanes_kernel_and_plain(dev):
     both = got[3] & want[3]
     assert both.any()
     assert float((got[0] - want[0]).abs().amax(-1)[both].max()) <= 1e-4
+
+
+def test_narrowphase_entries_match_plain_on_degenerate_poses(dev):
+    """Aligned stacks, exactly touching faces, coincident centres, separated
+    pairs, deep penetration (code 16), a turned stack and generic poses, in
+    4099 scenarios (no multiple of the pairs a warp or a block): B2's codes
+    agree with the plain version's on every pair, its flags on every lane
+    off the reference face and on each pose as the card measured them; B2p
+    is bit for bit B2."""
+    (p, q, hs, pi, pj), pose = degenerate_args(dev)
+    B = p.shape[0]
+    gathered = gather_pairs(p, quat_to_mat(q), hs, pi, pj)
+    got = collide_boxes_lanes(*gathered)
+    want = collide_boxes(*gathered)
+    packed = collide_boxes_lanes_packed(p, q, hs, pi, pj)
+    torch.cuda.synchronize()
+    codes = torch.bincount(got.code.long(), minlength=17)
+    assert codes[0] > 0 and codes[16] > 0 and codes[1:7].sum() > 0
+    agreement = class_agreement(got, want, pose)
+    assert all(code == 1.0 and off_face == 1.0 for code, _, off_face in agreement.values()), \
+        agreement
+    assert all(flags >= DEGENERATE_FLAG_AGREEMENT[name]
+               for name, (_, flags, _) in agreement.items()), agreement
+    both = got.active & want.active
+    assert float((got.position - want.position).abs().amax(-1)[both].max()) <= 1e-4
+    assert float((got.depth - want.depth).abs()[both].max()) <= 1e-4
+    assert torch.equal(packed[0], got.position.reshape(B, 1, 12, 3))
+    assert torch.equal(packed[1], got.normal[:, 0].reshape(B, 1, 3))
+    assert torch.equal(packed[2], got.depth.reshape(B, 1, 12))
+    assert torch.equal(packed[3], got.active.reshape(B, 1, 12))
+
+
+@pytest.mark.parametrize("case", ["seeded 8 boxes", "box_stack8", "living_room"])
+def test_packed_narrowphase_is_bit_for_bit_the_lanes_entry(dev, case):
+    if case == "seeded 8 boxes":
+        rng = np.random.default_rng(2)
+        p, q, _ = random_bodies(rng, 4096, 8, xy=(-1.0, 1.0), z=(-1.0, 1.0))
+        hs = rng.uniform(0.05, 0.6, (8, 3))
+        pi, pj = pair_list(8)
+        f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+        i = lambda x: torch.as_tensor(x, dtype=torch.int64, device=dev).contiguous()
+        args = (f(p), f(q), f(hs), i(pi), i(pj))
+    else:
+        spec, st, _ = scenes.baseline_batch(case, 4096, device=dev)
+        args = (st.p.contiguous(), st.q.contiguous(), spec.half_extents, spec.pair_i,
+                spec.pair_j)
+    got = collide_boxes_lanes_packed(*args)
+    B, P = args[0].shape[0], args[3].shape[0]
+    lanes = collide_boxes_lanes(*gather_pairs(args[0], quat_to_mat(args[1]), *args[2:]))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], lanes.position.reshape(B, P, 12, 3))
+    assert torch.equal(got[1], lanes.normal[:, 0].reshape(B, P, 3))
+    assert torch.equal(got[2], lanes.depth.reshape(B, P, 12))
+    assert torch.equal(got[3], lanes.active.reshape(B, P, 12))
+
+
+def test_narrowphase_refuses_a_plan_it_does_not_take(dev):
+    """The C entry takes only the plan of `narrowphase_launch_plan`: any
+    other launches nothing and raises (the wrapper launches by that plan)."""
+    from eggshell_tpu_torch import kernels
+
+    N = 64
+    args = _pairs(N, dev)
+    outs = (torch.empty((N, 12, 3), device=dev), torch.empty((N, 3), device=dev),
+            torch.empty((N, 12), device=dev), torch.empty((N, 12), dtype=torch.bool, device=dev),
+            torch.empty((N,), dtype=torch.int32, device=dev), torch.empty((N,), device=dev),
+            torch.empty((N, 3), device=dev))
+    plan = narrowphase_launch_plan(N)
+    for bad in (plan._replace(lanes=8, blocks=-(-N // 16), shared_bytes=16 * 25 * 8),
+                plan._replace(threads=256), plan._replace(blocks=plan.blocks + 1),
+                plan._replace(shared_bytes=0)):
+        with pytest.raises(RuntimeError):
+            kernels.launch("eggshell_narrowphase_f32", dev, *args, *outs, N, *bad)
 
 
 def _assert_same_lanes(got, want):
