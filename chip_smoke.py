@@ -6,8 +6,8 @@
 Builds the CUDA kernels from `eggshell_tpu_torch/csrc/`, prints the
 registers, stack and spills ptxas reported for the Jacobi kernels (B6,
 B6b, and B6c's and B6c''s resident, cluster and global-rows forms), the
-narrowphase's two entries B2 and B2p, B4 and B5 (`[ptxas]`; none may
-spill), and holds each kernel against its
+narrowphase's two entries B2 and B2p, B4, B5, B7, B3 and B3g (`[ptxas]`;
+none may spill), and holds each kernel against its
 plain PyTorch version on the card, on seeded random inputs and on the
 inputs of its path's first step, with the bound printed beside the error,
 the device times of kernel and plain version, and the kernel's bound and
@@ -53,11 +53,12 @@ cluster form (the unfused slice's first LCP at contact_capacity 80,
 m = 240, and a seeded m = 480 system), and `[jacobi_global]` and
 `[jacobi_block_global]` in their global-rows form past what a cluster
 holds (m = 672); `[jacobi_packed_rows]` does the same for B6b past the
-mp = 664 a cluster holds (mp = 672 and 888).  B4 and
-B5 (`[jassembly]`, `[amat]`) are also timed at K = 32 on box_stack8's first
-step, `[amat]` also checks B5's slab route (K = 64) and Jc-chunk route
-(K = 400) on seeded inputs, and every fused-chain kernel phase says
-whether the kernel returned its plain version's bits.
+mp = 664 a cluster holds (mp = 672 and 888).  B4, B5
+and B7 (`[jassembly]`, `[amat]`, `[integrate]`) and B3 (`[compact]`) are
+also timed at K = 32 on box_stack8's first step, `[amat]` also checks B5's
+slab route (K = 64) and Jc-chunk route (K = 400) on seeded inputs, and
+every fused-chain kernel phase and `[compact]` say whether the kernel
+returned its plain version's bits.
 The 2D FDTD step B8 is held against its plain version at n = 512 and
 2048 (`[fdtd2d]`), and `fem.fdtd.simulate_2d` runs 200 steps at n = 2048
 (`[fdtd2d_rollout]`), with the example's aperture at n = 160 against the
@@ -695,13 +696,17 @@ def random_compact_cases(dev, B=4096, n=4):
 
 def compare_lanes(tag, what, got, want) -> float:
     """B3's ids and active flags must be identical to the plain version's,
-    and its positions, normals and depths within 1e-6."""
+    and its positions, normals and depths within 1e-6; prints whether they
+    are the plain version's bits."""
     same = all(torch.equal(getattr(got, k), getattr(want, k)) for k in ("b0", "b1", "active"))
     err = max(float((getattr(got, k) - getattr(want, k)).abs().max())
               for k in ("position", "normal", "depth"))
+    bits = all(torch.equal(getattr(got, k).view(torch.int32), getattr(want, k).view(torch.int32))
+               for k in ("position", "normal", "depth"))
     filled = int((want.b1 != -1).sum())          # b1 is -1 on never-filled lanes only
     print(f"[{tag}] {what}: ids and active identical {same}; {int(want.active.sum())} active "
-          f"lanes ({filled} filled); max |d| geometry {err:.3e} (bound 1e-6)")
+          f"lanes ({filled} filled); max |d| geometry {err:.3e} (bound 1e-6); bit for bit the "
+          f"plain version's: {same and bits}")
     check(same, f"{tag} ids or active flags differ on {what}")
     check(err <= 1e-6, f"{tag} geometry error {err} on {what}")
     return err
@@ -729,7 +734,9 @@ def compact_bytes(args, cs) -> int:
 
 
 def phase_compact(dev, firsts):
-    """B3 and its ground-only variant B3g against their plain version."""
+    """B3 and its ground-only variant B3g against their plain version;
+    B3 timed on the main path's first step and on box_stack8's, B3g on
+    box_drop's."""
     from eggshell_tpu_torch.ops.compact_kernel import compact_contacts, compact_contacts_plain
 
     res = {}
@@ -739,9 +746,7 @@ def phase_compact(dev, firsts):
         name = "compact" if args[4] is not None else "compact_ground"
         errs[name] = max(errs[name], compare_lanes(name, what, compact_contacts(*args),
                                                    compact_contacts_plain(*args)))
-    mains = {"compact": ("compact_kernel", firsts[0]), "compact_ground": ("compact_ground_kernel",
-                                                                           firsts[-1])}
-    for name, (kname, (tag, args)) in mains.items():
+    def timed(name, kname, tag, args):
         t = timings(kname, lambda: compact_contacts(*args), lambda: compact_contacts_plain(*args))
         B, n = args[0].shape[:2]
         K = args[7]
@@ -749,8 +754,15 @@ def phase_compact(dev, firsts):
         b = bound(compact_bytes(args, compact_contacts(*args)),
                   B * (40.0 * 8 * n + 5.0 * K * K + 2.0 * 12 * P))
         print(f"[{name}] inputs of {tag}: {timing_text(t)}, bound {b['bound_ms']:.4f} ms "
-              f"({b['bound_by']}: {b['bytes']} bytes)")
-        res[name] = {"max_abs_err": errs[name], **t, **b}
+              f"({b['bound_by']}: {b['bytes']} bytes), {ratio_text(t, b)}")
+        return t, b
+
+    t, b = timed("compact", "compact_kernel", *firsts[0])
+    te, be = timed("compact", "compact_kernel", *firsts[1])
+    res["compact"] = {"max_abs_err": errs["compact"], **t, **b, "ms_extra": te["ms"],
+                      "plain_ms_extra": te["plain_ms"], "bound_ms_extra": be["bound_ms"]}
+    t, b = timed("compact_ground", "compact_ground_kernel", *firsts[-1])
+    res["compact_ground"] = {"max_abs_err": errs["compact_ground"], **t, **b}
     return res
 
 
@@ -1332,18 +1344,19 @@ def wide_cfg():
 # Kernels `[ptxas]` reports: 43 templates, those of the Jacobi kernels (B6's
 # four forms and B6b at 5 row lengths each, the resident and cluster forms
 # of B6c and B6c' at 4) and the narrowphase's two entries (on the lanes a
-# pair, built at one), and beside them B4, B5 and the global-rows forms of
-# B6c, B6c' and B6b.
+# pair, built at one), and beside them B4, B5, the global-rows forms of
+# B6c, B6c' and B6b, B7, B3 and B3g.
 PTXAS_TEMPLATES = 43
 PTXAS_PLAIN = ("jassembly_kernel", "amat_kernel", "jacobi_global_kernel",
-               "block_jacobi_global_kernel", "jacobi_packed_rows_kernel")
+               "block_jacobi_global_kernel", "jacobi_packed_rows_kernel", "integrate_kernel",
+               "compact_kernel", "compact_ground_kernel")
 
 
 def phase_ptxas():
     """Registers, stack and spills of the Jacobi kernels (B6's four forms,
     B6b, B6c's and B6c''s resident and cluster forms, at each row length),
-    of B2 and B2p, of B4 and B5, and of the global-rows forms, as ptxas
-    reported them at the build; none may spill."""
+    of B2 and B2p, of B4 and B5, of the global-rows forms, and of B7, B3
+    and B3g, as ptxas reported them at the build; none may spill."""
     from eggshell_tpu_torch import kernels
 
     found = 0
@@ -1399,9 +1412,9 @@ def main() -> int:
                     random_fused_inputs(dev, B=B, K=K, n=8)["amat"])
                    for K, B, route in ((64, 64, "slabs"), (400, 8, "Jc chunks"))]
     for name in FUSED_KERNELS:
-        # B4 and B5 also at K = 32, on box_stack8's first step
+        # B4, B5 and B7 also at K = 32, on box_stack8's first step
         extra = (("first-step inputs of [scene_box_stack8], K=32", first["box_stack8"][name])
-                 if name in ("jassembly", "amat") else None)
+                 if name in ("jassembly", "amat", "integrate") else None)
         # B6 also on the solves of box_stack8's and living_room's paths (mp = 96)
         scene_solves = [
             (f"first-step inputs of [scene_{scene}], mp={first[scene][name][1].shape[1]}",

@@ -23,27 +23,82 @@
 //
 // What bounds it on an H100: bytes, and few of them: the state of n bodies,
 // 12P activity flags, and 28 bytes of geometry for each candidate that lands
-// in a lane; a few flops a candidate.  The TPU kernel's (8, 128) scenario
-// tiles and its K-vectorised one-hot accumulators are not carried over.  The
-// design: one warp per scenario.  Its 32 lanes take 32 candidates at a time;
-// `__ballot_sync` of the activity flags and `__popc` of the lower lanes give
-// each active candidate its stable slot, and only those that land below K
-// read their geometry.  The loop stops once K lanes are filled.  The lanes
-// are staged in shared memory (36 bytes each), lane k < K then runs the
-// dedupe test against lanes j < k there and writes the `ContactSet` fields
-// (b0/b1 int64, position/normal (K, 3), depth, active) scenario-major, as
-// csrc/jassembly.cu takes them.  `compact_ground_kernel` is the same body
-// without pairs (P = 0), the counterpart of `_compact_kernel_ground`.
+// in a lane; a few flops a candidate.  So what costs is latency: a chain of
+// dependent round trips to device memory.  The TPU kernel's (8, 128)
+// scenario tiles and its K-vectorised one-hot accumulators are not carried
+// over.  The design: one warp per scenario, two global round trips.
+//
+//   round 1   everything the flags depend on, all at once: a lane takes
+//             g consecutive corners of one body (g = 1 to 8 by n) and reads
+//             the body's p, q, half extents and ground flag (the lanes of a
+//             body read the same words: one request a body, and no shuffle
+//             after it, which timed slower on the card); the
+//             scenario's 12P flag bytes come as 32-bit words, a lane
+//             holding up to kWordsPerLane consecutive words.  Counting
+//             the active candidates in the lanes below (ground lanes, then
+//             pair words, each in lane order, then bit order within a
+//             lane: ballots up to 4 candidates a lane, else a warp scan)
+//             gives each active candidate its stable slot.  A ground corner
+//             that lands below K writes its geometry at once, a pair
+//             candidate its index.
+//   round 2   the lanes take the landing slots round robin and load, all
+//             together, the geometry and body ids of the pair candidates
+//             among them.  Candidates past K are never read.
+//   dedupe    the tests of each pair lane k against each earlier pair
+//             lane j (a ground lane takes no part) spread over the warp's
+//             32 lanes, their results OR-ed into a drop mask in shared
+//             memory (an OR has no order).
+//   stores    contiguous runs of the scenario's K lanes (3K floats of
+//             position and of normal), as csrc/jassembly.cu takes them.
+//
+// `compact_ground_kernel` is the same body without pairs (P = 0), the
+// counterpart of `_compact_kernel_ground`.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 4;        // scenarios per block
-constexpr int GROUND = 8;       // corners per body
-constexpr int LANES = 12;       // narrowphase lanes per pair
-constexpr int LANE_WORDS = 9;   // b0, b1, pos[3], nrm[3], depth
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxWarps = 4;       // scenarios per block, fewer where K's stage needs it
+constexpr int kGround = 8;         // corners per body
+constexpr int kPairLanes = 12;     // narrowphase lanes per pair
+constexpr int kLaneWords = 9;      // b0, b1, pos[3], nrm[3], depth
+constexpr int kWordsPerLane = 4;   // flag words a lane holds in one round
+constexpr int kMaxShared = 232448;
+
+// Stage words a warp takes at K lanes: the lanes and the drop mask.
+__host__ __device__ constexpr int stage_words(int K) { return kLaneWords * K + (K + 31) / 32; }
+
+// The set bits of `mask` (its low `width` bits, the same width in every
+// lane) in the lanes below this one, and in the warp (*total): one ballot
+// a bit up to 4 bits, which are independent of each other, else an
+// exclusive warp scan of the counts, a chain of 5 shuffles.
+__device__ __forceinline__ int warp_offset(unsigned mask, int width, int lane, int* total) {
+  if (width <= 4) {
+    const unsigned below = (1u << lane) - 1u;
+    int under = 0, all = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (b < width) {
+        const unsigned v = __ballot_sync(kFull, (mask >> b) & 1u);
+        under += __popc(v & below);
+        all += __popc(v);
+      }
+    }
+    *total = all;
+    return under;
+  }
+  const int x = __popc(mask);
+  int v = x;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v += y;
+  }
+  *total = __shfl_sync(kFull, v, 31);
+  return v - x;
+}
 
 template <bool PAIRS>
 __device__ __forceinline__ void compact_scenario(
@@ -54,117 +109,182 @@ __device__ __forceinline__ void compact_scenario(
     const int64_t* __restrict__ pair_j, int64_t* __restrict__ out_b0,
     int64_t* __restrict__ out_b1, float* __restrict__ out_pos, float* __restrict__ out_nrm,
     float* __restrict__ out_dep, uint8_t* __restrict__ out_act, int64_t s, int n, int P, int K,
-    float eps2, float cap, int* lanes) {
+    float eps2, float cap, int* stage) {
   const int lane = threadIdx.x % 32;
-  int* sb0 = lanes;
-  int* sb1 = lanes + K;
-  float* spos = reinterpret_cast<float*>(lanes + 2 * K);
+  int* sb0 = stage;
+  int* sb1 = stage + K;
+  float* spos = reinterpret_cast<float*>(stage + 2 * K);
   float* snrm = spos + 3 * K;
   float* sdep = snrm + 3 * K;
+  unsigned* drop = reinterpret_cast<unsigned*>(sdep + K);
+  if (PAIRS)
+    for (int i = lane; i < (K + 31) / 32; i += 32) drop[i] = 0u;
 
-  const int G = GROUND * n;
-  const int C = G + (PAIRS ? LANES * P : 0);
+  // round 1: the first round's flag words, issued before the bodies' loads
+  const int W = PAIRS ? 3 * P : 0;  // flag words of the scenario
+  const int wpl = W > 32 * kWordsPerLane ? kWordsPerLane : (W + 31) / 32;
+  const uint32_t* words = PAIRS ? reinterpret_cast<const uint32_t*>(pp_act) + s * W : nullptr;
+  uint32_t fw[kWordsPerLane];
+#pragma unroll
+  for (int j = 0; j < kWordsPerLane; ++j) {
+    const int idx = lane * wpl + j;
+    fw[j] = (PAIRS && j < wpl && idx < W) ? words[idx] : 0u;
+  }
+
+  // ground corners: a lane takes g consecutive corners of one body (g = 1,
+  // 2, 4 or 8, the fewest that put 4g bodies' corners on the 32 lanes of a
+  // round) and reads the body's p, q, half extents and ground flag: the
+  // lanes of one body read the same words, one request a body
+  const int G = kGround * n;
+  const int g = n <= 4 ? 1 : n <= 8 ? 2 : n <= 16 ? 4 : 8;
   int filled = 0;  // active candidates seen so far, the same in every lane
-  for (int base = 0; base < C && filled < K; base += 32) {
-    const int c = base + lane;
-    bool a = false;
-    float cx = 0.f, cy = 0.f, cz = 0.f;
-    int i = 0, k = 0;
-    int64_t e = 0;
-    if (c < G) {
-      i = c / GROUND;
-      const int corner = c % GROUND;
+  for (int c0 = 0; c0 < G; c0 += 32 * g) {
+    const int c = c0 + lane * g;  // this lane's first corner
+    const int i = c / kGround;
+    float px = 0.f, py = 0.f, pz = 0.f, hx = 0.f, hy = 0.f, hz = 0.f;
+    float R0 = 0.f, R1 = 0.f, R2 = 0.f, R3 = 0.f, R4 = 0.f, R5 = 0.f, R6 = 0.f, R7 = 0.f,
+          R8 = 0.f;
+    unsigned mask = 0u;
+    if (c < G) {  // then all g corners are (G is a multiple of 8)
       const float* pb = p + 3 * (s * n + i);
       const float* qb = q + 4 * (s * n + i);
+      px = pb[0], py = pb[1], pz = pb[2];
+      hx = hs[3 * i], hy = hs[3 * i + 1], hz = hs[3 * i + 2];
+      const bool on = gen[i] != 0;
       const float qw = qb[0], qx = qb[1], qy = qb[2], qz = qb[3];
       const float xx = qx * qx, yy = qy * qy, zz = qz * qz;
       const float xy = qx * qy, xz = qx * qz, yz = qy * qz;
       const float wx = qw * qx, wy = qw * qy, wz = qw * qz;
-      const float R0 = 1.f - 2.f * (yy + zz), R1 = 2.f * (xy - wz), R2 = 2.f * (xz + wy);
-      const float R3 = 2.f * (xy + wz), R4 = 1.f - 2.f * (xx + zz), R5 = 2.f * (yz - wx);
-      const float R6 = 2.f * (xz - wy), R7 = 2.f * (yz + wx), R8 = 1.f - 2.f * (xx + yy);
-      const float ox = (corner & 4 ? 1.f : -1.f) * hs[3 * i];
-      const float oy = (corner & 2 ? 1.f : -1.f) * hs[3 * i + 1];
-      const float oz = (corner & 1 ? 1.f : -1.f) * hs[3 * i + 2];
-      cx = pb[0] + R0 * ox + R1 * oy + R2 * oz;
-      cy = pb[1] + R3 * ox + R4 * oy + R5 * oz;
-      cz = pb[2] + R6 * ox + R7 * oy + R8 * oz;
-      a = cz < 0.f && gen[i] != 0;
-    } else if (PAIRS && c < C) {
-      k = (c - G) / LANES;
-      e = (s * P + k) * LANES + (c - G) % LANES;
-      a = pp_act[e] != 0;
-    }
-    const unsigned mask = __ballot_sync(0xffffffffu, a);
-    const int slot = filled + __popc(mask & ((1u << lane) - 1u));
-    if (a && slot < K) {
-      if (c < G) {
-        sb0[slot] = -1;
-        sb1[slot] = i;
-        spos[3 * slot] = cx;
-        spos[3 * slot + 1] = cy;
-        spos[3 * slot + 2] = cz;
-        snrm[3 * slot] = 0.f;
-        snrm[3 * slot + 1] = 0.f;
-        snrm[3 * slot + 2] = 1.f;
-        sdep[slot] = fminf(-cz, cap);
-      } else if (PAIRS) {
-        const int64_t pk = s * P + k;
-        sb0[slot] = (int)pair_i[k];
-        sb1[slot] = (int)pair_j[k];
-        spos[3 * slot] = pp_pos[3 * e];
-        spos[3 * slot + 1] = pp_pos[3 * e + 1];
-        spos[3 * slot + 2] = pp_pos[3 * e + 2];
-        snrm[3 * slot] = pp_nrm[3 * pk];
-        snrm[3 * slot + 1] = pp_nrm[3 * pk + 1];
-        snrm[3 * slot + 2] = pp_nrm[3 * pk + 2];
-        sdep[slot] = fminf(pp_dep[e], cap);
+      R0 = 1.f - 2.f * (yy + zz), R1 = 2.f * (xy - wz), R2 = 2.f * (xz + wy);
+      R3 = 2.f * (xy + wz), R4 = 1.f - 2.f * (xx + zz), R5 = 2.f * (yz - wx);
+      R6 = 2.f * (xz - wy), R7 = 2.f * (yz + wx), R8 = 1.f - 2.f * (xx + yy);
+#pragma unroll 1
+      for (int j = 0; j < g; ++j) {
+        const int corner = c % kGround + j;
+        const float ox = (corner & 4 ? 1.f : -1.f) * hx;
+        const float oy = (corner & 2 ? 1.f : -1.f) * hy;
+        const float oz = (corner & 1 ? 1.f : -1.f) * hz;
+        const float cz = pz + R6 * ox + R7 * oy + R8 * oz;
+        if (cz < 0.f && on) mask |= 1u << j;
       }
     }
-    filled += __popc(mask);
+    int total;
+    int slot = filled + warp_offset(mask, g, lane, &total);
+    for (unsigned m = mask; m != 0u && slot < K; m &= m - 1u, ++slot) {
+      const int corner = c % kGround + __ffs(m) - 1;
+      const float ox = (corner & 4 ? 1.f : -1.f) * hx;
+      const float oy = (corner & 2 ? 1.f : -1.f) * hy;
+      const float oz = (corner & 1 ? 1.f : -1.f) * hz;
+      const float cz = pz + R6 * ox + R7 * oy + R8 * oz;
+      sb0[slot] = -1;
+      sb1[slot] = i;
+      spos[3 * slot] = px + R0 * ox + R1 * oy + R2 * oz;
+      spos[3 * slot + 1] = py + R3 * ox + R4 * oy + R5 * oz;
+      spos[3 * slot + 2] = cz;
+      snrm[3 * slot] = 0.f;
+      snrm[3 * slot + 1] = 0.f;
+      snrm[3 * slot + 2] = 1.f;
+      sdep[slot] = fminf(-cz, cap);
+    }
+    filled += total;
   }
-  __syncwarp();
+  const int ng = filled < K ? filled : K;  // ground lanes: the first ng
 
-  const int nf = filled < K ? filled : K;
-  for (int k = lane; k < K; k += 32) {
-    const int64_t o = s * K + k;
-    if (k < nf) {
-      const int b0 = sb0[k], b1 = sb1[k];
-      const int lo = min(b0, b1), hi = max(b0, b1);
-      bool drop = false;
-      if (lo >= 0) {
-        const float x = spos[3 * k], y = spos[3 * k + 1], z = spos[3 * k + 2];
-        for (int j = 0; j < k && !drop; ++j) {
-          const int c0 = sb0[j], c1 = sb1[j];
-          if (min(c0, c1) != lo || max(c0, c1) != hi) continue;
-          const float dx = x - spos[3 * j], dy = y - spos[3 * j + 1], dz = z - spos[3 * j + 2];
-          drop = dx * dx + dy * dy + dz * dz < eps2;
+  if (PAIRS) {
+    // pair candidates: byte b of word j of a lane is its candidate 4j + b
+    for (int w0 = 0; w0 < W; w0 += 32 * wpl) {
+      if (w0 > 0) {
+#pragma unroll
+        for (int j = 0; j < kWordsPerLane; ++j) {
+          const int idx = w0 + lane * wpl + j;
+          fw[j] = (j < wpl && idx < W) ? words[idx] : 0u;
         }
       }
-      out_b0[o] = b0;
-      out_b1[o] = b1;
+      // a word's nonzero bytes as 4 bits: __vcmpne4 makes each 0xff or 0,
+      // and the product moves byte b's low bit to bit 28 + b
+      unsigned mask = 0u;
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        out_pos[3 * o + d] = spos[3 * k + d];
-        out_nrm[3 * o + d] = snrm[3 * k + d];
+      for (int j = 0; j < kWordsPerLane; ++j)
+        mask |= (((__vcmpne4(fw[j], 0u) & 0x01010101u) * 0x10204080u) >> 28) << (4 * j);
+      int total;
+      int slot = filled + warp_offset(mask, 4 * wpl, lane, &total);
+      // a landing pair candidate leaves its index (12 k + lane of pair k)
+      // as -2 - index in b0, for round 2
+      for (unsigned m = mask; m != 0u && slot < K; m &= m - 1u, ++slot) {
+        const int bit = __ffs(m) - 1;
+        sb0[slot] = -2 - (4 * (w0 + lane * wpl + (bit >> 2)) + (bit & 3));
       }
-      out_dep[o] = sdep[k];
-      out_act[o] = drop ? 0 : 1;
-    } else {
-      out_b0[o] = -1;
-      out_b1[o] = -1;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        out_pos[3 * o + d] = 0.f;
-        out_nrm[3 * o + d] = 0.f;
-      }
-      out_dep[o] = 0.f;
-      out_act[o] = 0;
+      filled += total;
     }
+  }
+  const int nf = filled < K ? filled : K;
+  __syncwarp();
+
+  if (PAIRS) {
+    // round 2: the landing pair candidates' geometry, a slot a lane
+    for (int k = lane; k < nf; k += 32) {
+      const int code = sb0[k];
+      if (code > -2) continue;  // a ground corner, staged in round 1
+      const int c = -2 - code;
+      const int pk = c / kPairLanes;
+      const int64_t e = s * P * kPairLanes + c;
+      const int64_t ep = s * P + pk;
+      const float x = pp_pos[3 * e], y = pp_pos[3 * e + 1], z = pp_pos[3 * e + 2];
+      const float nx = pp_nrm[3 * ep], ny = pp_nrm[3 * ep + 1], nz = pp_nrm[3 * ep + 2];
+      const float d = pp_dep[e];
+      const int64_t bi = pair_i[pk], bj = pair_j[pk];
+      sb0[k] = (int)bi;
+      sb1[k] = (int)bj;
+      spos[3 * k] = x;
+      spos[3 * k + 1] = y;
+      spos[3 * k + 2] = z;
+      snrm[3 * k] = nx;
+      snrm[3 * k + 1] = ny;
+      snrm[3 * k + 2] = nz;
+      sdep[k] = fminf(d, cap);
+    }
+    __syncwarp();
+
+    // dedupe among the pair lanes ng .. nf-1 (a ground lane neither drops
+    // nor is dropped): test t = k (k - 1) / 2 + j, j < k, of those lanes
+    // counted from ng, is taken by lane t % 32
+    const int np = nf - ng, tests = np * (np - 1) / 2;
+    int k = (int)((1.f + sqrtf(8.f * (float)lane + 1.f)) * 0.5f), j;
+    while (k * (k - 1) / 2 > lane) --k;
+    while ((k + 1) * k / 2 <= lane) ++k;
+    j = lane - k * (k - 1) / 2;
+    for (int t = lane; t < tests; t += 32) {
+      const int a = ng + k, b = ng + j;
+      const int c0 = sb0[a], c1 = sb1[a], e0 = sb0[b], e1 = sb1[b];
+      const int lo = min(c0, c1), hi = max(c0, c1);
+      if (lo >= 0 && min(e0, e1) == lo && max(e0, e1) == hi) {
+        const float dx = spos[3 * a] - spos[3 * b], dy = spos[3 * a + 1] - spos[3 * b + 1],
+                    dz = spos[3 * a + 2] - spos[3 * b + 2];
+        if (dx * dx + dy * dy + dz * dz < eps2) atomicOr(&drop[a >> 5], 1u << (a & 31));
+      }
+      j += 32;
+      while (j >= k) j -= k++;
+    }
+    __syncwarp();
+  }
+
+  // stores: contiguous runs of the scenario's K lanes
+  for (int i = lane; i < K; i += 32) {
+    const int64_t o = s * K + i;
+    const bool f = i < nf;
+    out_b0[o] = f ? sb0[i] : -1;
+    out_b1[o] = f ? sb1[i] : -1;
+    out_dep[o] = f ? sdep[i] : 0.f;
+    out_act[o] = f && !(PAIRS && ((drop[i >> 5] >> (i & 31)) & 1u));
+  }
+  for (int i = lane; i < 3 * K; i += 32) {
+    const bool f = i < 3 * nf;
+    out_pos[s * 3 * K + i] = f ? spos[i] : 0.f;
+    out_nrm[s * 3 * K + i] = f ? snrm[i] : 0.f;
   }
 }
 
-__global__ void __launch_bounds__(32 * WARPS) compact_kernel(
+__global__ void __launch_bounds__(32 * kMaxWarps) compact_kernel(
     const float* __restrict__ p, const float* __restrict__ q, const float* __restrict__ hs,
     const uint8_t* __restrict__ gen, const float* __restrict__ pp_pos,
     const float* __restrict__ pp_nrm, const float* __restrict__ pp_dep,
@@ -174,30 +294,32 @@ __global__ void __launch_bounds__(32 * WARPS) compact_kernel(
     uint8_t* __restrict__ act, int64_t B, int n, int P, int K, float eps2, float cap) {
   extern __shared__ int smem[];
   const int warp = threadIdx.x / 32;
-  const int64_t s = (int64_t)blockIdx.x * WARPS + warp;
+  const int64_t s = (int64_t)blockIdx.x * (blockDim.x / 32) + warp;
   if (s >= B) return;  // a whole warp leaves: the kernel syncs warps only
   compact_scenario<true>(p, q, hs, gen, pp_pos, pp_nrm, pp_dep, pp_act, pair_i, pair_j, b0, b1,
                          pos, nrm, dep, act, s, n, P, K, eps2, cap,
-                         smem + warp * LANE_WORDS * K);
+                         smem + warp * stage_words(K));
 }
 
-__global__ void __launch_bounds__(32 * WARPS) compact_ground_kernel(
+__global__ void __launch_bounds__(32 * kMaxWarps) compact_ground_kernel(
     const float* __restrict__ p, const float* __restrict__ q, const float* __restrict__ hs,
     const uint8_t* __restrict__ gen, int64_t* __restrict__ b0, int64_t* __restrict__ b1,
     float* __restrict__ pos, float* __restrict__ nrm, float* __restrict__ dep,
     uint8_t* __restrict__ act, int64_t B, int n, int K, float eps2, float cap) {
   extern __shared__ int smem[];
   const int warp = threadIdx.x / 32;
-  const int64_t s = (int64_t)blockIdx.x * WARPS + warp;
+  const int64_t s = (int64_t)blockIdx.x * (blockDim.x / 32) + warp;
   if (s >= B) return;
   compact_scenario<false>(p, q, hs, gen, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                           b0, b1, pos, nrm, dep, act, s, n, 0, K, eps2, cap,
-                          smem + warp * LANE_WORDS * K);
+                          smem + warp * stage_words(K));
 }
 
 }  // namespace
 
 // P = 0 launches the ground-only kernel; the pair pointers are then unused.
+// The pair flags are read as 32-bit words: pp_act must be 4-byte aligned.
+// A block takes kMaxWarps scenarios, or as many as K's stage leaves room for.
 extern "C" int eggshell_compact_f32(const float* p, const float* q, const float* hs,
                                     const uint8_t* gen, const float* pp_pos, const float* pp_nrm,
                                     const float* pp_dep, const uint8_t* pp_act,
@@ -206,8 +328,13 @@ extern "C" int eggshell_compact_f32(const float* p, const float* q, const float*
                                     uint8_t* act, int64_t B, int n, int P, int K, float eps2,
                                     float cap, void* stream) {
   if (B <= 0 || K <= 0) return 0;
-  const size_t smem = (size_t)WARPS * LANE_WORDS * K * sizeof(int);
-  const unsigned blocks = (unsigned)((B + WARPS - 1) / WARPS);
+  if (P > 0 && reinterpret_cast<uintptr_t>(pp_act) % 4 != 0) return (int)cudaErrorInvalidValue;
+  const size_t warp_bytes = (size_t)stage_words(K) * sizeof(int);
+  int warps = kMaxWarps;
+  while (warps > 1 && warps * warp_bytes > (size_t)kMaxShared) --warps;
+  if (warp_bytes > (size_t)kMaxShared) return (int)cudaErrorInvalidValue;
+  const size_t smem = warps * warp_bytes;
+  const unsigned blocks = (unsigned)((B + warps - 1) / warps);
   cudaStream_t st = (cudaStream_t)stream;
   if (P > 0) {
     if (smem > 48 * 1024) {
@@ -215,7 +342,7 @@ extern "C" int eggshell_compact_f32(const float* p, const float* q, const float*
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    compact_kernel<<<blocks, 32 * WARPS, smem, st>>>(p, q, hs, gen, pp_pos, pp_nrm, pp_dep,
+    compact_kernel<<<blocks, 32 * warps, smem, st>>>(p, q, hs, gen, pp_pos, pp_nrm, pp_dep,
                                                      pp_act, pair_i, pair_j, b0, b1, pos, nrm,
                                                      dep, act, B, n, P, K, eps2, cap);
   } else {
@@ -224,7 +351,7 @@ extern "C" int eggshell_compact_f32(const float* p, const float* q, const float*
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    compact_ground_kernel<<<blocks, 32 * WARPS, smem, st>>>(p, q, hs, gen, b0, b1, pos, nrm, dep,
+    compact_ground_kernel<<<blocks, 32 * warps, smem, st>>>(p, q, hs, gen, b0, b1, pos, nrm, dep,
                                                             act, B, n, K, eps2, cap);
   }
   return (int)cudaGetLastError();

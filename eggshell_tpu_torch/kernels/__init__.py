@@ -37,6 +37,12 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler",
                  "-fPIC", "-c")
 
+# Hopper: 227 KB of shared memory a block (232,448 bytes).  The launch
+# plans keep a block within half of that where they can, so that two
+# blocks share an SM and one block's barriers hide behind the other's work.
+MAX_SHARED_BYTES = 232_448
+SHARED_TARGET_BYTES = MAX_SHARED_BYTES // 2
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
@@ -72,8 +78,10 @@ _SIGNATURES = {
     # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, threads, stream
     "eggshell_jacobi_packed_rows_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _I, _P],
     # Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, p_out, q_out, v_out, w_out,
-    # B, K, n, lam_stride, dt, stream
-    "eggshell_integrate_f32": [_P] * 15 + [_I64, _I, _I, _I, _F, _P],
+    # B, K, n, lam_stride, dt, scenarios, lanes, bodies, threads, shared_bytes, stream
+    "eggshell_integrate_f32": [_P] * 15 + [_I64, _I, _I, _I, _F] + [_I] * 5 + [_P],
+    # B, K, n, out (scenarios, lanes, bodies, threads, shared_bytes)
+    "eggshell_integrate_plan": [_I64, _I, _I, _P],
     # ez, hx, hy, inv_eps, pec_free, ez_out, hx_out, hy_out, nx, ny, c, stream
     "eggshell_fdtd2d_f32": [_P] * 8 + [_I, _I, _F, _P],
     "eggshell_cuda_error_string": [_I],

@@ -23,13 +23,9 @@ from typing import NamedTuple
 
 import torch
 
+from eggshell_tpu_torch.kernels import MAX_SHARED_BYTES, SHARED_TARGET_BYTES
+
 ROW_BLOCK = 8
-# Hopper: 227 KB of shared memory per block (232,448 bytes).
-MAX_SHARED_BYTES = 232_448
-# The kernel's plan keeps a block within half of that where it can, so
-# that two blocks share an SM and one block's barriers hide behind the
-# other's work.
-SHARED_TARGET_BYTES = MAX_SHARED_BYTES // 2
 # Threads a block of `csrc/amat.cu` (its kThreads); a slab's lanes get one
 # thread each.
 AMAT_THREADS = 128

@@ -77,6 +77,9 @@ def compact_contacts(p, q, half_extents, ground_enabled, pair, pair_i, pair_j, K
                  ("pair_i", pair_i, (P,), torch.int64), ("pair_j", pair_j, (P,), torch.int64)]
     for name, x, shape, dtype in args:
         kernels.check_arg(name, x, shape, dtype, dev)
+    if P and pair[3].data_ptr() % 4:
+        raise ValueError("pair_act must be 4-byte aligned: the kernel reads its flags as "
+                         "32-bit words")
     b0 = torch.empty((B, K), dtype=torch.int64, device=dev)
     b1 = torch.empty((B, K), dtype=torch.int64, device=dev)
     pos = torch.empty((B, K, 3), dtype=f32, device=dev)

@@ -46,7 +46,8 @@ from typing import NamedTuple
 import torch
 
 from eggshell_tpu_torch.ops import lcp
-from eggshell_tpu_torch.ops.amat_kernel import MAX_SHARED_BYTES, ROW_BLOCK, padded_rows, round_rows
+from eggshell_tpu_torch.kernels import MAX_SHARED_BYTES
+from eggshell_tpu_torch.ops.amat_kernel import ROW_BLOCK, padded_rows, round_rows
 
 # Stand-in for hi = inf, as the TPU kernel has it.
 HI_INF = 3.4e38

@@ -37,7 +37,8 @@ from eggshell_tpu_torch.ops.collision_kernel import (collide_boxes_lanes,
 from eggshell_tpu_torch.ops.collision_poses import (DEGENERATE_FLAG_AGREEMENT, class_agreement,
                                                     degenerate_args, pair_list, random_bodies)
 from eggshell_tpu_torch.ops.compact_kernel import compact_contacts, compact_contacts_plain
-from eggshell_tpu_torch.ops.integrate_kernel import integrate_step, integrate_step_plain
+from eggshell_tpu_torch.ops.integrate_kernel import (integrate_launch_plan, integrate_step,
+                                                     integrate_step_plain)
 from eggshell_tpu_torch.ops.jassembly_kernel import (contact_jacobian_blocks,
                                                      contact_jacobian_blocks_plain)
 from eggshell_tpu_torch.fem.fdtd import fused_grids, init_2d, step_2d_fused, step_2d_fused_plain
@@ -54,6 +55,8 @@ from eggshell_tpu_torch.parallel.rollout import rollout_batched
 from eggshell_tpu_torch.physics import scenes
 from eggshell_tpu_torch.physics.scene import State
 from eggshell_tpu_torch.utils.config import BENCH, SimConfig, SolverKind
+from test_torch_integrate_compact_plan import (COMPACT_CASES, INTEGRATE_CASES, PLAN_SHAPES,
+                                               _compact_inputs, _integrate_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -379,6 +382,104 @@ def test_compact_kernel_matches_plain(dev, case):
     assert bool(want.active.any())
     if case == "dedupe":
         assert bool(((want.b1 >= 0) & ~want.active).any())
+
+
+def _to(x, dev):
+    """x with every tensor in it (nested tuples included) moved to dev."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple):
+        return tuple(_to(item, dev) for item in x)
+    return x
+
+
+def _same_bits(got, want):
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("case", list(INTEGRATE_CASES.values()), ids=list(INTEGRATE_CASES))
+def test_integrate_kernel_gives_the_plain_versions_bits(dev, case):
+    """B7 on the cases of the CPU replay (ground slots, idle lanes, b0 = b1,
+    lambda = -0, a lambda stride past 3K), -0 included; at K = 2048, n = 64
+    and at K = 700, n = 300 the plan takes the chunk route (lanes, and
+    lanes and bodies, in chunks)."""
+    B, K, n, L, _ = case
+    args = _to(_integrate_inputs(B, K, n, L, seed=K + n), dev)
+    before = integrate_step.launches
+    got = integrate_step(*args)
+    torch.cuda.synchronize()
+    assert integrate_step.launches == before + 1
+    assert _same_bits(got, integrate_step_plain(*args))
+
+
+def test_integrate_entry_takes_only_its_plan(dev):
+    """The C entry computes `integrate_launch_plan`'s plan at every shape of
+    the CPU plan test and refuses any other: it launches nothing and
+    raises."""
+    import ctypes
+
+    from eggshell_tpu_torch import kernels
+
+    lib = kernels.load()
+    out = (ctypes.c_int * 5)()
+    for B, K, n in PLAN_SHAPES.values():
+        assert lib.eggshell_integrate_plan(B, K, n, out) == 0
+        assert tuple(out) == tuple(integrate_launch_plan(B, K, n)), (B, K, n)
+    B, K, n, L, _ = INTEGRATE_CASES["bench"]
+    args = _to(_integrate_inputs(B, K, n, L, seed=K + n), dev)
+    outs = tuple(torch.empty_like(x) for x in args[4:8])
+    plan = integrate_launch_plan(B, K, n)
+    for bad in (plan._replace(scenarios=plan.scenarios + 1), plan._replace(threads=512),
+                plan._replace(lanes=3), plan._replace(shared_bytes=plan.shared_bytes + 4)):
+        with pytest.raises(RuntimeError):
+            kernels.launch("eggshell_integrate_f32", dev, *args[:11], *outs, B, K, n, L,
+                           float(args[11]), *bad)
+
+
+def _at_offset(x):
+    """A contiguous copy of x that starts one element past an allocation's
+    start."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return flat[1:].view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("what", ["integrate Jc", "integrate q", "compact pair_act"])
+def test_views_at_an_offset(dev, what):
+    """A Jc that is not 16-byte aligned and pair flags that are not 4-byte
+    aligned are refused (the kernels read them in 16- and 4-byte pieces);
+    q at any offset is taken, with the plain version's bits."""
+    if what.startswith("integrate"):
+        B, K, n, L, _ = INTEGRATE_CASES["bench"]
+        args = list(_to(_integrate_inputs(B, K, n, L, seed=K + n), dev))
+        i = 0 if what.endswith("Jc") else 5
+        args[i] = _at_offset(args[i])
+        if i == 0:
+            with pytest.raises(ValueError, match="16-byte"):
+                integrate_step(*args)
+        else:
+            assert _same_bits(integrate_step(*args), integrate_step_plain(*args))
+        return
+    args = list(_to(_compact_inputs(*COMPACT_CASES["overflow past K (bench widths)"],
+                                    seed=0), dev))
+    pos, nrm, dep, act = args[4]
+    args[4] = (pos, nrm, dep, _at_offset(act))
+    with pytest.raises(ValueError, match="4-byte"):
+        compact_contacts(*args)
+
+
+@pytest.mark.parametrize("case", list(COMPACT_CASES.values()), ids=list(COMPACT_CASES))
+def test_compact_kernel_matches_plain_on_the_replay_cases(dev, case):
+    """B3 and B3g on the cases of the CPU replay: overflow past K, clustered
+    lanes at min_constraint_distance 0.05, a depth cap, ground only, K = 64,
+    and two rounds of flag words and of bodies."""
+    B, n, P, K, act_p, eps2, cap, clustered, ground_only = case
+    args = _to(_compact_inputs(B, n, P, K, act_p, eps2, cap, clustered, ground_only,
+                               seed=n + P + K), dev)
+    before = compact_contacts.launches
+    got = compact_contacts(*args)
+    torch.cuda.synchronize()
+    assert compact_contacts.launches == before + 1
+    _assert_same_lanes(got, compact_contacts_plain(*args))
 
 
 @pytest.mark.parametrize("K", [32, 64, 85], ids=["mp96", "mp192", "mp256"])

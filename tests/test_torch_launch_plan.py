@@ -23,9 +23,9 @@ from eggshell_tpu_torch.ops.pgs_kernel import (JACOBI_RESIDENT_MAX_MP, MAX_CLUST
 # B6b spreads it over at most 8 blocks, and past that reads its rows from
 # device memory.
 RESIDENT_LIMIT, CLUSTER_LIMIT = 232, 664
-# The fused chain's lanes: past the compaction kernel's limit (4
-# scenarios' K lanes of 9 words in 232,448 bytes: K up to 1,614), with
-# room for a scene's joint lanes.
+# The fused chain's lanes: past K = 1,608, where 4 scenarios' compaction
+# stages (9K words and a drop mask each) pass 232,448 bytes and the
+# compaction kernel's blocks take fewer, with room for joint lanes.
 FUSED_MAX_K = 2048
 
 
