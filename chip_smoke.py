@@ -24,8 +24,14 @@ B6 on box_stack8's and living_room's first-step solves (mp = 96, the
 register row of 96 that those paths launch).  `[jacobi_packed_stream]`
 also requires the cluster solve B6b to return the resident B6's bits at
 mp = 192, past the crossing where the fused solve takes B6b, and times
-both there.
-Then it drives the ported paths through `rollout_batched` at B=4096, H=50:
+both there.  `[prep]` times B1 on the first steps of the bench,
+box_stack8, living_room and box_drop, and of the bench with control
+wrenches `ext_forces` (B, n, 6).
+Then it drives the ported paths through `rollout_batched` at B=4096, H=50,
+where the configuration is `parallel.rollout.graph_capturable` (every
+fused path) as a captured CUDA graph, timed in turns with the eager loop
+(`graph=False`) in the same phase, both giving the same bits; the
+unfused paths stay the loop:
 
 - the fused chain under the bench configuration (bench.py:80-94,
   `conditional_cfm=False`) on `box_stack(4)` with the bench's jitter: packed
@@ -67,9 +73,11 @@ plain path on the CPU and a cavity's energy over 2000 steps.
 Each path's oracle gate holds the unjittered stack to the DIRECT/f64
 trajectory in tests/data/oracle_stack4_f64.npz (bound 1e-3 at every stored
 checkpoint).  Each rollout phase sets every launch counter to 0 just before
-its timed run and checks just after that each kernel of its path launched
-once per step and no other kernel launched, and checks one physical
-property with a stated bound.  Each scene phase also holds 8 of its
+each timed run (captured and eager) and checks just after it that each
+kernel of its path launched once per step and no other kernel launched (a
+replay counts the launches its capture made), prints both rollouts/s,
+their ratio and the seconds of the first, capturing call, and checks one
+physical property with a stated bound.  Each scene phase also holds 8 of its
 scenarios, 30 steps on the card in float32, against the port's plain path
 on the CPU in float64.  Any failed phase exits nonzero.  The last three
 lines of standard output are the card's name and power limit, one JSON line
@@ -528,18 +536,19 @@ def fused_wrapper(name):
     return getattr(mod, fn), getattr(mod, fn + "_plain")
 
 
-def phase_fused_kernel(name, cases, extra=None):
+def phase_fused_kernel(name, cases, extras=()):
     """Hold one fused-chain kernel against its plain version on each case,
     and say whether it returned the plain version's bits (`torch.equal`,
     which takes -0 for 0); the error is max |kernel - plain| over every
     output, and the bound is relative to the output's scale,
-    max(1, max |plain|).  Timed on the last case, the main path's; `extra`
-    (what, args), one more case, is checked and timed too, under the keys
-    ms_extra, plain_ms_extra and bound_ms_extra."""
+    max(1, max |plain|).  Timed on the last case, the main path's; each of
+    `extras`, (what, args), is checked and timed too: the first under the
+    keys ms_extra, plain_ms_extra and bound_ms_extra, all of them under
+    `shapes` (what: ms, plain_ms, bound_ms)."""
     kernel, plain = fused_wrapper(name)
     rel_bound = FUSED_KERNELS[name][2]
     err_abs = 0.0
-    for what, args in cases + ([extra] if extra else []):
+    for what, args in list(cases) + list(extras):
         got, want = tensors(kernel(*args)), tensors(plain(*args))
         check(len(got) == len(want), f"{name}: {len(got)} outputs, plain has {len(want)}")
         case_abs, worst = 0.0, 0.0
@@ -564,9 +573,14 @@ def phase_fused_kernel(name, cases, extra=None):
 
     t, b = timed("main-path shapes", cases[-1][1])
     out = {"max_abs_err": err_abs, **t, **b}
-    if extra:
-        te, be = timed(extra[0], extra[1])
-        out.update(ms_extra=te["ms"], plain_ms_extra=te["plain_ms"], bound_ms_extra=be["bound_ms"])
+    shapes = {}
+    for what, args in extras:
+        te, be = timed(what, args)
+        shapes[what] = {"ms": te["ms"], "plain_ms": te["plain_ms"], "bound_ms": be["bound_ms"]}
+    if extras:
+        first = shapes[extras[0][0]]
+        out.update(ms_extra=first["ms"], plain_ms_extra=first["plain_ms"],
+                   bound_ms_extra=first["bound_ms"], shapes=shapes)
     return out
 
 
@@ -1184,23 +1198,9 @@ def phase_oracle(dev, cfg, tag):
 
 
 def launch_counters():
-    from eggshell_tpu_torch.ops.collision_kernel import (collide_boxes_lanes,
-                                                        collide_boxes_lanes_packed)
-    from eggshell_tpu_torch.ops.compact_kernel import compact_contacts
-    from eggshell_tpu_torch.fem.fdtd import step_2d_fused
-    from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi, solve_lcp_jacobi_block,
-                                                   solve_lcp_jacobi_packed_block,
-                                                   solve_lcp_jacobi_packed_pyramid,
-                                                   solve_lcp_jacobi_packed_stream)
+    from eggshell_tpu_torch.ops import launch_counters
 
-    out = {"narrowphase": collide_boxes_lanes, "narrowphase_packed": collide_boxes_lanes_packed,
-           "compact": compact_contacts, "jacobi": solve_lcp_jacobi,
-           "jacobi_block": solve_lcp_jacobi_block,
-           "jacobi_packed_stream": solve_lcp_jacobi_packed_stream,
-           "jacobi_packed_block": solve_lcp_jacobi_packed_block,
-           "jacobi_packed_pyramid": solve_lcp_jacobi_packed_pyramid, "fdtd2d": step_2d_fused}
-    out.update({name: fused_wrapper(name)[0] for name in FUSED_KERNELS})
-    return out
+    return launch_counters()
 
 
 def lowest_corners(spec, st):
@@ -1243,43 +1243,86 @@ def above_floor(spec, start, final):
     return f"lowest corner of a free body at {low:.3e} m (bound -1e-2)"
 
 
+def timed_rollout(spec, states, cfg, graph):
+    """(final states, host seconds) of one synchronised rollout_batched
+    call of H_SLICE steps."""
+    from eggshell_tpu_torch.parallel.rollout import rollout_batched
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final = rollout_batched(spec, states, cfg, H_SLICE, graph=graph)
+    torch.cuda.synchronize()
+    return final, time.perf_counter() - t0
+
+
 def phase_rollout(dev, tag, scene, path, physical, cfg=None):
     """Roll B_SLICE scenarios of the BASELINE scene `scene` H_SLICE steps
-    once to warm up, then once timed with every launch counter set to 0
-    just before; the kernels of `path` must each have launched once a step
-    and no other kernel at all.  `cfg` replaces the scene's bench
-    configuration; `physical(spec, start, final)` checks the outcome."""
-    from eggshell_tpu_torch.parallel.rollout import rollout_batched
+    through `rollout_batched`: where the configuration is
+    `graph_capturable`, the captured rollout (its first call, warm-up step
+    and capture included, then timed) and the eager loop (`graph=False`,
+    after a warm-up call) in turns, graph, loop, loop, graph; they must
+    give the same bits.  Before each timed call every launch counter is set
+    to 0 and after it the kernels of `path` must each have launched once a
+    step and no other kernel at all.  `cfg` replaces the scene's bench
+    configuration; `physical(spec, start, final)` checks the outcome.
+    Returns (launches of the main path's run, its rollouts/s)."""
+    from eggshell_tpu_torch.parallel.rollout import capture_refusal
     from eggshell_tpu_torch.physics import scenes
 
     spec, states, scene_cfg = scenes.baseline_batch(scene, B_SLICE, device=dev)
     cfg = scene_cfg if cfg is None else cfg
-    warm = rollout_batched(spec, states, cfg, H_SLICE)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(warm.p).all()), f"{tag} warm-up rollout not finite")
-
+    refusal = capture_refusal(cfg)
     counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    final = rollout_batched(spec, states, cfg, H_SLICE)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: H_SLICE if name in path else 0 for name in counters}
+
+    def counted(graph):
+        for fn in counters.values():
+            fn.launches = 0
+        final, dt = timed_rollout(spec, states, cfg, graph)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        check(launches == want, f"{tag} kernel launches {launches} ({'graph' if graph else 'loop'})"
+                                f", expected {want}")
+        return final, dt, launches
+
+    warm, _ = timed_rollout(spec, states, cfg, False)
+    check(bool(torch.isfinite(warm.p).all()), f"{tag} warm-up rollout not finite")
+    if refusal is None:
+        cold, cold_s = timed_rollout(spec, states, cfg, True)
+        times = {True: [], False: []}
+        for graph in (True, False, False, True):
+            final, dt, launches = counted(graph)
+            times[graph].append(dt)
+            if graph:
+                main_final, main_launches = final, launches
+            else:
+                eager_final = final
+        same = all(torch.equal(a, b) for a, b in zip(main_final, eager_final))
+        same_cold = all(torch.equal(a, b) for a, b in zip(main_final, cold))
+        g, e = (sum(times[k]) / 2 for k in (True, False))
+        print(f"[{tag}] captured rollout: {B_SLICE / times[True][0]:.1f}, "
+              f"{B_SLICE / times[True][1]:.1f} rollouts/s; eager loop: "
+              f"{B_SLICE / times[False][0]:.1f}, {B_SLICE / times[False][1]:.1f} rollouts/s; "
+              f"graph / loop {e / g:.2f}x (mean seconds); first graph call {cold_s:.4f} s, of "
+              f"which warm-up and capture {cold_s - g:.4f} s; the graph's bits the loop's: {same}"
+              f" (and the first call's: {same_cold})")
+        check(same and same_cold, f"{tag} captured rollout differs from the eager loop")
+        dt, rate, final, launches = g, B_SLICE / g, main_final, main_launches
+    else:
+        final, dt, launches = counted(None)
+        rate = B_SLICE / dt
+        print(f"[{tag}] eager loop only ({refusal}): {rate:.1f} rollouts/s")
 
     finite = all(bool(torch.isfinite(x).all()) for x in final)
     shapes = [tuple(x.shape) for x in final]
     n = spec.num_bodies
     print(f"[{tag}] {scene} B={B_SLICE} H={H_SLICE} K={cfg.contact_capacity}: {dt:.4f} s, "
-          f"{B_SLICE / dt:.1f} rollouts/s, {B_SLICE * H_SLICE / dt:.1f} steps/s; launches "
+          f"{rate:.1f} rollouts/s, {B_SLICE * H_SLICE / dt:.1f} steps/s; launches "
           f"{launches}; finite {finite}; shapes {shapes}")
     check(finite, f"{tag} output not finite")
     check(shapes == [(B_SLICE, n, 3), (B_SLICE, n, 3), (B_SLICE, n, 4), (B_SLICE, n, 3)],
           f"{tag} output shapes {shapes}")
-    want = {name: H_SLICE if name in path else 0 for name in counters}
-    check(launches == want, f"{tag} kernel launches {launches}, expected {want}")
     print(f"[{tag}] {physical.__doc__.strip()} {physical(spec, states, final)}")
-    return launches, B_SLICE / dt
+    return launches, rate
 
 
 AGREE_STEPS = 30
@@ -1412,9 +1455,16 @@ def main() -> int:
                     random_fused_inputs(dev, B=B, K=K, n=8)["amat"])
                    for K, B, route in ((64, 64, "slabs"), (400, 8, "Jc chunks"))]
     for name in FUSED_KERNELS:
-        # B4, B5 and B7 also at K = 32, on box_stack8's first step
-        extra = (("first-step inputs of [scene_box_stack8], K=32", first["box_stack8"][name])
-                 if name in ("jassembly", "amat", "integrate") else None)
+        # B4, B5 and B7 also at K = 32, on box_stack8's first step; B1 on
+        # the first steps of box_stack8, living_room and box_drop, and at the
+        # bench shape with control wrenches (the MPC input)
+        extras = ([("first-step inputs of [scene_box_stack8], K=32", first["box_stack8"][name])]
+                  if name in ("jassembly", "amat", "integrate") else [])
+        if name == "prep":
+            extras = [(f"first-step inputs of [scene_{scene}], n={first[scene][name][0].shape[1]}",
+                       first[scene][name]) for scene in ("box_stack8", "living_room", "box_drop")]
+            extras.append(("first-step inputs of [slice_fused] with ext_forces (B, n, 6)",
+                           first["box_stack4"][name][:8] + (rand["prep"][8],)))
         # B6 also on the solves of box_stack8's and living_room's paths (mp = 96)
         scene_solves = [
             (f"first-step inputs of [scene_{scene}], mp={first[scene][name][1].shape[1]}",
@@ -1423,7 +1473,7 @@ def main() -> int:
         cases = (amat_routes if name == "amat" else []) + scene_solves + [
             ("seeded random inputs", rand[name]),
             ("first-step inputs of [slice_fused]", first["box_stack4"][name])]
-        res[name] = phase_fused_kernel(name, cases, extra)
+        res[name] = phase_fused_kernel(name, cases, extras)
     res["narrowphase_packed"] = phase_narrowphase_packed(dev, [
         (f"[{tag}]", first[name]["narrowphase"])
         for tag, name in (("slice_fused", "box_stack4"), ("scene_box_stack8", "box_stack8"),
@@ -1518,7 +1568,7 @@ def main() -> int:
          "plain_ms": res[name]["plain_ms"], "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"], "library_ms": None,
          **{k: res[name][k] for k in ("resident_ms", "ms_extra", "plain_ms_extra",
-                                      "bound_ms_extra") if k in res[name]}}
+                                      "bound_ms_extra", "shapes") if k in res[name]}}
         for name, source, replaces, path, launches in rows
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -63,8 +63,8 @@ _SIGNATURES = {
     # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, route, copy, reg_rows, cluster, rows,
     # threads, stream
     "eggshell_jacobi_block_f32": [_P] * 6 + [_I64, _I, _I, _I, _F] + [_I] * 6 + [_P],
-    # q, v, w, ext, inv_mass, Ib, invIb, uhat, invIg, F, B, n, inv_dt, gx, gy, gz, stream
-    "eggshell_prep_f32": [_P] * 10 + [_I64, _I, _F, _F, _F, _F, _P],
+    # q, v, w, ext, inv_mass, Ib, invIb, uhat, invIg, F, B, n, inv_dt, gx, gy, gz, tile, stream
+    "eggshell_prep_f32": [_P] * 10 + [_I64, _I, _F, _F, _F, _F, _I, _P],
     # b0, b1, pos, pos1, nrm, dep, act, eq, p, uhat, Jc, rhs, B, K, n, erp_dt2, stream
     "eggshell_jassembly_f32": [_P] * 12 + [_I64, _I, _I, _F, _P],
     # Jc, b0, b1, act, inv_mass, invIg, A, diag, B, K, n, mp, cfm, rows, chunk, stream

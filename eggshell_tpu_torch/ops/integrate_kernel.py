@@ -137,11 +137,18 @@ def integrate_bodies_plain(jtl, p, q, v, w, inv_mass, invIg, F, dt: float):
     return p_new, q_new, u_new[..., :3], u_new[..., 3:]
 
 
-def integrate_step(Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, dt: float):
+def integrate_step(Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, dt: float, out=None):
     """(p, q, v, w) of the next step; see `integrate_step_plain` for the
-    arguments."""
+    arguments.  With `out`, four tensors of those shapes that none of the
+    inputs share, the step is written into them and they are returned (the
+    ping-pong state of `parallel.rollout.StepGraph`)."""
     if p.device.type == "cpu":
-        return integrate_step_plain(Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, dt)
+        new = integrate_step_plain(Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, dt)
+        if out is None:
+            return new
+        for o, x in zip(out, new):
+            o.copy_(x)
+        return tuple(out)
     if p.device.type != "cuda":
         raise ValueError(f"unsupported device {p.device}")
     from eggshell_tpu_torch import kernels
@@ -163,8 +170,17 @@ def integrate_step(Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, dt: float):
         kernels.check_arg(name, x, shape, dtype, dev)
     if Jc.data_ptr() % 16:
         raise ValueError("Jc must be 16-byte aligned: the kernel copies it in 16-byte pieces")
-    p_new, v_new, w_new = (torch.empty((B, n, 3), dtype=f32, device=dev) for _ in range(3))
-    q_new = torch.empty((B, n, 4), dtype=f32, device=dev)
+    if out is None:
+        p_new, v_new, w_new = (torch.empty((B, n, 3), dtype=f32, device=dev) for _ in range(3))
+        q_new = torch.empty((B, n, 4), dtype=f32, device=dev)
+    else:
+        p_new, q_new, v_new, w_new = out
+        for name, x, shape in (("p out", p_new, (B, n, 3)), ("q out", q_new, (B, n, 4)),
+                               ("v out", v_new, (B, n, 3)), ("w out", w_new, (B, n, 3))):
+            kernels.check_arg(name, x, shape, f32, dev)
+        if q_new.data_ptr() % 16:
+            raise ValueError("q out must be 16-byte aligned: the kernel stores it in 16-byte "
+                             "pieces")
     plan = integrate_launch_plan(B, K, n)
     kernels.launch("eggshell_integrate_f32", dev, Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg,
                    F, p_new, q_new, v_new, w_new, B, K, n, L, float(dt), *plan)

@@ -7,12 +7,30 @@ invIg = R I_b^-1 R^T, the forces F = [m g + ext_lin; -w x (Ig w) + ext_ang]
 with the world inertia Ig = R I_b R^T, and uhat = u/dt + M^-1 F.  On a
 CUDA tensor the wrapper launches `csrc/prep.cu`; on a CPU tensor it runs
 the plain version `prep_bodies_plain`.  A CUDA input that the kernel does
-not take raises; there is no fallback.
+not take raises; there is no fallback.  The kernel takes a tile of
+consecutive bodies a block (`prep_launch_plan`); inputs that are views at a
+storage offset are taken as they are (the kernel copies a misaligned run
+in 4-byte pieces).
 """
 
 from __future__ import annotations
 
 import torch
+
+# Bodies a block of the kernel, largest first (csrc/prep.cu takes these).
+TILES = (128, 64, 32)
+
+
+def prep_launch_plan(bodies: int, sms: int) -> int:
+    """Bodies a block of `csrc/prep.cu` for `bodies` = B * n bodies on a
+    card of `sms` streaming multiprocessors: the largest tile of TILES that
+    still gives every SM two blocks, else the smallest.  A block's bodies
+    are one thread each; smaller tiles spread the few warps a small batch
+    has over more SMs."""
+    for tile in TILES:
+        if -(-bodies // tile) >= 2 * sms:
+            return tile
+    return TILES[-1]
 
 
 def _mat3_mul(A, B):
@@ -96,8 +114,9 @@ def prep_bodies(q, v, w, inv_mass, inertia_body, inv_inertia_body, dt: float, gr
     invIg = torch.empty((B, n, 3, 3), dtype=f32, device=dev)
     F = torch.empty((B, n, 6), dtype=f32, device=dev)
     gx, gy, gz = (float(g) for g in gravity)
+    tile = prep_launch_plan(B * n, torch.cuda.get_device_properties(dev).multi_processor_count)
     kernels.launch("eggshell_prep_f32", dev, q, v, w, ext_forces, inv_mass, inertia_body,
-                   inv_inertia_body, uhat, invIg, F, B, n, 1.0 / dt, gx, gy, gz)
+                   inv_inertia_body, uhat, invIg, F, B, n, 1.0 / dt, gx, gy, gz, tile)
     prep_bodies.launches += 1
     return uhat, invIg, F
 

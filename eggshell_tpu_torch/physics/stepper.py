@@ -230,7 +230,7 @@ def jacobi_phase(K: int) -> str:
 
 
 def _fused_step(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
-                call=_run) -> State:
+                call=_run, out=None) -> State:
     """Counterpart of the JAX package's `_fused_step_all_kernel`, for any
     B: B2p (packed narrowphase, when the scene has pairs), B3 (compaction,
     depth cap and dedupe), the ball joints as equality lanes, then B1 (body
@@ -244,7 +244,8 @@ def _fused_step(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
     name one of "narrowphase", "compact", "prep", "jassembly", "amat",
     "jacobi_packed" or "jacobi_packed_stream", "integrate": `chip_smoke.py`
     records each kernel's arguments through it, and `profile_step` times
-    each phase."""
+    each phase.  With `out`, a State of buffers, B7 writes the next state
+    into them (the captured step of `parallel.rollout`)."""
     states = State(*(x.contiguous() for x in states))
     eps2 = cfg.min_constraint_distance ** 2
     pair = None
@@ -271,7 +272,7 @@ def _fused_step(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
         cfg.jacobi_omega, cfg.jacobi_beta, bool(cfg.jacobi_block), _pyramid_mu(cfg)))
     p, q, v, w = call("integrate", integrate_step, (
         Jc, lam, cs.b0, cs.b1, states.p, states.q, states.v, states.w, spec.inv_mass, invIg, F,
-        cfg.dt))
+        cfg.dt) + (() if out is None else ((out.p, out.q, out.v, out.w),)))
     return State(p=p, v=v, q=q, w=w)
 
 

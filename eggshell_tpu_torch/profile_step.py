@@ -13,13 +13,19 @@ On B = 4096 scenarios of `box_stack(4)` with the bench's jitter, float32:
    time per step, host clock per step over the window, the device's busy
    share, the kernels that take the most device time, and the device
    operations a step whose name shows a cumsum or scatter;
-3. the host clock per step of REPS steps outside any profiler.
+3. the host clock per step of REPS steps outside any profiler;
+4. the same step captured in a CUDA graph (`parallel.rollout.StepGraph`,
+   one step a graph, as `rollout_batched` replays it): 2 and 3 over REPS
+   replays, and from the graph's window each replay's span (first kernel's
+   start to last kernel's end: the step's kernels and the gaps between
+   them).
 
 Each BASELINE scene named on the command line (`physics.scenes.BASELINE`:
 box_drop, pendulum_chain6, box_stack8, living_room) gets 1 and 2 and 3 for
-its fused step too, with its capacity and jitter.  So does each name of
+its fused step too, with its capacity and jitter, and 4.  So does each name of
 `CONFIGS`: slice_pyramid and slice_block (the fused chain with
-Coulomb-pyramid friction, with block-Jacobi), joints_unfused
+Coulomb-pyramid friction, with block-Jacobi), box_stack8_k64 (box_stack8
+at contact_capacity 64, the path through B6b), joints_unfused
 (pendulum_chain6 on the unfused branch, 2 and 3 only), pgs (the JAX
 package's default `SimConfig()`, projected Gauss-Seidel, on box_stack4;
 2 and 3 over PGS_REPS steps) and fdtd2d (one step of the 2D FDTD at
@@ -54,6 +60,7 @@ COMPACTION_OPS = ("cumsum", "scatter")
 CONFIGS = {
     "slice_pyramid": ("box_stack4", BENCH.replace(friction_model=FrictionModel.COULOMB_PYRAMID)),
     "slice_block": ("box_stack4", BENCH.replace(jacobi_block=True)),
+    "box_stack8_k64": ("box_stack8", BENCH.replace(contact_capacity=64)),
     "joints_unfused": ("pendulum_chain6", UNFUSED.replace(contact_capacity=4)),
     "pgs": ("box_stack4", SimConfig(contact_capacity=20)),
 }
@@ -109,6 +116,43 @@ def profile(tag, step, reps: int = REPS) -> dict:
     return out
 
 
+def _span_ms(events, per_replay: int, reps: int) -> float:
+    """The median over the replays of a graph window (`per_replay` device
+    operations each, in start order) of a replay's span in ms."""
+    spans = []
+    for r in range(reps):
+        ev = events[r * per_replay:(r + 1) * per_replay]
+        spans.append((max(e.time_range.end for e in ev) - ev[0].time_range.start) * 1e-3)
+    return statistics.median(spans)
+
+
+def profile_graph(tag, spec, st, cfg, reps: int = REPS) -> dict:
+    """Item 4 of the module's description for one fused step."""
+    from eggshell_tpu_torch.parallel.rollout import StepGraph
+
+    t0 = time.perf_counter()
+    g = StepGraph(spec, cfg, st)
+    capture_s = time.perf_counter() - t0
+    g.load(st)
+    out = profile(f"{tag} graph", lambda: g.replay(1), reps)
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):       # a window that lost events is taken again
+        with torch.profiler.profile(activities=acts) as prof:
+            g.replay(reps)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events and len(events) % reps == 0:
+            break
+    else:
+        raise RuntimeError(f"[profile {tag} graph] no whole window of {reps} replays")
+    out.update(span_ms=_span_ms(events, len(events) // reps, reps), capture_s=capture_s)
+    print(f"[profile {tag} graph] a replay's span {out['span_ms']:.4f} ms (median); capture "
+          f"{capture_s:.3f} s")
+    return out
+
+
 def report_phases(tag, spec, st, cfg) -> dict:
     phases = fused_phases(spec, st, cfg, REPS)
     total = sum(phases.values())
@@ -129,6 +173,7 @@ def main(argv) -> int:
     result["phases_fused_ms"] = report_phases("fused", spec, st, cfg)
     for tag, c in (("fused", cfg), ("unfused", UNFUSED)):
         result[tag] = profile(tag, lambda: step_ode_batched(spec, st, c))
+    result["fused_graph"] = profile_graph("fused", spec, st, cfg)
     for name in argv:
         if name == "fdtd2d":
             grids = fdtd.fused_grids(fdtd.init_2d(FDTD_N, FDTD_N, device=dev))
@@ -141,6 +186,8 @@ def main(argv) -> int:
         phases = report_phases(name, sspec, sst, scfg) if _is_fused(scfg) else {}
         result[name] = {"phases_ms": phases, **profile(
             name, lambda: step_ode_batched(sspec, sst, scfg), PGS_REPS if name == "pgs" else REPS)}
+        if _is_fused(scfg):
+            result[name]["graph"] = profile_graph(name, sspec, sst, scfg)
     print(json.dumps(result))
     return 0
 

@@ -769,3 +769,139 @@ def test_fused_slice_goes_through_its_b6_form(dev, case):
     want = [0, 5, 0, 5] if case == "block" else [0, 0, 5, 5]
     assert [f.launches - b for f, b in zip(wrappers, before)] == want
     assert all(bool(torch.isfinite(x).all()) for x in out)
+
+
+def _prep_args(dev, B, n, ext, seed=0):
+    """Seeded bodies for B1: body 0 static (inverse mass and inertia 0)
+    where n > 1, the bench's dt and gravity, ext_forces or None."""
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+    q = rng.normal(size=(B, n, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    G = rng.normal(size=(n, 3, 3))
+    Ib = G @ G.transpose(0, 2, 1) + np.eye(3)
+    invIb = np.linalg.inv(Ib)
+    inv_mass = rng.uniform(0.5, 2.0, n)
+    if n > 1:
+        inv_mass[0], invIb[0] = 0.0, 0.0
+    return (f(q), f(rng.normal(size=(B, n, 3))), f(rng.normal(size=(B, n, 3))), f(inv_mass),
+            f(Ib), f(invIb), 1e-3, (0.0, 0.0, -9.8),
+            f(rng.normal(size=(B, n, 6))) if ext else None)
+
+
+@pytest.mark.parametrize("ext", [False, True], ids=["gravity", "ext_forces"])
+@pytest.mark.parametrize("n", [1, 4, 7, 8, 64])
+def test_prep_kernel_gives_the_plain_versions_bits(dev, n, ext):
+    """B1 at B = 523 (a ragged last tile, and every tile size the plan
+    takes over n = 1 to 64) returns the plain version's bits."""
+    args = _prep_args(dev, 523, n, ext, seed=n)
+    before = prep_bodies.launches
+    got = prep_bodies(*args)
+    torch.cuda.synchronize()
+    assert prep_bodies.launches == before + 1
+    assert _same_bits(got, prep_bodies_plain(*args))
+
+
+@pytest.mark.parametrize("what", ["q", "v", "w", "ext_forces", "all"])
+def test_prep_kernel_takes_views_at_an_offset(dev, what):
+    """An input that starts 4 bytes past its allocation is copied in 4-byte
+    pieces, with the plain version's bits; a tile the C entry does not
+    take launches nothing and raises."""
+    from eggshell_tpu_torch import kernels
+
+    args = list(_prep_args(dev, 301, 7, True, seed=3))
+    for i, name in enumerate(("q", "v", "w")):
+        if what in (name, "all"):
+            args[i] = _at_offset(args[i])
+    if what in ("ext_forces", "all"):
+        args[8] = _at_offset(args[8])
+    assert _same_bits(prep_bodies(*args), prep_bodies_plain(*args))
+    outs = [torch.empty(301, 7, k, device=dev) for k in (6, 9, 6)]
+    with pytest.raises(RuntimeError):
+        kernels.launch("eggshell_prep_f32", dev, *args[:3], args[8], *args[3:6], *outs, 301, 7,
+                       1e3, 0.0, 0.0, -9.8, 48)
+
+
+# case: (BASELINE scene, configuration or None for the scene's, the launch
+# counters of its path); bench (B3, B2p), box_drop (B3g), pendulum_chain6
+# (the joint lanes' torch glue), slice_pyramid (B6's pyramid form)
+GRAPH_CASES = {
+    "bench": ("box_stack4", None, ("narrowphase_packed", "compact", "prep", "jassembly", "amat",
+                                   "jacobi_packed", "integrate")),
+    "box_drop": ("box_drop", None, ("compact", "prep", "jassembly", "amat", "jacobi_packed",
+                                    "integrate")),
+    "pendulum_chain6": ("pendulum_chain6", None, ("compact", "prep", "jassembly", "amat",
+                                                  "jacobi_packed", "integrate")),
+    "slice_pyramid": ("box_stack4", "pyramid", ("narrowphase_packed", "compact", "prep",
+                                                "jassembly", "amat", "jacobi_packed_pyramid",
+                                                "integrate")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graph_rollout_is_bit_for_bit_the_loop(dev, case):
+    """The captured rollout returns the eager loop's
+    bits, counts H launches of each kernel of its path and none of any
+    other, leaves the caller's states as they were, returns tensors that
+    a later replay does not overwrite, and replays from its cache."""
+    from eggshell_tpu_torch.ops import launch_counters
+    from eggshell_tpu_torch.parallel.rollout import clear_graphs, rollout_batched_monitored
+    from eggshell_tpu_torch.utils.config import FrictionModel
+
+    scene, form, path = GRAPH_CASES[case]
+    spec, states, cfg = scenes.baseline_batch(scene, 256, device=dev)
+    if form == "pyramid":
+        cfg = cfg.replace(friction_model=FrictionModel.COULOMB_PYRAMID)
+    start = State(*(x.clone() for x in states))
+    H = 7
+    eager = rollout_batched(spec, states, cfg, H, graph=False)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    got = rollout_batched(spec, states, cfg, H, graph=True)
+    torch.cuda.synchronize()
+    assert {k: f.launches for k, f in counters.items()} == \
+        {k: H if k in path else 0 for k in counters}
+    assert _same_bits(got, eager)
+    assert _same_bits(states, start)
+    again = rollout_batched(spec, got, cfg, H, graph=True)
+    assert _same_bits(got, eager) and not _same_bits(again, got)
+    final, diag = rollout_batched_monitored(spec, states, cfg, H, graph=True)
+    assert _same_bits(final, eager)
+    assert int(diag["diverged_count"]) == 0 and bool((diag["first_bad_step"] == H).all())
+    clear_graphs()
+
+
+def test_graph_monitor_is_bit_for_bit_the_loop(dev):
+    """The monitor inside the graph: scenarios poisoned with v = 1e9 are
+    flagged at step 0 and frozen, exactly as in the loop."""
+    from eggshell_tpu_torch.parallel.rollout import clear_graphs, rollout_batched_monitored
+
+    spec, states, cfg = scenes.baseline_batch("box_stack4", 256, device=dev)
+    poisoned = torch.zeros(256, dtype=torch.bool, device=dev)
+    poisoned[1::50] = True
+    states = states._replace(v=torch.where(poisoned[:, None, None], 1e9, states.v))
+    want, wdiag = rollout_batched_monitored(spec, states, cfg, 9, graph=False)
+    got, diag = rollout_batched_monitored(spec, states, cfg, 9, graph=True)
+    assert _same_bits(got, want)
+    for k in ("diverged", "diverged_count", "first_bad_step"):
+        assert torch.equal(diag[k], wdiag[k]), k
+    assert torch.equal(diag["diverged"], poisoned)
+    assert bool((diag["first_bad_step"][poisoned] == 0).all())
+    clear_graphs()
+
+
+def test_a_rollout_outside_the_capture_rule_loops_and_says_so(dev):
+    """The unfused conditional-CFM slice is outside `graph_capturable`: its
+    rollout runs the loop with a RolloutLoopWarning, and a forced capture
+    raises."""
+    from eggshell_tpu_torch.parallel.rollout import RolloutLoopWarning, graph_capturable
+
+    cfg = BENCH.replace(conditional_cfm=True, cond_estimator="power")
+    assert not graph_capturable(cfg)
+    spec, states, _ = scenes.baseline_batch("box_stack4", 64, device=dev)
+    with pytest.warns(RolloutLoopWarning, match="Python loop"):
+        got = rollout_batched(spec, states, cfg, 2)
+    assert _same_bits(got, rollout_batched(spec, states, cfg, 2, graph=False))
+    with pytest.raises(ValueError, match="cannot capture"):
+        rollout_batched(spec, states, cfg, 2, graph=True)

@@ -212,3 +212,17 @@ def test_amat_takes_slabs_past_k_48_and_jc_chunks_past_k_343(K, route):
     plan = amat_launch_plan(K)
     if route == "chunk":
         assert plan.rows == 3 and plan.chunk < K < 2 * plan.chunk
+
+
+@pytest.mark.parametrize("bodies,tile", [(16_384, 32), (32_768, 64), (28_672, 64),
+                                         (4_096, 32), (1 << 20, 128), (1, 32)],
+                         ids=["bench", "box_stack8", "living_room", "box_drop", "large", "one"])
+def test_prep_tile_gives_every_sm_two_blocks(bodies, tile):
+    """B1's tile (`prep_launch_plan`) on the H100's 132 SMs: the largest of
+    128, 64, 32 bodies a block that still gives every SM two blocks, else
+    32 (the bench's 16,384 bodies: 512 blocks)."""
+    from eggshell_tpu_torch.ops.prep_kernel import TILES, prep_launch_plan
+
+    got = prep_launch_plan(bodies, 132)
+    assert got == tile and got in TILES
+    assert -(-bodies // got) >= 2 * 132 or got == min(TILES)
