@@ -25,8 +25,9 @@ register row of 96 that those paths launch).  `[jacobi_packed_stream]`
 also requires the cluster solve B6b to return the resident B6's bits at
 mp = 192, past the crossing where the fused solve takes B6b, and times
 both there.  `[prep]` times B1 on the first steps of the bench,
-box_stack8, living_room and box_drop, and of the bench with control
-wrenches `ext_forces` (B, n, 6).
+box_stack8, living_room and box_drop, of the bench with control
+wrenches `ext_forces` (B, n, 6), and of the MPC update's first step (its
+4096 samples of living_room with their first controls, (S, 7, 6)).
 Then it drives the ported paths through `rollout_batched` at B=4096, H=50,
 where the configuration is `parallel.rollout.graph_capturable` (every
 fused path) as a captured CUDA graph, timed in turns with the eager loop
@@ -51,6 +52,20 @@ unfused paths stay the loop:
   are held alone in `[jacobi_packed_pyramid]`, `[jacobi_packed_block]`),
   and `pendulum_chain(6)`'s ball joints on the unfused branch
   (`[slice_joints_unfused]`, m = 30).
+
+Then `[mpc_living_room]`, bench.py:181-218's MPC cell: one MPPI update
+(`mpc.sampling.mppi_update_batched`) on living_room at S = 4096 samples,
+H = 20, float32, controlled body 4, sigma 5, temperature 1, "constant"
+noise, cost sum((p[4] - (0, 0, 0.5))^2), zero mean.  The captured update
+(the rollout replays a control period captured with its control input)
+and the eager one (`graph=False`) are timed in turns, three each, and
+must give the same bits in the costs and the new mean; each must launch
+each fused kernel H times and nothing else.  It prints MPC solves/s,
+rollouts/s, steps/s and their ratio, holds 8 of the sampled sequences
+against the plain path on the CPU in float64 (p, q within 2e-3, costs
+within 2e-3 relative), recomputes the new mean in float64 within 1e-5,
+and prints the device ms of a controlled replay of living_room against
+the uncontrolled one.
 
 The block-Jacobi solve B6c' has no stepping path: `[jacobi_block]` calls
 its entry `solve_lcp_jacobi(block=True)` on the unfused slice's first LCP.
@@ -404,7 +419,7 @@ def unfused_first_lcp(dev, scene="box_stack4", cfg=None):
     from eggshell_tpu_torch.physics import scenes, stepper
 
     spec, states, _ = scenes.baseline_batch(scene, B_SLICE, device=dev)
-    sys_, A, rhs, _, _, _ = stepper._pre_solve(spec, states, slice_cfg() if cfg is None else cfg)
+    _, sys_, A, rhs, _, _, _ = stepper._pre_solve(spec, states, slice_cfg() if cfg is None else cfg)
     return tuple(x.contiguous() for x in (A, rhs, sys_.is_eq, sys_.lo, sys_.hi))
 
 
@@ -436,6 +451,60 @@ def fused_inputs(dev, name="box_stack4", cfg=None):
     _fused_step(spec, st, scene_cfg if cfg is None else cfg, call=record)
     torch.cuda.synchronize()
     return args
+
+
+# bench.py:181-218's mpc_living_room: living_room, the bench solver at
+# contact_capacity 32, S samples, horizon H, controlled body 4, sigma 5,
+# temperature 1, "constant" noise, target (0, 0, 0.5), zero mean
+MPC_S, MPC_H, MPC_BODY, MPC_SIGMA, MPC_T = 4096, 20, 4, 5.0, 1.0
+MPC_TARGET = (0.0, 0.0, 0.5)
+
+
+def mpc_problem(dev, dtype=torch.float32):
+    """(spec, state, cfg, cost) of the MPC cell: one living_room scene, the
+    bench configuration at contact_capacity 32, and the cost
+    sum((p[4] - target)^2) of one scene's final state."""
+    from eggshell_tpu_torch.physics import scenes
+
+    spec, st = scenes.living_room(device=dev, dtype=dtype)
+    target = torch.tensor(MPC_TARGET, dtype=dtype, device=dev)
+
+    def cost(final):
+        return torch.sum((final.p[MPC_BODY] - target) ** 2)
+
+    return spec, st, bench_cfg().replace(contact_capacity=32), cost
+
+
+def mpc_controls(dev, horizon=None):
+    """The MPC update's sampled controls (S, horizon or H, 6) from a
+    generator seeded with SEED on the card, as `mppi_update_batched` draws
+    them."""
+    from eggshell_tpu_torch.mpc.sampling import _sample
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    mean = torch.zeros((MPC_H if horizon is None else horizon, 6), device=dev)
+    return _sample(mean, gen, MPC_S, MPC_SIGMA, "constant")
+
+
+def mpc_first_prep(dev):
+    """B1's arguments at the MPC update's first step: the S samples of the
+    start state with their first control wrenches, ext_forces (S, 7, 6)."""
+    from eggshell_tpu_torch.physics.scene import State
+    from eggshell_tpu_torch.physics.stepper import _fused_step
+
+    spec, st, cfg, _ = mpc_problem(dev)
+    states = State(*(x.expand((MPC_S,) + x.shape).contiguous() for x in st))
+    ext = torch.zeros((MPC_S, spec.num_bodies, 6), device=dev)
+    ext[:, MPC_BODY] = mpc_controls(dev)[:, 0]
+    args = {}
+
+    def record(phase, fn, a):
+        args[phase] = a
+        return fn(*a)
+
+    _fused_step(spec, states, cfg, ext, call=record)
+    torch.cuda.synchronize()
+    return args["prep"]
 
 
 def random_fused_inputs(dev, B=4096, K=20, n=4):
@@ -1360,6 +1429,132 @@ def phase_agreement(dev, tag, scene, cfg=None):
     return err
 
 
+def controlled_step_ms(dev):
+    """Device ms a replay of living_room's step captured with a control
+    input (a StepGraph with controls, `controls[:, t]` filled into the
+    controlled body's slot inside the graph) against the same step without
+    one (the [scene_living_room] replay), from the same B_SLICE scenarios;
+    each from one torch.profiler window of 10 replays, L2 not flushed."""
+    from eggshell_tpu_torch.parallel.rollout import StepGraph
+    from eggshell_tpu_torch.physics import scenes
+    from eggshell_tpu_torch.utils.profiling import device_window
+
+    spec, states, cfg = scenes.baseline_batch("living_room", B_SLICE, device=dev)
+    ctrls = mpc_controls(dev, horizon=64)[:B_SLICE]    # 31 replays at most
+    out = {}
+    for what, g in (("uncontrolled", StepGraph(spec, cfg, states)),
+                    ("controlled", StepGraph(spec, cfg, states, controls=ctrls,
+                                             controlled_body=MPC_BODY))):
+        g.load(states, controls=ctrls if what == "controlled" else None)
+        w = device_window(lambda: g.replay(1), 10)
+        out[what] = w
+        del g
+    torch.cuda.empty_cache()
+    c, u = out["controlled"], out["uncontrolled"]
+    print(f"[mpc_living_room] a replayed step of living_room, B={B_SLICE}: controlled "
+          f"{c['device_ms']:.4f} ms of device time in {c['launches']:.1f} device operations, "
+          f"uncontrolled ([scene_living_room]) {u['device_ms']:.4f} ms in {u['launches']:.1f}; "
+          f"controlled / uncontrolled {c['device_ms'] / u['device_ms']:.3f}")
+    return {"controlled_ms": c["device_ms"], "uncontrolled_ms": u["device_ms"]}
+
+
+def phase_mpc(dev):
+    """The MPC cell of bench.py:181-218 through `mppi_update_batched`:
+    living_room, S = MPC_S samples, H = MPC_H, float32.  The captured
+    update (its first call, warm-up and capture included, untimed) and the
+    eager one (`graph=False`, after a warm-up call) in turns, graph, loop,
+    loop, graph, graph, loop, each from a generator seeded with SEED; all
+    must give the same bits in the costs and the new mean.  Before each
+    timed update every launch counter is set to 0, and after it each kernel
+    of the fused path must have launched H times and no other.  Then 8 of
+    the sampled control sequences, rolled on the CPU in float64 by the
+    plain path: p and q within AGREE_BOUND of the card's, each cost within
+    AGREE_BOUND relative; the new mean recomputed in float64 on the CPU
+    from the card's costs and controls within 1e-5; every cost finite.
+    Returns the launches of a captured update."""
+    from eggshell_tpu_torch.mpc.sampling import mppi_update_batched, rollout_controlled_batched
+    from eggshell_tpu_torch.physics import scenes
+    from eggshell_tpu_torch.physics.scene import State
+
+    tag = "mpc_living_room"
+    spec, st, cfg, cost = mpc_problem(dev)
+    mean = torch.zeros((MPC_H, 6), device=dev)
+    counters = launch_counters()
+    want = {name: MPC_H if name in FUSED_PATH else 0 for name in counters}
+
+    def update(graph):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_mean, costs = mppi_update_batched(
+            spec, st, cfg, mean, gen, cost, controlled_body=MPC_BODY, num_samples=MPC_S,
+            noise_sigma=MPC_SIGMA, temperature=MPC_T, noise_mode="constant", graph=graph)
+        torch.cuda.synchronize()
+        return new_mean, costs, time.perf_counter() - t0
+
+    update(False)
+    cold = update(True)
+    times, results = {True: [], False: []}, {True: [], False: []}
+    for graph in (True, False, False, True, True, False):
+        for fn in counters.values():
+            fn.launches = 0
+        new_mean, costs, dt = update(graph)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        check(launches == want, f"{tag} kernel launches {launches} "
+                                f"({'graph' if graph else 'loop'}), expected {want}")
+        times[graph].append(dt)
+        results[graph].append((new_mean, costs))
+        if graph:
+            main_launches = launches
+    new_mean, costs = results[False][0]
+    same = all(torch.equal(m, new_mean) and torch.equal(c, costs)
+               for m, c in results[True] + results[False] + [cold[:2]])
+    g, e = (sum(times[k]) / len(times[k]) for k in (True, False))
+    rates = {k: [1.0 / t for t in times[k]] for k in (True, False)}
+    print(f"[{tag}] living_room S={MPC_S} H={MPC_H} K={cfg.contact_capacity}, body {MPC_BODY}, "
+          f"sigma {MPC_SIGMA}, T {MPC_T}, constant noise: captured update "
+          f"{', '.join(f'{r:.2f}' for r in rates[True])} MPC solves/s, eager loop "
+          f"{', '.join(f'{r:.2f}' for r in rates[False])}; mean {1 / g:.2f} and {1 / e:.2f} MPC "
+          f"solves/s, {MPC_S / g:.1f} and {MPC_S / e:.1f} rollouts/s, {MPC_S * MPC_H / g:.1f} and "
+          f"{MPC_S * MPC_H / e:.1f} steps/s; graph / loop {e / g:.2f}x (mean seconds); first "
+          f"graph call {cold[2]:.4f} s, of which warm-up and capture {cold[2] - g:.4f} s; every "
+          f"update the same bits in costs and new mean: {same}; launches {main_launches}")
+    check(same, f"{tag} captured and eager updates differ")
+    check(bool(torch.isfinite(costs).all()), f"{tag} a cost is not finite")
+    check(tuple(new_mean.shape) == (MPC_H, 6) and tuple(costs.shape) == (MPC_S,),
+          f"{tag} shapes {tuple(new_mean.shape)}, {tuple(costs.shape)}")
+
+    ctrls = mpc_controls(dev)
+    states = State(*(x.expand((MPC_S,) + x.shape) for x in st))
+    final, _ = rollout_controlled_batched(spec, states, cfg, ctrls, MPC_BODY, graph=True)
+    check(torch.equal(torch.func.vmap(cost)(final), costs),
+          f"{tag} the captured rollout's costs are not the update's")
+    idx = torch.linspace(0, MPC_S - 1, 8, device=dev).round().long()
+    spec64, _, _, cost64 = mpc_problem("cpu", torch.float64)
+    start64 = State(*(x.double().cpu().expand((8,) + x.shape) for x in st))
+    want64, _ = rollout_controlled_batched(spec64, start64, cfg, ctrls[idx].double().cpu(),
+                                           MPC_BODY, graph=False)
+    err = {k: float((getattr(final, k)[idx].double().cpu() - getattr(want64, k)).abs().max())
+           for k in "pq"}
+    c64 = torch.func.vmap(cost64)(want64)
+    cost_rel = float(((costs[idx].double().cpu() - c64).abs() / c64.abs()).max())
+    costs64, ctrls64 = costs.double().cpu(), ctrls.double().cpu()
+    wts = torch.exp(-(costs64 - costs64.min()) / MPC_T)
+    mean64 = torch.einsum("s,shc->hc", wts / wts.sum(), ctrls64)
+    mean_err = float((new_mean.double().cpu() - mean64).abs().max())
+    print(f"[{tag}] 8 sampled sequences, card f32 against CPU f64 plain path, {MPC_H} steps: "
+          f"max |dp| {err['p']:.3e}, |dq| {err['q']:.3e} (bound {AGREE_BOUND:.0e}); costs "
+          f"{c64.min():.4f} to {c64.max():.4f}, max relative |dcost| {cost_rel:.3e} (bound "
+          f"{AGREE_BOUND:.0e}); new mean recomputed in f64 from the card's costs and controls: "
+          f"max |d| {mean_err:.3e} (bound 1e-5)")
+    check(err["p"] <= AGREE_BOUND and err["q"] <= AGREE_BOUND,
+          f"{tag} disagrees with the plain path: {err}")
+    check(cost_rel <= AGREE_BOUND, f"{tag} costs disagree with the plain path: {cost_rel}")
+    check(mean_err <= 1e-5, f"{tag} new mean differs from its f64 recomputation: {mean_err}")
+    controlled_step_ms(dev)
+    return main_launches
+
+
 FUSED_PATH = ("narrowphase_packed", "compact", "prep", "jassembly", "amat", "jacobi_packed",
               "integrate")
 UNFUSED_PATH = ("narrowphase", "jacobi")
@@ -1465,6 +1660,8 @@ def main() -> int:
                        first[scene][name]) for scene in ("box_stack8", "living_room", "box_drop")]
             extras.append(("first-step inputs of [slice_fused] with ext_forces (B, n, 6)",
                            first["box_stack4"][name][:8] + (rand["prep"][8],)))
+            extras.append(("first-step inputs of [mpc_living_room] with its controls, "
+                           f"ext_forces ({MPC_S}, 7, 6)", mpc_first_prep(dev)))
         # B6 also on the solves of box_stack8's and living_room's paths (mp = 96)
         scene_solves = [
             (f"first-step inputs of [scene_{scene}], mp={first[scene][name][1].shape[1]}",
@@ -1513,6 +1710,7 @@ def main() -> int:
         phase_agreement(dev, tag, "box_stack4", cfg=forms[tag])
     phase_rollout(dev, "slice_joints_unfused", "pendulum_chain6", ("jacobi",), joints_hold,
                   cfg=joints_unfused_cfg())
+    mpc_launches = phase_mpc(dev)
     fdtd_launches, _ = phase_fdtd2d_rollout(dev)
 
     rows = [("narrowphase", "eggshell_tpu_torch/csrc/narrowphase.cu",
@@ -1567,6 +1765,7 @@ def main() -> int:
          "launches": launches, "max_abs_err": res[name]["max_abs_err"], "ms": res[name]["ms"],
          "plain_ms": res[name]["plain_ms"], "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"], "library_ms": None,
+         **({"launches_mpc": mpc_launches[name]} if mpc_launches.get(name) else {}),
          **{k: res[name][k] for k in ("resident_ms", "ms_extra", "plain_ms_extra",
                                       "bound_ms_extra", "shapes") if k in res[name]}}
         for name, source, replaces, path, launches in rows

@@ -7,7 +7,8 @@ each counterpart is easy to find:
   torch + hand-written CUDA kernel), projected-Jacobi LCP (plain torch +
   hand-written CUDA kernel).
 - ``eggshell_tpu_torch.physics``  — scenes, contacts, constraints, stepper.
-- ``eggshell_tpu_torch.parallel`` — batched rollouts.
+- ``eggshell_tpu_torch.parallel`` — batched rollouts, and one scene's.
+- ``eggshell_tpu_torch.mpc``      — sampling (MPPI) model-predictive control.
 - ``eggshell_tpu_torch.kernels``  — builds and loads the CUDA sources in
   ``csrc/`` at first use.
 - ``eggshell_tpu_torch.convert``  — JAX-package scenes/states (as numpy

@@ -6,10 +6,12 @@ program.  Here, on the card, the step is captured once in a CUDA graph
 stands between two steps; the graphs are cached by scene, configuration
 and batch.  On the CPU, and on the card for a configuration whose step
 waits on the host (`capture_refusal`), the horizon is a Python loop over
-`step_ode_batched`.  Both give the same bits.
+`step_ode_batched`.  Both give the same bits.  A `StepGraph` with a
+control input replays one control period a graph (the controlled
+rollouts of `mpc.sampling`).
 
-`rollout` (one scene, with its trajectory) waits for the port of
-`step_ode` (ROADMAP A7).
+`rollout` steps one scene through `step_ode`, a Python loop, with its
+trajectory stacked on a leading time axis.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from eggshell_tpu_torch.ops import launch_counters
 from eggshell_tpu_torch.physics.scene import SceneSpec, State
 from eggshell_tpu_torch.physics.stepper import (_fused_step, _is_fused, check_supported,
-                                                step_ode_batched)
+                                                step_ode, step_ode_batched)
 from eggshell_tpu_torch.utils.config import FrictionModel, SimConfig, SolverKind
 
 # Captured graphs kept, the least recently used dropped first: each holds
@@ -120,6 +122,15 @@ class StepGraph:
     (`rollout_batched_monitored`), and the monitor writes the merged state
     into the other buffer.
 
+    With `controls` (a (B, H, 6) tensor of the control sequences' shape and
+    dtype) a graph is one control period: the graph-owned `ext` (B, n, 6)
+    gets `controlled_body`'s slot from the graph-owned `controls` at the
+    device step counter `index` (inside the graph, so replays stay back to
+    back), then `substeps` fused steps read it, the last writing into the
+    other buffer, and `running_cost` (one scene's State to a scalar,
+    `torch.func.vmap`-ped over the batch) is added to `acc` (B,).  `load`
+    fills `controls`; at most H replays follow a load.
+
     Capture: the step runs once from a copy of `like` to warm up (the
     kernel library loads; every C entry makes its first runtime calls
     there), then each graph is captured.  The kernel wrappers' launch
@@ -130,20 +141,29 @@ class StepGraph:
     """
 
     def __init__(self, spec: SceneSpec, cfg: SimConfig, like: State,
-                 speed_limit: Optional[float] = None):
+                 speed_limit: Optional[float] = None, controls=None, controlled_body: int = 0,
+                 substeps: int = 1, running_cost=None):
         self.spec, self.cfg, self.speed_limit = spec, cfg, speed_limit
+        self.controlled_body, self.substeps = controlled_body, substeps
+        self.running_cost = running_cost
         dev = like.p.device
         self.buffers = [State(*(torch.empty(x.shape, dtype=x.dtype, device=dev) for x in like))
                         for _ in range(2)]
         self.current = 0
         B = like.p.shape[0]
+        self.index = torch.zeros((), dtype=torch.int32, device=dev)
         if speed_limit is not None:
             self.diverged = torch.zeros(B, dtype=torch.bool, device=dev)
             self.first_bad = torch.zeros(B, dtype=torch.int32, device=dev)
-            self.index = torch.zeros((), dtype=torch.int32, device=dev)
+        self.controls = self.ext = None
+        if controls is not None:
+            self.controls = torch.empty(controls.shape, dtype=like.p.dtype, device=dev)
+            self.ext = torch.zeros((B, spec.num_bodies, 6), dtype=like.p.dtype, device=dev)
+            self.acc = torch.zeros(B, dtype=like.p.dtype, device=dev)
+        self.left = 0
         counters = launch_counters()
         before = {name: fn.launches for name, fn in counters.items()}
-        self.load(like)
+        self.load(like, controls=controls)
         self._body(0)                                  # warm-up from the copy
         torch.cuda.synchronize(dev)
         self.graphs, pool, self.launches = [], None, None
@@ -165,33 +185,57 @@ class StepGraph:
         """The buffer the last replay wrote (after `load`, the loaded one)."""
         return self.buffers[self.current]
 
+    def _control(self):
+        """The control wrenches of this replay: `controls[:, index]` into
+        the controlled body's slot of `ext`, the counter advanced, inside
+        the graph."""
+        step = self.controls.index_select(1, self.index.view(1))
+        self.ext[:, self.controlled_body].copy_(step[:, 0])
+        self.index += 1
+        return self.ext
+
     def _body(self, src: int) -> None:
         sts, out = self.buffers[src], self.buffers[1 - src]
+        ext = None if self.controls is None else self._control()
+        for _ in range(self.substeps - 1):
+            sts = _fused_step(self.spec, sts, self.cfg, ext)
         if self.speed_limit is None:
-            _fused_step(self.spec, sts, self.cfg, out=out)
-            return
-        nxt = _fused_step(self.spec, sts, self.cfg)
-        _, diverged, first_bad = _monitor(nxt, sts, self.diverged, self.first_bad, self.index,
-                                          self.speed_limit, out)
-        self.diverged.copy_(diverged)
-        self.first_bad.copy_(first_bad)
-        self.index += 1
+            _fused_step(self.spec, sts, self.cfg, ext, out=out)
+        else:
+            nxt = _fused_step(self.spec, sts, self.cfg, ext)
+            _, diverged, first_bad = _monitor(nxt, sts, self.diverged, self.first_bad,
+                                              self.index, self.speed_limit, out)
+            self.diverged.copy_(diverged)
+            self.first_bad.copy_(first_bad)
+            self.index += 1
+        if self.running_cost is not None:
+            self.acc += torch.func.vmap(self.running_cost)(out)
 
-    def load(self, states: State, num_steps: int = 0) -> None:
-        """Copy `states` into buffer 0, the next replay's input; with the
-        monitor, clear its flags and set every first bad step to
-        `num_steps`."""
+    def load(self, states: State, num_steps: int = 0, controls=None) -> None:
+        """Copy `states` into buffer 0, the next replay's input, and zero
+        the step counter; with the monitor, clear its flags and set every
+        first bad step to `num_steps`; with controls, copy `controls` in
+        and zero the running cost."""
         self.current = 0
         for dst, src in zip(self.buffers[0], states):
             dst.copy_(src)
+        self.index.zero_()
         if self.speed_limit is not None:
             self.diverged.zero_()
             self.first_bad.fill_(num_steps)
-            self.index.zero_()
+        if self.controls is not None:
+            self.controls.copy_(controls)
+            self.acc.zero_()
+            self.left = self.controls.shape[1]
 
     def replay(self, times: int) -> None:
         """Replay the graphs `times` times in turn and count each replay's
         launches."""
+        if self.controls is not None:
+            if times > self.left:
+                raise ValueError(f"{times} replays, but {self.left} controls are left since "
+                                 f"the last load")
+            self.left -= times
         for _ in range(times):
             self.graphs[self.current].replay()
             self.current = 1 - self.current
@@ -201,9 +245,11 @@ class StepGraph:
 
 
 class _GraphCache:
-    """StepGraphs by (scene, configuration, batch, speed limit), at
-    most CACHED_GRAPHS of them, the least recently used dropped first.  A
-    graph holds its scene, so the scene's identity stays its.
+    """StepGraphs by scene, configuration, batch, speed limit and control
+    input (the controls' shape and dtype, controlled body, substeps and
+    running cost), at most CACHED_GRAPHS of them, the least recently used
+    dropped first.  A graph holds its scene and its running cost, so their
+    identities stay theirs.
 
     One step a graph, replayed once a step: on the card as fast as the
     horizon unrolled in one capture, within the spread of their runs
@@ -213,12 +259,16 @@ class _GraphCache:
     def __init__(self):
         self._graphs = collections.OrderedDict()
 
-    def get(self, spec, cfg, states: State, speed_limit) -> StepGraph:
+    def get(self, spec, cfg, states: State, speed_limit=None, controls=None,
+            controlled_body: int = 0, substeps: int = 1, running_cost=None) -> StepGraph:
+        control_key = None if controls is None else (
+            tuple(controls.shape), controls.dtype, controlled_body, substeps, running_cost)
         key = (id(spec), cfg, tuple((tuple(x.shape), x.dtype) for x in states),
-               states.p.device, speed_limit)
+               states.p.device, speed_limit, control_key)
         g = self._graphs.get(key)
         if g is None or g.spec is not spec:
-            g = StepGraph(spec, cfg, states, speed_limit)
+            g = StepGraph(spec, cfg, states, speed_limit, controls, controlled_body, substeps,
+                          running_cost)
             self._graphs[key] = g
             while len(self._graphs) > CACHED_GRAPHS:
                 self._graphs.popitem(last=False)
@@ -237,11 +287,13 @@ def clear_graphs() -> None:
     _graphs.clear()
 
 
-def _replayed(spec, states: State, cfg, num_steps: int, speed_limit=None) -> StepGraph:
-    """The cached one-step graph of this rollout, replayed `num_steps`
-    times from `states`."""
-    g = _graphs.get(spec, cfg, states, speed_limit)
-    g.load(states, num_steps)
+def _replayed(spec, states: State, cfg, num_steps: int, speed_limit=None, controls=None,
+              controlled_body: int = 0, substeps: int = 1, running_cost=None) -> StepGraph:
+    """The cached graph of this rollout (one step, or with `controls` one
+    control period), replayed `num_steps` times from `states`."""
+    g = _graphs.get(spec, cfg, states, speed_limit, controls, controlled_body, substeps,
+                    running_cost)
+    g.load(states, num_steps, controls)
     g.replay(num_steps)
     return g
 
@@ -266,6 +318,24 @@ def _use_graph(states: State, cfg: SimConfig, graph: Optional[bool]) -> bool:
 
 def _fresh(states: State) -> State:
     return State(*(x.clone() for x in states))
+
+
+def rollout(spec: SceneSpec, state: State, cfg: SimConfig, num_steps: int,
+            keep_trajectory: bool = False):
+    """Advance one scene (`state` without a batch axis) `num_steps` steps of
+    `step_ode`.  Returns (final_state, trajectory), the trajectory the
+    state after each step stacked on a leading time axis where
+    `keep_trajectory`, else None."""
+    trajectory = []
+    for _ in range(num_steps):
+        state, _ = step_ode(spec, state, cfg)
+        if keep_trajectory:
+            trajectory.append(state)
+    if not keep_trajectory:
+        return state, None
+    if not trajectory:
+        return state, State(*(x.new_empty((0,) + x.shape) for x in state))
+    return state, batch_states(trajectory)
 
 
 def rollout_batched(spec: SceneSpec, states: State, cfg: SimConfig, num_steps: int,

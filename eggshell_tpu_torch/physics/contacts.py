@@ -7,9 +7,10 @@ reference order — ground corners body-major (8 per body), then the
 candidate pairs in order (MAX_CONTACTS_PER_PAIR lanes each) — and active
 candidates are compacted in that order, so lane k here is lane k in the
 JAX package.  `make_contacts_batched` is the unfused branch's contact
-step; the fused chain runs the compaction kernel (`ops.compact_kernel`),
-whose plain version is built from `ground_candidates`, `pair_candidates`,
-`_compact` and `_dedupe` here.
+step (`make_contacts` that of one scene); the fused chain runs the
+compaction kernel (`ops.compact_kernel`), whose plain version is built
+from `ground_candidates`, `pair_candidates`, `_compact` and `_dedupe`
+here.
 """
 
 from __future__ import annotations
@@ -203,6 +204,9 @@ def make_contacts_batched(spec: SceneSpec, states: State, cfg: SimConfig) -> Con
     scene with joints, the joint-contact dedupe.  Both judge the lanes'
     incoming flags, as the JAX package's one `_dedupe` does.  The box pairs
     of all scenarios go through one narrowphase call (B * P pairs)."""
+    if 0 < cfg.pair_capacity < spec.num_pairs:
+        raise NotImplementedError(
+            "pair_capacity > 0 (broadphase) is not ported yet (ROADMAP A9: broadphase scenes)")
     if cfg.contact_capacity >= _PAIRWISE_DEDUPE_MAX_K:
         raise NotImplementedError(
             "windowed dedupe for large contact capacities is not ported yet "
@@ -215,6 +219,14 @@ def make_contacts_batched(spec: SceneSpec, states: State, cfg: SimConfig) -> Con
         cs = drop_joint_contacts(cs, joint_points(a0, a1, spec.joint_b1), spec.joint_b0,
                                  spec.joint_b1, eps2)
     return cs
+
+
+def make_contacts(spec: SceneSpec, state: State, cfg: SimConfig) -> ContactSet:
+    """One scene's contacts, `state` without a batch axis: the batched
+    contacts of a batch of one (the JAX package's batched contacts are the
+    vmap of its per-scene ones), fields (K, ...)."""
+    cs = make_contacts_batched(spec, State(*(x[None] for x in state)), cfg)
+    return ContactSet(*(x[0] for x in cs))
 
 
 def depth_cap(cfg: SimConfig):

@@ -17,8 +17,11 @@ dispatches as the JAX package's does:
   Jacobi solve of `ops.lcp` (`_solve_lambda`), and the midpoint
   integration.
 
-`SolverKind.DIRECT`, `SolverKind.MATRIX_FREE` and `pair_capacity > 0`
-raise `NotImplementedError` naming the ROADMAP item that ports them.
+`step_ode` steps one scene: the unfused branch at a batch of one, under
+PGS, JACOBI or SOR (the JAX package's single-scene solver map has no
+JACOBI_KERNEL).  `SolverKind.DIRECT`, `SolverKind.MATRIX_FREE` and
+`pair_capacity > 0` raise `NotImplementedError` naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -178,7 +181,8 @@ def _batched_ext(ext_forces, states: State):
 
 def _pre_solve(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None):
     """Everything up to the lambda solve: contacts, constraints, the rhs
-    -erp/dt^2 err - J (u/dt + M^-1 F) and the system matrix."""
+    -erp/dt^2 err - J (u/dt + M^-1 F) and the system matrix.  Returns
+    (cs, sys, A, rhs, u, Minv, F)."""
     dt = cfg.dt
     cs = make_contacts_batched(spec, states, cfg)
     sys = build_constraints(spec, states, cs, cfg)
@@ -190,7 +194,7 @@ def _pre_solve(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None):
     MinvF = torch.einsum("bnij,bnj->bni", Minv, F)
     rhs = -cfg.erp / dt / dt * sys.err - torch.einsum("bmnk,bnk->bm", sys.J, u / dt + MinvF)
     A = system_matrix(spec, states, sys, cfg)
-    return sys, A, rhs, u, Minv, F
+    return cs, sys, A, rhs, u, Minv, F
 
 
 def _run(name, fn, args):
@@ -283,7 +287,7 @@ def step_ode_batched(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=
     check_supported(cfg)
     if _is_fused(cfg):
         return _fused_step(spec, states, cfg, ext_forces)
-    sys, A, rhs, u, Minv, F = _pre_solve(spec, states, cfg, _batched_ext(ext_forces, states))
+    _, sys, A, rhs, u, Minv, F = _pre_solve(spec, states, cfg, _batched_ext(ext_forces, states))
     if (cfg.solver == SolverKind.JACOBI_KERNEL
             and cfg.friction_model != FrictionModel.COULOMB_PYRAMID):
         # the JAX package's kernel call here passes no `block`: jacobi_block
@@ -299,3 +303,32 @@ def step_ode_batched(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=
             solve_cfg = cfg.replace(solver=SolverKind.JACOBI)
         lam = _solve_lambda(A, rhs, sys, solve_cfg)
     return _post_solve(states, cfg, sys, lam, u, Minv, F)
+
+
+def check_single_scene(cfg: SimConfig) -> None:
+    """`check_supported`, and besides a clear error for JACOBI_KERNEL: the
+    JAX package's single-scene solver map has no entry for it (its
+    `step_ode` raises KeyError), so its single-scene path runs PGS, JACOBI
+    and SOR only."""
+    check_supported(cfg)
+    if cfg.solver == SolverKind.JACOBI_KERNEL:
+        raise ValueError(
+            "the single-scene step has no solve for SolverKind.JACOBI_KERNEL, as in the JAX "
+            "package (its step_ode's solver map lacks it): use PGS, JACOBI or SOR, or "
+            "step_ode_batched")
+
+
+def step_ode(spec: SceneSpec, state: State, cfg: SimConfig, ext_force=None):
+    """One step of one scene, `state` without a batch axis.  Returns
+    (new_state, contact_set).  `ext_force` (n, 6) adds control wrenches
+    [force; torque] per body.  The unfused branch at a batch of one, the
+    batch axis dropped (the JAX package's batched unfused step is the vmap
+    of the same per-scene math); PGS, JACOBI and SOR only
+    (`check_single_scene`)."""
+    check_single_scene(cfg)
+    states = State(*(x[None] for x in state))
+    ext = None if ext_force is None else _batched_ext(ext_force, states)
+    cs, sys, A, rhs, u, Minv, F = _pre_solve(spec, states, cfg, ext)
+    lam = _solve_lambda(A, rhs, sys, cfg)
+    nxt = _post_solve(states, cfg, sys, lam, u, Minv, F)
+    return State(*(x[0] for x in nxt)), ContactSet(*(x[0] for x in cs))

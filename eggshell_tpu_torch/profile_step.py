@@ -28,8 +28,10 @@ Coulomb-pyramid friction, with block-Jacobi), box_stack8_k64 (box_stack8
 at contact_capacity 64, the path through B6b), joints_unfused
 (pendulum_chain6 on the unfused branch, 2 and 3 only), pgs (the JAX
 package's default `SimConfig()`, projected Gauss-Seidel, on box_stack4;
-2 and 3 over PGS_REPS steps) and fdtd2d (one step of the 2D FDTD at
-n = 2048; 2 and 3).
+2 and 3 over PGS_REPS steps), fdtd2d (one step of the 2D FDTD at
+n = 2048; 2 and 3) and mpc_living_room (living_room's step with a control
+input, as the MPC update replays it: a `StepGraph` with controls, the
+control slot filled inside the graph; 4 only).
 
 Prints one line per result and a JSON line.  It needs a CUDA device; it
 never falls back to the CPU.
@@ -126,14 +128,17 @@ def _span_ms(events, per_replay: int, reps: int) -> float:
     return statistics.median(spans)
 
 
-def profile_graph(tag, spec, st, cfg, reps: int = REPS) -> dict:
-    """Item 4 of the module's description for one fused step."""
+def profile_graph(tag, spec, st, cfg, reps: int = REPS, controls=None,
+                  controlled_body: int = 0) -> dict:
+    """Item 4 of the module's description for one fused step; with
+    `controls` (B, H, 6), H above the 7 * reps + 2 replays this makes, the
+    step with that control input."""
     from eggshell_tpu_torch.parallel.rollout import StepGraph
 
     t0 = time.perf_counter()
-    g = StepGraph(spec, cfg, st)
+    g = StepGraph(spec, cfg, st, controls=controls, controlled_body=controlled_body)
     capture_s = time.perf_counter() - t0
-    g.load(st)
+    g.load(st, controls=controls)
     out = profile(f"{tag} graph", lambda: g.replay(1), reps)
     acts = [torch.profiler.ProfilerActivity.CUDA]
     for _ in range(3):       # a window that lost events is taken again
@@ -175,6 +180,13 @@ def main(argv) -> int:
         result[tag] = profile(tag, lambda: step_ode_batched(spec, st, c))
     result["fused_graph"] = profile_graph("fused", spec, st, cfg)
     for name in argv:
+        if name == "mpc_living_room":
+            mspec, mst, mcfg = scenes.baseline_batch("living_room", B, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            ctrls = 5.0 * torch.randn((B, 8 * REPS, 6), generator=gen, device=dev)
+            result[name] = profile_graph(name, mspec, mst, mcfg, controls=ctrls,
+                                         controlled_body=4)
+            continue
         if name == "fdtd2d":
             grids = fdtd.fused_grids(fdtd.init_2d(FDTD_N, FDTD_N, device=dev))
             dt = fdtd.courant_dt(1.0, 2, 0.7)

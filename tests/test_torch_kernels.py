@@ -905,3 +905,83 @@ def test_a_rollout_outside_the_capture_rule_loops_and_says_so(dev):
     assert _same_bits(got, rollout_batched(spec, states, cfg, 2, graph=False))
     with pytest.raises(ValueError, match="cannot capture"):
         rollout_batched(spec, states, cfg, 2, graph=True)
+
+
+def _mpc_cell(dev):
+    """living_room under the bench configuration at contact_capacity 32,
+    the MPC cell's (bench.py:181-218) cost, at S = 64 and H = 5."""
+    spec, st = scenes.living_room(device=dev, dtype=torch.float32)
+    target = torch.tensor([0.0, 0.0, 0.5], device=dev)
+
+    def cost(final):
+        return torch.sum((final.p[4] - target) ** 2)
+
+    return spec, st, BENCH.replace(contact_capacity=32), cost
+
+
+MPC_PATH = ("narrowphase_packed", "compact", "prep", "jassembly", "amat", "jacobi_packed",
+            "integrate")
+
+
+def test_captured_mppi_update_is_bit_for_bit_the_loop(dev):
+    """The captured MPPI update (the control slot filled inside the graph)
+    gives the eager loop's bits in the new mean and the costs, counts H
+    launches of each kernel of the fused path and none of any other, and a
+    controlled rollout with a running cost and 2 substeps gives the loop's
+    bits in its states and its running cost."""
+    from eggshell_tpu_torch.mpc.sampling import (_sample, mppi_update_batched,
+                                                 rollout_controlled_batched)
+    from eggshell_tpu_torch.ops import launch_counters
+    from eggshell_tpu_torch.parallel.rollout import clear_graphs
+
+    spec, st, cfg, cost = _mpc_cell(dev)
+    S, H = 64, 5
+    mean = torch.zeros((H, 6), device=dev)
+
+    def update(graph):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return mppi_update_batched(spec, st, cfg, mean, gen, cost, controlled_body=4,
+                                   num_samples=S, noise_sigma=5.0, noise_mode="constant",
+                                   graph=graph)
+
+    want = update(False)
+    update(True)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    got = update(True)
+    torch.cuda.synchronize()
+    assert {k: f.launches for k, f in counters.items()} == \
+        {k: H if k in MPC_PATH else 0 for k in counters}
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert bool(torch.isfinite(got[1]).all())
+
+    ctrls = _sample(mean, torch.Generator(device=dev).manual_seed(1), S, 5.0, "white")
+    states = State(*(x.expand((S,) + x.shape) for x in st))
+    eager = rollout_controlled_batched(spec, states, cfg, ctrls, 4, cost, 2, graph=False)
+    captured = rollout_controlled_batched(spec, states, cfg, ctrls, 4, cost, 2, graph=True)
+    assert _same_bits(captured[0], eager[0]) and torch.equal(captured[1], eager[1])
+    clear_graphs()
+
+
+def test_controlled_rollout_outside_the_capture_rule_loops_and_says_so(dev):
+    """An unfused configuration's controlled rollout loops with a
+    RolloutLoopWarning and refuses graph=True, as does graph=True on CPU
+    tensors."""
+    from eggshell_tpu_torch.mpc.sampling import rollout_controlled_batched
+    from eggshell_tpu_torch.parallel.rollout import RolloutLoopWarning
+
+    spec, st, cfg, _ = _mpc_cell(dev)
+    unfused = cfg.replace(conditional_cfm=True, cond_estimator="power")
+    states = State(*(x.expand((8,) + x.shape) for x in st))
+    ctrls = torch.ones((8, 2, 6), device=dev)
+    with pytest.warns(RolloutLoopWarning, match="Python loop"):
+        got, _ = rollout_controlled_batched(spec, states, unfused, ctrls, 4)
+    want, _ = rollout_controlled_batched(spec, states, unfused, ctrls, 4, graph=False)
+    assert _same_bits(got, want)
+    with pytest.raises(ValueError, match="cannot capture"):
+        rollout_controlled_batched(spec, states, unfused, ctrls, 4, graph=True)
+    cpu = State(*(x.cpu() for x in states))
+    cspec = type(spec)(*(x.cpu() for x in spec))
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        rollout_controlled_batched(cspec, cpu, cfg, ctrls.cpu(), 4, graph=True)

@@ -1,8 +1,11 @@
 """Port parity: quaternion / SO(3) primitives of `eggshell_tpu_torch`
 against `eggshell_tpu.ops.quaternion`, float64, same numpy inputs.
 Tolerance 1e-12: the same formulas in the same order, so only the last
-bits of library sqrt/sin/cos may differ."""
+bits of library sqrt/sin/cos may differ.  `random_quat` and
+`random_rotation` draw on a torch.Generator where the JAX package takes a
+key: they are held to unit norm and orthonormality instead."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,3 +73,47 @@ def test_box_inertia_matches_jax(data):
     s = rng.uniform(0.1, 1.0, (16, 3))
     _close(jq.box_inertia(jnp.asarray(m), jnp.asarray(s)),
            tq.box_inertia(torch.as_tensor(m), torch.as_tensor(s)))
+
+
+@pytest.fixture(scope="module")
+def quat_data():
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(64, 4))
+    R = tq.quat_to_mat(tq.quat_normalize(torch.as_tensor(q))).numpy()
+    # near the identity and at half turns about each axis (mat_to_quat's branches)
+    special = np.stack([np.eye(3), np.diag([1.0, -1.0, -1.0]), np.diag([-1.0, 1.0, -1.0]),
+                        np.diag([-1.0, -1.0, 1.0]),
+                        tq.quat_to_mat(torch.tensor([1.0, 1e-7, -2e-7, 1e-7])).numpy()])
+    return {"q": q, "v": rng.normal(size=(64, 3)), "R": np.concatenate([R, special]),
+            "M": rng.normal(size=(64, 3, 3))}
+
+
+@pytest.mark.parametrize("name", ["quat_conj", "quat_rotate", "quat_rotate_inv", "mat_to_quat",
+                                  "gram_schmidt", "is_orthonormal"])
+def test_quaternion_helper_matches_jax(quat_data, name):
+    q, v, R, M = quat_data["q"], quat_data["v"], quat_data["R"], quat_data["M"]
+    args = {"quat_conj": (q,), "quat_rotate": (q, v), "quat_rotate_inv": (q, v),
+            "mat_to_quat": (R,), "gram_schmidt": (M,),
+            "is_orthonormal": (np.concatenate([R, M[:8]]),)}[name]
+    want = np.asarray(jax.jit(getattr(jq, name))(*map(jnp.asarray, args)))
+    got = getattr(tq, name)(*map(torch.as_tensor, args))
+    if name == "is_orthonormal":
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert want[:len(R)].all() and not want[len(R):].any()
+    else:
+        _close(want, got)
+
+
+def test_quaternion_identity_and_random_rotations():
+    np.testing.assert_array_equal(tq.quat_identity(torch.float64).numpy(),
+                                  np.asarray(jq.quat_identity(jnp.float64)))
+    gen = torch.Generator().manual_seed(0)
+    q = tq.random_quat(gen, (100,), torch.float64)
+    assert q.shape == (100, 4)
+    np.testing.assert_allclose(torch.linalg.vector_norm(q, dim=-1).numpy(), 1.0, rtol=0, atol=TOL)
+    R = tq.random_rotation(gen, (7, 3), torch.float64)
+    assert R.shape == (7, 3, 3, 3) and bool(tq.is_orthonormal(R).all())
+    np.testing.assert_allclose(torch.linalg.det(R).numpy(), 1.0, rtol=0, atol=TOL)
+    v = torch.as_tensor(np.random.default_rng(1).normal(size=(100, 3)))
+    _close(torch.einsum("nij,nj->ni", tq.quat_to_mat(q), v).numpy(), tq.quat_rotate(q, v))
+    _close(v.numpy(), tq.quat_rotate_inv(q, tq.quat_rotate(q, v)))

@@ -5,6 +5,7 @@ and which unfused configurations capture at all.
     python tools/rollout_graph_probe.py            # both parts
     python tools/rollout_graph_probe.py designs    # part 1 only
     python tools/rollout_graph_probe.py captures   # part 2 only
+    python tools/rollout_graph_probe.py controls   # part 3 only
 
 1. Designs.  On B = 4096 scenarios of each BASELINE scene (bench
    configuration, the scene's capacity and jitter), H = 50 steps: the
@@ -26,6 +27,16 @@ and which unfused configurations capture at all.
    estimator's factorisation and solves (`stepper._cond_bounds_power`:
    `cholesky_ex`, `cholesky_solve`) are captured alone too, on a seeded
    SPD batch at the slice's m = 60, whatever stops the whole step first.
+3. Controls.  The controlled rollout of the MPC cell (bench.py:181-218:
+   living_room, S = 4096 samples, H = 20 controls, body 4, sigma 5,
+   "constant" noise, the bench configuration at contact_capacity 32): the
+   eager loop, (a) the control slot filled inside the graph from a device
+   step counter (`StepGraph` with controls, what `mpc.sampling` runs) and
+   (b) the slot filled by one copy launched from the host between replays
+   (`HostFillGraph`, built here only), REPS_CONTROLS times each in turns
+   after a warm-up call; each must give the loop's bits.  Prints each
+   one's rollouts/s and MPC-update-equivalents (rollouts of the S samples)
+   a second, and the medians' ratio.
 
 It needs a CUDA device and imports nothing of JAX.
 """
@@ -48,6 +59,7 @@ from eggshell_tpu_torch.physics.stepper import _fused_step, step_ode_batched  # 
 from eggshell_tpu_torch.utils.config import BENCH, SolverKind  # noqa: E402
 
 B, H, REPS = 4096, 50, 3
+S_CONTROLS, H_CONTROLS, BODY, REPS_CONTROLS = 4096, 20, 4, 5
 UNFUSED = BENCH.replace(conditional_cfm=True, cond_estimator="power")
 CAPTURES = {
     "slice_unfused_power": ("box_stack4", UNFUSED),
@@ -73,6 +85,21 @@ class UnfusedGraph(StepGraph):
         for dst, x in zip(self.buffers[1 - src],
                           step_ode_batched(self.spec, self.buffers[src], self.cfg)):
             dst.copy_(x)
+
+
+class HostFillGraph(StepGraph):
+    """Design (b) of the controlled step: the graph reads `ext` as it is,
+    and a copy launched from the host fills the controlled body's slot
+    before each replay."""
+
+    def _control(self):
+        return self.ext
+
+    def replay(self, times):
+        for _ in range(times):
+            t = self.controls.shape[1] - self.left
+            self.ext[:, self.controlled_body].copy_(self.controls[:, t])
+            super().replay(1)
 
 
 def seconds(fn) -> float:
@@ -118,6 +145,47 @@ def designs(dev) -> None:
               f"loop's")
         del graphs
         torch.cuda.empty_cache()
+
+
+def controls(dev) -> None:
+    from eggshell_tpu_torch.mpc.sampling import _sample, rollout_controlled_batched
+    from eggshell_tpu_torch.physics.scene import State
+
+    spec, st = scenes.living_room(device=dev, dtype=torch.float32)
+    cfg = BENCH.replace(contact_capacity=32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ctrls = _sample(torch.zeros((H_CONTROLS, 6), device=dev), gen, S_CONTROLS, 5.0, "constant")
+    states = State(*(x.expand((S_CONTROLS,) + x.shape) for x in st))
+    want, _ = rollout_controlled_batched(spec, states, cfg, ctrls, BODY, graph=False)
+    graphs, capture = {}, {}
+    for name, kind in (("a", StepGraph), ("b", HostFillGraph)):
+        t0 = time.perf_counter()
+        graphs[name] = kind(spec, cfg, states, controls=ctrls, controlled_body=BODY)
+        torch.cuda.synchronize()
+        capture[name] = time.perf_counter() - t0
+
+    def run(name):
+        if name == "loop":
+            return lambda: rollout_controlled_batched(spec, states, cfg, ctrls, BODY, graph=False)
+        g = graphs[name]
+        return lambda: (g.load(states, controls=ctrls), g.replay(H_CONTROLS))
+
+    times = {k: [] for k in ("loop", "a", "b")}
+    for r in range(REPS_CONTROLS):
+        order = ("loop", "a", "b") if r % 2 == 0 else ("b", "a", "loop")
+        for name in order:
+            times[name].append(seconds(run(name)))
+    for name in ("a", "b"):
+        if not all(torch.equal(x, y) for x, y in zip(graphs[name].state, want)):
+            raise SystemExit(f"controls design {name}: not the loop's bits")
+    rate = {k: [S_CONTROLS / t for t in v] for k, v in times.items()}
+    med = {k: statistics.median(v) for k, v in rate.items()}
+    print(f"[controls] living_room S={S_CONTROLS} H={H_CONTROLS}: rollouts/s loop {rate['loop']}; "
+          f"(a) slot filled in the graph {rate['a']} (capture {capture['a']:.3f} s); (b) slot "
+          f"filled from the host {rate['b']} (capture {capture['b']:.3f} s); medians loop "
+          f"{med['loop']:.1f}, a {med['a']:.1f}, b {med['b']:.1f} (rollouts of the S samples a "
+          f"second: {med['a'] / S_CONTROLS:.2f}, {med['b'] / S_CONTROLS:.2f}); b / a "
+          f"{med['b'] / med['a']:.3f}; bits the loop's")
 
 
 def try_capture_cond_bounds(dev) -> None:
@@ -173,11 +241,13 @@ def main(argv) -> int:
     if argv[:1] == ["--try"]:
         try_capture(argv[1], dev)
         return 0
-    parts = argv or ["designs", "captures"]
+    parts = argv or ["designs", "captures", "controls"]
     if "designs" in parts:
         designs(dev)
     if "captures" in parts:
         captures()
+    if "controls" in parts:
+        controls(dev)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     return 0
