@@ -67,6 +67,29 @@ within 2e-3 relative), recomputes the new mean in float64 within 1e-5,
 and prints the device ms of a controlled replay of living_room against
 the uncontrolled one.
 
+Then the large-scene tier of bench.py:286-318, through `rollout_batched`
+under SolverKind.MATRIX_FREE (60 sweeps, the "mask" broadphase, margin
+0.05, max_correcting_vel 2): `[pile216]` (box_pile(216), B = 8, K = 4096,
+pair capacity 2048) and `[pile512]` (box_pile(512), B = 4, K = 8192, pair
+capacity 4096), H = 50, f32, captured and eager in turns with the same
+bits; each prints steps/s and body-steps/s, the capture seconds, B2's
+launches (one a step, and nothing else), `count_dropped_contacts` on the
+first and last state, a replayed step's device operations and device ms,
+no box corner more than 0.03 m below the floor, and 1 scenario over 10
+steps against the CPU f64 plain path (p, q within 2e-3); `[pile512]` also
+times the broadphase in both kinds ("mask", "sap" with window 64) and the
+last state's matrix-free solve in each matvec form ("segment",
+`index_add_`; "onehot", matmuls, TF32 off; "sorted", the deterministic
+per-body sum "auto" takes on the card).  B2 is held against its plain
+version and timed at the piles' shape before any graph is replayed.
+`[scene_living_room_bp]` rolls living_room on the fused chain with the
+broadphase (margin 0.1) at the smallest pair capacity at which no contact
+is dropped over the run (found from the all-pairs rollout, one less must
+drop), captured and eager, and must give the all-pairs `[scene_living_room]`
+rollout's bits; B2p and B3 on its per-scenario pair lists and gate are
+held against their plain versions and timed first (`[narrowphase_packed]`,
+`[compact]`).
+
 The block-Jacobi solve B6c' has no stepping path: `[jacobi_block]` calls
 its entry `solve_lcp_jacobi(block=True)` on the unfused slice's first LCP.
 `[jacobi_cluster]` and `[jacobi_block_cluster]` hold B6c and B6c' in their
@@ -270,8 +293,9 @@ def compare_contacts(what: str, got, want, generic=None) -> float:
     agree = float(same.float().mean())
     both = got.active & want.active & same[:, None]
     act_agree = float((got.active == want.active)[same].float().mean())
-    err_pos = float((got.position - want.position).abs().amax(-1)[both].max())
-    err_dep = float((got.depth - want.depth).abs()[both].max())
+    none = not bool(both.any())          # e.g. a pile's first step: no box touches another
+    err_pos = 0.0 if none else float((got.position - want.position).abs().amax(-1)[both].max())
+    err_dep = 0.0 if none else float((got.depth - want.depth).abs()[both].max())
     err = max(err_pos, err_dep)
     line = f"[narrowphase] {what}: code agreement {agree:.6f}"
     if generic is not None:
@@ -281,7 +305,7 @@ def compare_contacts(what: str, got, want, generic=None) -> float:
               f"narrowphase code agreement on generic poses {agree_generic}")
     print(f"{line}, active-lane agreement where codes agree {act_agree:.6f}, "
           f"max |dpos| {err_pos:.3e}, max |ddepth| {err_dep:.3e} on lanes active in both "
-          f"(bound 1e-4)")
+          f"(bound 1e-4){'; no lane is active in both' if none else ''}")
     check(agree >= 0.99, f"narrowphase code agreement {agree}")
     check(act_agree >= 0.99, f"narrowphase active-lane agreement {act_agree}")
     check(err <= 1e-4, f"narrowphase max abs error {err}")
@@ -813,7 +837,10 @@ def compact_bytes(args, cs) -> int:
     scanned = torch.where(full.any(1), full.to(torch.int32).argmax(1) + 1,
                           torch.full_like(full[:, 0], act.shape[1], dtype=torch.int64))
     flags = int((scanned - 8 * n).clamp(min=0).sum())
-    return nb + flags + int((cs.b0 >= 0).sum()) * 28 + pi.nbytes + pj.nbytes
+    # the ids of the landing pair candidates: the scene's list, or each
+    # scenario's (the broadphase's) read where its candidates land
+    ids = pi.nbytes + pj.nbytes if pi.dim() == 1 else 16 * int((cs.b0 >= 0).sum())
+    return nb + flags + int((cs.b0 >= 0).sum()) * 28 + ids
 
 
 def phase_compact(dev, firsts):
@@ -1324,7 +1351,7 @@ def timed_rollout(spec, states, cfg, graph):
     return final, time.perf_counter() - t0
 
 
-def phase_rollout(dev, tag, scene, path, physical, cfg=None):
+def phase_rollout(dev, tag, scene, path, physical, cfg=None, batch=None, info=None):
     """Roll B_SLICE scenarios of the BASELINE scene `scene` H_SLICE steps
     through `rollout_batched`: where the configuration is
     `graph_capturable`, the captured rollout (its first call, warm-up step
@@ -1333,13 +1360,20 @@ def phase_rollout(dev, tag, scene, path, physical, cfg=None):
     give the same bits.  Before each timed call every launch counter is set
     to 0 and after it the kernels of `path` must each have launched once a
     step and no other kernel at all.  `cfg` replaces the scene's bench
+    configuration, `batch` = (spec, states, cfg) the scene's batch and
     configuration; `physical(spec, start, final)` checks the outcome.
-    Returns (launches of the main path's run, its rollouts/s)."""
+    Returns (launches of the main path's run, its rollouts/s); `info`, a
+    dict, gets the spec, start and final states, the mean captured and
+    eager seconds and the first call's."""
     from eggshell_tpu_torch.parallel.rollout import capture_refusal
     from eggshell_tpu_torch.physics import scenes
 
-    spec, states, scene_cfg = scenes.baseline_batch(scene, B_SLICE, device=dev)
+    if batch is None:
+        spec, states, scene_cfg = scenes.baseline_batch(scene, B_SLICE, device=dev)
+    else:
+        spec, states, scene_cfg = batch
     cfg = scene_cfg if cfg is None else cfg
+    B = states.p.shape[0]
     refusal = capture_refusal(cfg)
     counters = launch_counters()
     want = {name: H_SLICE if name in path else 0 for name in counters}
@@ -1368,29 +1402,33 @@ def phase_rollout(dev, tag, scene, path, physical, cfg=None):
         same = all(torch.equal(a, b) for a, b in zip(main_final, eager_final))
         same_cold = all(torch.equal(a, b) for a, b in zip(main_final, cold))
         g, e = (sum(times[k]) / 2 for k in (True, False))
-        print(f"[{tag}] captured rollout: {B_SLICE / times[True][0]:.1f}, "
-              f"{B_SLICE / times[True][1]:.1f} rollouts/s; eager loop: "
-              f"{B_SLICE / times[False][0]:.1f}, {B_SLICE / times[False][1]:.1f} rollouts/s; "
+        print(f"[{tag}] captured rollout: {B / times[True][0]:.1f}, "
+              f"{B / times[True][1]:.1f} rollouts/s; eager loop: "
+              f"{B / times[False][0]:.1f}, {B / times[False][1]:.1f} rollouts/s; "
               f"graph / loop {e / g:.2f}x (mean seconds); first graph call {cold_s:.4f} s, of "
               f"which warm-up and capture {cold_s - g:.4f} s; the graph's bits the loop's: {same}"
               f" (and the first call's: {same_cold})")
         check(same and same_cold, f"{tag} captured rollout differs from the eager loop")
-        dt, rate, final, launches = g, B_SLICE / g, main_final, main_launches
+        dt, rate, final, launches = g, B / g, main_final, main_launches
+        if info is not None:
+            info.update(graph_s=g, eager_s=e, cold_s=cold_s)
     else:
         final, dt, launches = counted(None)
-        rate = B_SLICE / dt
+        rate = B / dt
         print(f"[{tag}] eager loop only ({refusal}): {rate:.1f} rollouts/s")
 
     finite = all(bool(torch.isfinite(x).all()) for x in final)
     shapes = [tuple(x.shape) for x in final]
     n = spec.num_bodies
-    print(f"[{tag}] {scene} B={B_SLICE} H={H_SLICE} K={cfg.contact_capacity}: {dt:.4f} s, "
-          f"{rate:.1f} rollouts/s, {B_SLICE * H_SLICE / dt:.1f} steps/s; launches "
+    print(f"[{tag}] {scene} B={B} H={H_SLICE} K={cfg.contact_capacity}: {dt:.4f} s, "
+          f"{rate:.1f} rollouts/s, {B * H_SLICE / dt:.1f} steps/s; launches "
           f"{launches}; finite {finite}; shapes {shapes}")
     check(finite, f"{tag} output not finite")
-    check(shapes == [(B_SLICE, n, 3), (B_SLICE, n, 3), (B_SLICE, n, 4), (B_SLICE, n, 3)],
+    check(shapes == [(B, n, 3), (B, n, 3), (B, n, 4), (B, n, 3)],
           f"{tag} output shapes {shapes}")
     print(f"[{tag}] {physical.__doc__.strip()} {physical(spec, states, final)}")
+    if info is not None:
+        info.update(spec=spec, start=states, final=final, cfg=cfg)
     return launches, rate
 
 
@@ -1555,6 +1593,307 @@ def phase_mpc(dev):
     return main_launches
 
 
+PILE_PATH = ("narrowphase",)
+PILE_SINK = 0.03          # a tenth of a box side
+PILE_AGREE_STEPS = 10
+
+
+def sunk_no_deeper(spec, start, final):
+    """Every body finite, and no box corner more than PILE_SINK below the floor."""
+    finite = all(bool(torch.isfinite(x).all()) for x in final)
+    low = float(lowest_corners(spec, final).min())
+    check(finite and low > -PILE_SINK, f"pile: finite {finite}, lowest corner at {low} m")
+    return f"every body finite, lowest corner at {low:.3e} m (bound -{PILE_SINK})"
+
+
+def pile_first_b2(spec, states, cfg):
+    """B2's inputs at the first step of the pile: each scenario's
+    broadphase pairs, gathered (B * pair_capacity pairs)."""
+    from eggshell_tpu_torch.ops.collision_kernel import gather_pairs
+    from eggshell_tpu_torch.physics.contacts import scene_pairs
+
+    pi, pj, _ = scene_pairs(spec, states, cfg)
+    return gather_pairs(states.p, states.R(), spec.half_extents, pi, pj)
+
+
+def pile_agreement(dev, tag, name):
+    """1 scenario of the pile, PILE_AGREE_STEPS steps on the card in
+    float32 against the plain path on the CPU in float64 from the same
+    start: p and q within AGREE_BOUND."""
+    from eggshell_tpu_torch.parallel.rollout import rollout_batched
+    from eggshell_tpu_torch.physics import scenes
+
+    spec, states, cfg = scenes.large_batch(name, 1, device=dev)
+    got = rollout_batched(spec, states, cfg, PILE_AGREE_STEPS)
+    spec64, states64, _ = scenes.large_batch(name, 1, device="cpu", dtype=torch.float64)
+    want = rollout_batched(spec64, states64, cfg, PILE_AGREE_STEPS)
+    err = {k: float((getattr(got, k).double().cpu() - getattr(want, k)).abs().max()) for k in "pq"}
+    moved = float((want.p - states64.p).abs().max())
+    print(f"[{tag}] card f32 against CPU f64 plain path, 1 scenario, {PILE_AGREE_STEPS} steps: "
+          f"max |dp| {err['p']:.3e}, |dq| {err['q']:.3e} (bound {AGREE_BOUND:.0e}); the bodies "
+          f"moved up to {moved:.3e} m")
+    check(err["p"] <= AGREE_BOUND and err["q"] <= AGREE_BOUND,
+          f"{tag} disagrees with the plain path: {err}")
+    return err
+
+
+def matvec_forms(tag, spec, states, cfg):
+    """The step's matrix-free solve at `states` (the rollout's last state:
+    the first has no contact yet; its rhs -erp/dt^2 err - J (u/dt +
+    M^-1 F)) with cfg.solver_iters sweeps, in each matvec form: device ms
+    and device operations a solve (one torch.profiler window of 5 solves,
+    L2 not flushed), whether two runs give the same bits, and the largest
+    difference from the "sorted" form's solution."""
+    from eggshell_tpu_torch.ops import lcp_matrix_free as mf
+    from eggshell_tpu_torch.physics import scene as scn
+    from eggshell_tpu_torch.physics.constraints import build_compact_constraints
+    from eggshell_tpu_torch.physics.contacts import make_contacts_batched
+    from eggshell_tpu_torch.utils.profiling import device_window
+
+    cs = make_contacts_batched(spec, states, cfg)
+    sysc = build_compact_constraints(spec, states, cs, cfg)
+    Minv = scn.inv_mass_blocks(spec, states)
+    F = scn.external_forces(spec, states, cfg.gravity)
+    u = scn.pack_velocity(states) / cfg.dt + torch.einsum("bnij,bnj->bni", Minv, F)
+    rhs = (-cfg.erp / cfg.dt / cfg.dt * sysc.err
+           - mf.j_v(sysc.blocks, sysc.b0, sysc.b1, u)).contiguous()
+    out, x = {}, {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for mode in mf.MODES:
+            def solve():
+                return mf.solve_lcp_matrix_free(
+                    sysc.blocks, sysc.b0, sysc.b1, Minv, rhs, sysc.is_eq, sysc.lo, sysc.hi,
+                    iters=cfg.solver_iters, omega=cfg.jacobi_omega, beta=cfg.jacobi_beta,
+                    cfm=float(cfg.cfm_always), matvec_mode=mode)
+            x[mode] = solve()
+            same = torch.equal(x[mode], solve())
+            w = device_window(solve, 5)
+            out[mode] = {"ms": w["device_ms"], "ops": w["launches"], "same_bits": same}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for mode in mf.MODES:
+        d = float((x[mode] - x["sorted"]).abs().max())
+        o = out[mode]
+        print(f"[{tag}] matvec form {mode!r}: the last state's solve ({cfg.solver_iters} sweeps, "
+              f"{int(cs.active.sum())} active lanes of {cs.b0.numel()}) {o['ms']:.4f} ms of "
+              f"device time in {o['ops']:.1f} device operations; two runs the same bits: "
+              f"{o['same_bits']}; max |dx| from 'sorted' {d:.3e}")
+        check(d <= 1e-3 * max(1.0, float(x["sorted"].abs().max())),
+              f"{tag} matvec form {mode} disagrees with 'sorted' by {d}")
+    print(f"[{tag}] matvec form 'auto' on the card: {mf.AUTO_CUDA!r}")
+    check(out[mf.AUTO_CUDA]["same_bits"], f"{tag} the 'auto' form is not deterministic")
+    return {mode: o["ms"] for mode, o in out.items()}
+
+
+def broadphase_kinds(tag, spec, states, cfg):
+    """Device ms of the pile's broadphase (`select_scene_pairs`) in both
+    kinds, "mask" and "sap" (window cfg.sap_window), on the first step's
+    states, from one profiler window of 10 calls each; whether they select
+    the same lanes."""
+    from eggshell_tpu_torch.ops.broadphase import select_scene_pairs
+    from eggshell_tpu_torch.utils.profiling import device_window
+
+    got = {}
+    for kind in ("mask", "sap"):
+        c = cfg.replace(broadphase_kind=kind)
+        w = device_window(lambda: select_scene_pairs(spec, states, c), 10)
+        got[kind] = (w, select_scene_pairs(spec, states, c))
+        print(f"[{tag}] broadphase {kind!r}"
+              f"{f' (window {cfg.sap_window})' if kind == 'sap' else ''}: {w['device_ms']:.4f} ms "
+              f"of device time in {w['launches']:.1f} device operations; "
+              f"{int(got[kind][1][2].sum())} pairs selected")
+    same = all(torch.equal(a, b) for a, b in zip(got["mask"][1], got["sap"][1]))
+    print(f"[{tag}] the two kinds select the same lanes: {same}")
+    return {k: w["device_ms"] for k, (w, _) in got.items()}
+
+
+def phase_pile_b2(dev):
+    """B2 at the piles' shape: the first step's pairs of pile216 and
+    pile512 (each scenario's broadphase selection, 16,384 pairs at both)
+    against the plain version, and timed with its bound.  Run before any
+    graph is replayed: a profiler window after many replays can lose an
+    event, and the flushed timing refuses such a window."""
+    from eggshell_tpu_torch.ops.collision import collide_boxes
+    from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes
+    from eggshell_tpu_torch.physics import scenes
+
+    out = {}
+    for name in ("pile216", "pile512"):
+        args = pile_first_b2(*scenes.large_batch(name, device=dev))
+        N = args[0].shape[0]
+        err = compare_contacts(f"[{name}] first-step inputs N={N}", collide_boxes_lanes(*args),
+                               collide_boxes(*args))
+        t = timings("narrowphase_kernel", lambda: collide_boxes_lanes(*args),
+                    lambda: collide_boxes(*args))
+        b = bound(moved_bytes(args, collide_boxes_lanes(*args)), 2000.0 * N)
+        print(f"[narrowphase] [{name}] first-step shape N={N}: {timing_text(t)}, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {ratio_text(t, b)}")
+        out[name] = {"max_abs_err": err, **t, **b}
+    return out
+
+
+def phase_gated_kernels(dev):
+    """B2p and B3 on the first-step inputs of `[scene_living_room_bp]`
+    (each scenario's broadphase pair list of LIVING_ROOM_PAIR_CAPACITY
+    pairs and its gate) against their plain versions, timed with their
+    bounds; before any graph is replayed, as `phase_pile_b2`."""
+    from eggshell_tpu_torch.ops.collision_kernel import (collide_boxes_lanes_packed,
+                                                        collide_boxes_lanes_packed_plain)
+    from eggshell_tpu_torch.ops.compact_kernel import compact_contacts, compact_contacts_plain
+    from eggshell_tpu_torch.physics import scenes
+
+    tag = "scene_living_room_bp"
+    pc = scenes.LIVING_ROOM_PAIR_CAPACITY
+    first = fused_inputs(dev, "living_room", bp_cfg(pc))
+    nargs, cargs = first["narrowphase"], first["compact"]
+    res = {}
+    got = collide_boxes_lanes_packed(*nargs)
+    plain = collide_boxes_lanes_packed_plain(*nargs)
+    err = packed_pair_agreement(f"first-step inputs of [{tag}] (gated, pair lists (B, {pc}))",
+                                got, plain)
+    print(f"[narrowphase_packed] first-step inputs of [{tag}]: bit for bit the plain "
+          f"version's: {all(torch.equal(a, b) for a, b in zip(got, plain))}")
+    t = timings("narrowphase_packed_kernel", lambda: collide_boxes_lanes_packed(*nargs),
+                lambda: collide_boxes_lanes_packed_plain(*nargs))
+    pairs = nargs[0].shape[0] * nargs[3].shape[-1]
+    b = bound(moved_bytes(nargs, got), 2060.0 * pairs)
+    print(f"[narrowphase_packed] [{tag}] first-step shapes ({pairs} pairs, gated): "
+          f"{timing_text(t)}, bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes), "
+          f"{ratio_text(t, b)}")
+    res["narrowphase_packed"] = {"max_abs_err": err, "ms_bp": t["ms"], "plain_ms_bp":
+                                 t["plain_ms"], "bound_ms_bp": b["bound_ms"]}
+    err = compare_lanes("compact", f"first-step inputs of [{tag}] (pair lists (B, {pc}))",
+                        compact_contacts(*cargs), compact_contacts_plain(*cargs))
+    t = timings("compact_kernel", lambda: compact_contacts(*cargs),
+                lambda: compact_contacts_plain(*cargs))
+    Bc, nc = cargs[0].shape[:2]
+    K = cargs[7]
+    b = bound(compact_bytes(cargs, compact_contacts(*cargs)),
+              Bc * (40.0 * 8 * nc + 5.0 * K * K + 2.0 * 12 * pc))
+    print(f"[compact] inputs of [{tag}]: {timing_text(t)}, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}: {b['bytes']} bytes), {ratio_text(t, b)}")
+    res["compact"] = {"max_abs_err": err, "ms_bp": t["ms"], "plain_ms_bp": t["plain_ms"],
+                      "bound_ms_bp": b["bound_ms"]}
+    return res
+
+
+def phase_pile(dev, name):
+    """The large-scene cell `name` of bench.py:286-318 (`scenes.LARGE`):
+    `rollout_batched` of its batch under the matrix-free step, H_SLICE
+    steps, captured and eager in turns with the same bits, B2's launches,
+    the dropped contacts on the first and last state, the replayed step's
+    device operations and device ms, the physical check, and 1 scenario
+    against the CPU f64 plain path.  pile512 also times the broadphase's
+    two kinds and the solve's matvec forms.  (B2 is held and timed at the
+    piles' shape in `phase_pile_b2`, before any graph is replayed.)
+    Returns the phase's results."""
+    from eggshell_tpu_torch.parallel.rollout import StepGraph, capture_refusal
+    from eggshell_tpu_torch.physics import scenes
+    from eggshell_tpu_torch.physics.contacts import count_dropped_contacts
+    from eggshell_tpu_torch.utils.profiling import device_window
+
+    tag = name
+    spec, states, cfg = scenes.large_batch(name, device=dev)
+    B, n = states.p.shape[:2]
+    refusal = capture_refusal(cfg)
+    print(f"[{tag}] box_pile({n}), B={B}, H={H_SLICE}, MATRIX_FREE {cfg.solver_iters} sweeps, "
+          f"K={cfg.contact_capacity}, pair capacity {cfg.pair_capacity} of {spec.num_pairs}, "
+          f"margin {cfg.broadphase_margin}, broadphase {cfg.broadphase_kind!r}; capture_refusal: "
+          f"{refusal}")
+    check(refusal is None, f"{tag} is refused a capture: {refusal}")
+    info = {}
+    launches, rate = phase_rollout(dev, tag, f"box_pile({n})", PILE_PATH, sunk_no_deeper,
+                                   batch=(spec, states, cfg), info=info)
+    steps = {k: B * H_SLICE / info[k] for k in ("graph_s", "eager_s")}
+    print(f"[{tag}] captured {steps['graph_s']:.1f} steps/s, {n * steps['graph_s']:.1f} "
+          f"body-steps/s; eager {steps['eager_s']:.1f} steps/s, {n * steps['eager_s']:.1f} "
+          f"body-steps/s; capture (first call less a timed one) "
+          f"{info['cold_s'] - info['graph_s']:.4f} s")
+    dropped = [count_dropped_contacts(spec, st, cfg).tolist() for st in (states, info["final"])]
+    print(f"[{tag}] count_dropped_contacts per scenario: first state {dropped[0]}, last state "
+          f"{dropped[1]}")
+
+    g = StepGraph(spec, cfg, states)
+    g.load(states)
+    w = device_window(lambda: g.replay(1), 5)
+    print(f"[{tag}] a replayed step: {w['launches']:.1f} device operations, {w['device_ms']:.4f} "
+          f"ms of device time, {w['wall_ms']:.4f} ms host clock (busy {100 * w['busy']:.1f} %)")
+    del g
+    res = {"launches": launches, "steps_per_s": steps, "dropped": dropped, "step_ops":
+           w["launches"], "step_ms": w["device_ms"]}
+    if name == "pile512":
+        res["broadphase_ms"] = broadphase_kinds(tag, spec, states, cfg)
+        res["matvec_ms"] = matvec_forms(tag, spec, info["final"], cfg)
+    res["agreement"] = pile_agreement(dev, tag, name)
+    torch.cuda.empty_cache()
+    return res
+
+
+def bp_cfg(pair_capacity):
+    """living_room's bench configuration with the broadphase."""
+    from eggshell_tpu_torch.physics import scenes
+
+    return bench_cfg().replace(contact_capacity=scenes.BASELINE["living_room"][1],
+                               pair_capacity=pair_capacity,
+                               broadphase_margin=scenes.LIVING_ROOM_BP_MARGIN)
+
+
+def phase_living_room_bp(dev, all_pairs_final):
+    """living_room on the fused chain with the broadphase (margin 0.1):
+    the pair capacity is the most pairs that overlap in any scenario at
+    any step of the all-pairs eager rollout (B_SLICE, H_SLICE); at it
+    `count_dropped_contacts` stays 0 over the broadphase's own rollout, one
+    less drops contacts; it must be below the 15 candidate pairs and equal
+    `scenes.LIVING_ROOM_PAIR_CAPACITY`.  The broadphase rollout (captured
+    and eager in turns) must give the bits of the all-pairs
+    `[scene_living_room]` rollout from the same start.  (B2p and B3 are
+    held on this path's first-step inputs in `phase_gated_kernels`.)
+    Returns (launches, the pair capacity)."""
+    from eggshell_tpu_torch.ops.broadphase import pair_overlap_mask
+    from eggshell_tpu_torch.physics import scenes
+    from eggshell_tpu_torch.physics.contacts import count_dropped_contacts
+    from eggshell_tpu_torch.physics.stepper import step_ode_batched
+
+    tag = "scene_living_room_bp"
+    spec, states, cfg = scenes.baseline_batch("living_room", B_SLICE, device=dev)
+    margin = scenes.LIVING_ROOM_BP_MARGIN
+
+    def trajectory(c):
+        st, out = states, [states]
+        for _ in range(H_SLICE):
+            st = step_ode_batched(spec, st, c)
+            out.append(st)
+        return out
+
+    need = max(int(pair_overlap_mask(st.p, st.q, spec.half_extents, spec.pair_i, spec.pair_j,
+                                     margin).sum(1).max()) for st in trajectory(cfg))
+    pc = max(1, need)
+    dropped = max(int(count_dropped_contacts(spec, st, bp_cfg(pc)).max())
+                  for st in trajectory(bp_cfg(pc)))
+    fewer = (max(int(count_dropped_contacts(spec, st, bp_cfg(pc - 1)).max())
+                 for st in trajectory(bp_cfg(pc - 1))) if pc > 1 else None)
+    print(f"[{tag}] at most {need} of the {spec.num_pairs} candidate pairs overlap (margin "
+          f"{margin}) in any scenario at any step of the all-pairs rollout: pair capacity {pc}; "
+          f"the most contacts dropped in a scenario at a step over the broadphase rollout: "
+          f"{dropped}, at pair capacity {pc - 1}: {fewer}")
+    check(pc < spec.num_pairs and dropped == 0 and (fewer is None or fewer > 0),
+          f"{tag} pair capacity {pc}: dropped {dropped}, at one less {fewer}")
+    check(pc == scenes.LIVING_ROOM_PAIR_CAPACITY,
+          f"{tag} pair capacity {pc}, scenes.LIVING_ROOM_PAIR_CAPACITY "
+          f"{scenes.LIVING_ROOM_PAIR_CAPACITY}")
+    cfg = bp_cfg(pc)
+    info = {}
+    launches, _ = phase_rollout(dev, tag, "living_room", FUSED_PATH, above_floor, cfg=cfg,
+                                info=info)
+    same = all(torch.equal(a, b) for a, b in zip(info["final"], all_pairs_final))
+    print(f"[{tag}] the bits of the all-pairs [scene_living_room] rollout from the same start: "
+          f"{same}")
+    check(same, f"{tag} differs from the all-pairs rollout")
+    return launches, pc
+
+
 FUSED_PATH = ("narrowphase_packed", "compact", "prep", "jassembly", "amat", "jacobi_packed",
               "integrate")
 UNFUSED_PATH = ("narrowphase", "jacobi")
@@ -1679,6 +2018,8 @@ def main() -> int:
         (f"[{tag}]", first[name]["compact"])
         for tag, name in (("slice_fused", "box_stack4"), ("scene_box_stack8", "box_stack8"),
                           ("scene_living_room", "living_room"), ("scene_box_drop", "box_drop"))]))
+    bp = phase_gated_kernels(dev)
+    pile_b2 = phase_pile_b2(dev)
     res["jacobi_packed_stream"] = phase_jacobi_packed_stream(dev, [
         ("[scene_box_stack8_k64]", first_wide["jacobi_packed_stream"])])
 
@@ -1697,10 +2038,13 @@ def main() -> int:
     phase_oracle(dev, slice_cfg(), "oracle")
     unfused_launches, _ = phase_rollout(dev, "slice", "box_stack4", UNFUSED_PATH, stands,
                                         cfg=slice_cfg())
-    scene_launches = {}
+    scene_launches, living_room = {}, {}
     for scene, (path, physical) in SCENES.items():
-        scene_launches[scene], _ = phase_rollout(dev, f"scene_{scene}", scene, path, physical)
+        scene_launches[scene], _ = phase_rollout(
+            dev, f"scene_{scene}", scene, path, physical,
+            info=living_room if scene == "living_room" else None)
         phase_agreement(dev, f"scene_{scene}", scene)
+    bp_launches, bp_capacity = phase_living_room_bp(dev, living_room["final"])
     wide_launches, _ = phase_rollout(dev, "scene_box_stack8_k64", "box_stack8", WIDE_PATH, stands,
                                      cfg=wide_cfg())
     form_launches = {}
@@ -1711,7 +2055,21 @@ def main() -> int:
     phase_rollout(dev, "slice_joints_unfused", "pendulum_chain6", ("jacobi",), joints_hold,
                   cfg=joints_unfused_cfg())
     mpc_launches = phase_mpc(dev)
+    piles = {name: phase_pile(dev, name) for name in ("pile216", "pile512")}
     fdtd_launches, _ = phase_fdtd2d_rollout(dev)
+    res["narrowphase"].update({"launches_pile": piles["pile512"]["launches"]["narrowphase"],
+                               **{f"{k}_pile": pile_b2["pile512"][k]
+                                  for k in ("ms", "plain_ms", "bound_ms")}})
+    res["narrowphase"]["max_abs_err"] = max(res["narrowphase"]["max_abs_err"],
+                                            *(r["max_abs_err"] for r in pile_b2.values()))
+    for name in ("narrowphase_packed", "compact"):
+        res[name].update({"launches_bp": bp_launches[name],
+                          **{k: bp[name][k] for k in ("ms_bp", "plain_ms_bp", "bound_ms_bp")}})
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], bp[name]["max_abs_err"])
+    print(f"[summary] pile216 {piles['pile216']['steps_per_s']['graph_s']:.1f} and pile512 "
+          f"{piles['pile512']['steps_per_s']['graph_s']:.1f} steps/s captured; "
+          f"living_room_bp pair capacity {bp_capacity}; pile512 matvec forms (ms a solve) "
+          f"{piles['pile512']['matvec_ms']}")
 
     rows = [("narrowphase", "eggshell_tpu_torch/csrc/narrowphase.cu",
              "eggshell_tpu/ops/collision_kernel.py:58", "unfused", unfused_launches["narrowphase"]),
@@ -1767,7 +2125,9 @@ def main() -> int:
          "bound_by": res[name]["bound_by"], "library_ms": None,
          **({"launches_mpc": mpc_launches[name]} if mpc_launches.get(name) else {}),
          **{k: res[name][k] for k in ("resident_ms", "ms_extra", "plain_ms_extra",
-                                      "bound_ms_extra", "shapes") if k in res[name]}}
+                                      "bound_ms_extra", "shapes", "launches_pile", "ms_pile",
+                                      "plain_ms_pile", "bound_ms_pile", "launches_bp", "ms_bp",
+                                      "plain_ms_bp", "bound_ms_bp") if k in res[name]}}
         for name, source, replaces, path, launches in rows
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@
 //               active when cz < 0 and the body's ground_enabled, normal +z,
 //               depth -cz, b0 = -1, b1 = the body; then pair k's 12 lanes
 //               from csrc/narrowphase.cu's packed entry, b0 = pair_i[k],
-//               b1 = pair_j[k];
+//               b1 = pair_j[k] (pair_i[s, k], pair_j[s, k] where each
+//               scenario has its own list, the broadphase's);
 //   depth cap   min(depth, cap) (cap = +inf: none);
 //   compaction  stable: active candidate number o goes to lane o, those
 //               past K are dropped;
@@ -108,8 +109,8 @@ __device__ __forceinline__ void compact_scenario(
     const uint8_t* __restrict__ pp_act, const int64_t* __restrict__ pair_i,
     const int64_t* __restrict__ pair_j, int64_t* __restrict__ out_b0,
     int64_t* __restrict__ out_b1, float* __restrict__ out_pos, float* __restrict__ out_nrm,
-    float* __restrict__ out_dep, uint8_t* __restrict__ out_act, int64_t s, int n, int P, int K,
-    float eps2, float cap, int* stage) {
+    float* __restrict__ out_dep, uint8_t* __restrict__ out_act, int64_t s, int n, int P,
+    int64_t pair_stride, int K, float eps2, float cap, int* stage) {
   const int lane = threadIdx.x % 32;
   int* sb0 = stage;
   int* sb1 = stage + K;
@@ -232,7 +233,7 @@ __device__ __forceinline__ void compact_scenario(
       const float x = pp_pos[3 * e], y = pp_pos[3 * e + 1], z = pp_pos[3 * e + 2];
       const float nx = pp_nrm[3 * ep], ny = pp_nrm[3 * ep + 1], nz = pp_nrm[3 * ep + 2];
       const float d = pp_dep[e];
-      const int64_t bi = pair_i[pk], bj = pair_j[pk];
+      const int64_t bi = pair_i[s * pair_stride + pk], bj = pair_j[s * pair_stride + pk];
       sb0[k] = (int)bi;
       sb1[k] = (int)bj;
       spos[3 * k] = x;
@@ -291,13 +292,14 @@ __global__ void __launch_bounds__(32 * kMaxWarps) compact_kernel(
     const uint8_t* __restrict__ pp_act, const int64_t* __restrict__ pair_i,
     const int64_t* __restrict__ pair_j, int64_t* __restrict__ b0, int64_t* __restrict__ b1,
     float* __restrict__ pos, float* __restrict__ nrm, float* __restrict__ dep,
-    uint8_t* __restrict__ act, int64_t B, int n, int P, int K, float eps2, float cap) {
+    uint8_t* __restrict__ act, int64_t B, int n, int P, int64_t pair_stride, int K, float eps2,
+    float cap) {
   extern __shared__ int smem[];
   const int warp = threadIdx.x / 32;
   const int64_t s = (int64_t)blockIdx.x * (blockDim.x / 32) + warp;
   if (s >= B) return;  // a whole warp leaves: the kernel syncs warps only
   compact_scenario<true>(p, q, hs, gen, pp_pos, pp_nrm, pp_dep, pp_act, pair_i, pair_j, b0, b1,
-                         pos, nrm, dep, act, s, n, P, K, eps2, cap,
+                         pos, nrm, dep, act, s, n, P, pair_stride, K, eps2, cap,
                          smem + warp * stage_words(K));
 }
 
@@ -311,7 +313,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) compact_ground_kernel(
   const int64_t s = (int64_t)blockIdx.x * (blockDim.x / 32) + warp;
   if (s >= B) return;
   compact_scenario<false>(p, q, hs, gen, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                          b0, b1, pos, nrm, dep, act, s, n, 0, K, eps2, cap,
+                          b0, b1, pos, nrm, dep, act, s, n, 0, 0, K, eps2, cap,
                           smem + warp * stage_words(K));
 }
 
@@ -319,15 +321,18 @@ __global__ void __launch_bounds__(32 * kMaxWarps) compact_ground_kernel(
 
 // P = 0 launches the ground-only kernel; the pair pointers are then unused.
 // The pair flags are read as 32-bit words: pp_act must be 4-byte aligned.
+// pair_stride 0: pair_i / pair_j hold P pairs for every scenario; P: a list
+// of P a scenario (the broadphase's selection), read at s * P + k.
 // A block takes kMaxWarps scenarios, or as many as K's stage leaves room for.
 extern "C" int eggshell_compact_f32(const float* p, const float* q, const float* hs,
                                     const uint8_t* gen, const float* pp_pos, const float* pp_nrm,
                                     const float* pp_dep, const uint8_t* pp_act,
                                     const int64_t* pair_i, const int64_t* pair_j, int64_t* b0,
                                     int64_t* b1, float* pos, float* nrm, float* dep,
-                                    uint8_t* act, int64_t B, int n, int P, int K, float eps2,
-                                    float cap, void* stream) {
+                                    uint8_t* act, int64_t B, int n, int P, int64_t pair_stride,
+                                    int K, float eps2, float cap, void* stream) {
   if (B <= 0 || K <= 0) return 0;
+  if (pair_stride != 0 && pair_stride != P) return (int)cudaErrorInvalidValue;
   if (P > 0 && reinterpret_cast<uintptr_t>(pp_act) % 4 != 0) return (int)cudaErrorInvalidValue;
   const size_t warp_bytes = (size_t)stage_words(K) * sizeof(int);
   int warps = kMaxWarps;
@@ -344,7 +349,8 @@ extern "C" int eggshell_compact_f32(const float* p, const float* q, const float*
     }
     compact_kernel<<<blocks, 32 * warps, smem, st>>>(p, q, hs, gen, pp_pos, pp_nrm, pp_dep,
                                                      pp_act, pair_i, pair_j, b0, b1, pos, nrm,
-                                                     dep, act, B, n, P, K, eps2, cap);
+                                                     dep, act, B, n, P, pair_stride, K, eps2,
+                                                     cap);
   } else {
     if (smem > 48 * 1024) {
       cudaError_t e = cudaFuncSetAttribute(compact_ground_kernel,

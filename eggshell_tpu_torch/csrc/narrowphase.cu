@@ -645,13 +645,18 @@ __global__ void __launch_bounds__(kThreads) narrowphase_kernel(
   }
 }
 
-// Pair t = scenario * P + pair, a group of G lanes each.
+// Pair t = scenario * P + pair, a group of G lanes each.  The pair's
+// bodies are pair_i[s * stride + k] and pair_j[s * stride + k]: stride 0
+// for one list of P pairs shared by every scenario, P for a list per
+// scenario (the broadphase's selection).  With `gate` (B * P flags, the
+// broadphase's), a pair whose flag is 0 writes no active lane.
 template <int G>
 __global__ void __launch_bounds__(kThreads) narrowphase_packed_kernel(
     const float* __restrict__ gp, const float* __restrict__ gq, const float* __restrict__ ghs,
     const int64_t* __restrict__ pair_i, const int64_t* __restrict__ pair_j,
-    float* __restrict__ out_pos, float* __restrict__ out_nrm, float* __restrict__ out_dep,
-    uint8_t* __restrict__ out_act, int64_t total, int n, int P) {
+    const uint8_t* __restrict__ gate, float* __restrict__ out_pos, float* __restrict__ out_nrm,
+    float* __restrict__ out_dep, uint8_t* __restrict__ out_act, int64_t total, int n, int P,
+    int64_t stride) {
   extern __shared__ float2 smem[];
   const Group<G> g;
   const int group = threadIdx.x / G;
@@ -661,7 +666,7 @@ __global__ void __launch_bounds__(kThreads) narrowphase_packed_kernel(
   const uint32_t u = (uint32_t)(live ? t : total - 1);
   const uint32_t s = u / (uint32_t)P;
   const int k = (int)(u - s * (uint32_t)P);
-  const int64_t i = pair_i[k], j = pair_j[k];
+  const int64_t i = pair_i[s * stride + k], j = pair_j[s * stride + k];
   const int64_t bi = (int64_t)s * n + i, bj = (int64_t)s * n + j;
 
   // p, q and half extents of body i, then of body j
@@ -688,6 +693,10 @@ __global__ void __launch_bounds__(kThreads) narrowphase_packed_kernel(
   LaneContacts<G> o;
   sat_group(g, in, smem + group * kGroupPoints, o);
   if (!live) return;
+  if (gate != nullptr && gate[t] == 0) {
+#pragma unroll
+    for (int v = 0; v < LaneContacts<G>::NV; ++v) o.act[v] = false;
+  }
   store_lanes(g, o, t, out_pos, out_dep, out_act);
 #pragma unroll
   for (int c = 0; c < 3; ++c)
@@ -717,16 +726,19 @@ extern "C" int eggshell_narrowphase_f32(
   return (int)cudaGetLastError();
 }
 
+// pair_stride 0: pair_i / pair_j hold P pairs for every scenario; P: B * P
+// pairs, a list per scenario.  gate: null, or B * P flags.
 extern "C" int eggshell_narrowphase_packed_f32(
     const float* p, const float* q, const float* hs, const int64_t* pair_i,
-    const int64_t* pair_j, float* pos, float* nrm, float* dep, uint8_t* act, int64_t B,
-    int n, int P, int lanes, int threads, int64_t blocks, int shared_bytes, void* stream) {
+    const int64_t* pair_j, const uint8_t* gate, float* pos, float* nrm, float* dep,
+    uint8_t* act, int64_t B, int n, int P, int64_t pair_stride, int lanes, int threads,
+    int64_t blocks, int shared_bytes, void* stream) {
   const int64_t total = B * (int64_t)P;
-  if (total <= 0 || total >= (int64_t(1) << 31) ||
+  if (total <= 0 || total >= (int64_t(1) << 31) || (pair_stride != 0 && pair_stride != P) ||
       !plan_taken(total, lanes, threads, blocks, shared_bytes))
     return (int)cudaErrorInvalidValue;
   narrowphase_packed_kernel<kLanes>
       <<<(unsigned)blocks, threads, shared_bytes, (cudaStream_t)stream>>>(
-          p, q, hs, pair_i, pair_j, pos, nrm, dep, act, total, n, P);
+          p, q, hs, pair_i, pair_j, gate, pos, nrm, dep, act, total, n, P, pair_stride);
   return (int)cudaGetLastError();
 }

@@ -51,12 +51,12 @@ _SIGNATURES = {
     # p1, R1, hs1, p2, R2, hs2, pos, nrm, dep, act, code, idep, iax, n, lanes, threads, blocks,
     # shared_bytes, stream
     "eggshell_narrowphase_f32": [_P] * 13 + [_I64, _I, _I, _I64, _I, _P],
-    # p, q, hs, pair_i, pair_j, pos, nrm, dep, act, B, n, P, lanes, threads, blocks,
-    # shared_bytes, stream
-    "eggshell_narrowphase_packed_f32": [_P] * 9 + [_I64, _I, _I, _I, _I, _I64, _I, _P],
+    # p, q, hs, pair_i, pair_j, gate, pos, nrm, dep, act, B, n, P, pair_stride, lanes, threads,
+    # blocks, shared_bytes, stream
+    "eggshell_narrowphase_packed_f32": [_P] * 10 + [_I64, _I, _I, _I64, _I, _I, _I64, _I, _P],
     # p, q, hs, gen, pp_pos, pp_nrm, pp_dep, pp_act, pair_i, pair_j, b0, b1, pos, nrm, dep, act,
-    # B, n, P, K, eps2, cap, stream
-    "eggshell_compact_f32": [_P] * 16 + [_I64, _I, _I, _I, _F, _F, _P],
+    # B, n, P, pair_stride, K, eps2, cap, stream
+    "eggshell_compact_f32": [_P] * 16 + [_I64, _I, _I, _I64, _I, _F, _F, _P],
     # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, beta, route, copy, reg_rows, cluster,
     # rows, threads, stream
     "eggshell_jacobi_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F] + [_I] * 6 + [_P],

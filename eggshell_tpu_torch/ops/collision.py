@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from eggshell_tpu_torch.utils.constants import constant
+
 ALIGNMENT_TOLERANCE = 0.9962
 TOL = 1e-9
 MAX_POLY = 12
@@ -286,9 +288,9 @@ def collide_box_and_ground(p, R, hs):
     """8-corner z < 0 ground test over any leading dims: p (..., 3),
     R (..., 3, 3), hs (..., 3) -> position (..., 8, 3), normal (..., 8, 3),
     depth (..., 8), active (..., 8).  Corners in x-major/y/z sign order."""
-    signs = torch.tensor(_CORNER_SIGNS, dtype=p.dtype, device=p.device)
+    signs = constant(_CORNER_SIGNS, p.dtype, p.device)
     corners = p[..., None, :] + (signs * hs[..., None, :]) @ R.transpose(-1, -2)
     active = corners[..., 2] < 0
     depth = -corners[..., 2]
-    normal = torch.tensor([0.0, 0.0, 1.0], dtype=p.dtype, device=p.device)
+    normal = constant((0.0, 0.0, 1.0), p.dtype, p.device)
     return corners, normal.expand(corners.shape), depth, active

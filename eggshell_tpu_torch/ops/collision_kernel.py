@@ -6,8 +6,10 @@ their wrappers.
   in, every output of `PairContacts` out (the unfused branch).
 - `collide_boxes_lanes_packed` (B2p): counterpart of
   `eggshell_tpu.ops.collision_kernel.collide_boxes_lanes_packed`, the fused
-  chain's entry: the (B, n) state and the scene's pair lists in, and only
-  what the compaction kernel (`ops.compact_kernel`) reads out.
+  chain's entry: the (B, n) state and the pair lists in, and only what the
+  compaction kernel (`ops.compact_kernel`) reads out.  The pair lists are
+  the scene's (P,), shared by every scenario, or the broadphase's (B, Pc),
+  one a scenario, with its gate: a gated-off pair writes no active lane.
 
 On a CUDA tensor a wrapper launches `csrc/narrowphase.cu` as
 `narrowphase_launch_plan` says; on a CPU tensor it runs its plain version,
@@ -99,47 +101,62 @@ collide_boxes_lanes.launches = 0
 def gather_pairs(p, R, half_extents, pair_i, pair_j):
     """The lanes entry's inputs for every candidate pair of every scenario,
     scenario-major: (p1, R1, hs1, p2, R2, hs2) with B * P rows, from p
-    (B, n, 3), R (B, n, 3, 3), half_extents (n, 3), pair_i / pair_j (P,)."""
-    B, P = p.shape[0], pair_i.shape[0]
+    (B, n, 3), R (B, n, 3, 3), half_extents (n, 3), pair_i / pair_j (P,)
+    shared by every scenario or (B, P), a list a scenario."""
+    B, P = p.shape[0], pair_i.shape[-1]
 
     def flat(x):
         return x.reshape((B * P,) + x.shape[2:]).contiguous()
 
+    if pair_i.dim() == 2:
+        bidx = torch.arange(B, device=p.device)[:, None]
+        return (flat(p[bidx, pair_i]), flat(R[bidx, pair_i]), flat(half_extents[pair_i]),
+                flat(p[bidx, pair_j]), flat(R[bidx, pair_j]), flat(half_extents[pair_j]))
     return (flat(p[:, pair_i]), flat(R[:, pair_i]), flat(half_extents[pair_i].expand(B, P, 3)),
             flat(p[:, pair_j]), flat(R[:, pair_j]), flat(half_extents[pair_j].expand(B, P, 3)))
 
 
-def collide_boxes_lanes_packed_plain(p, q, half_extents, pair_i, pair_j):
+def collide_boxes_lanes_packed_plain(p, q, half_extents, pair_i, pair_j, gate=None):
     """Plain torch version of the packed entry: R = quat_to_mat(q), the
-    gather of every pair's bodies (`gather_pairs`), then `collide_boxes`.
-    p (B, n, 3), q (B, n, 4), half_extents (n, 3), pair_i / pair_j (P,)
-    int64.  Returns pos (B, P, 12, 3), nrm (B, P, 3), dep (B, P, 12),
-    act (B, P, 12) bool."""
-    B, P = p.shape[0], pair_i.shape[0]
+    gather of every pair's bodies (`gather_pairs`), then `collide_boxes`,
+    and a pair's flags cleared where `gate` is False.  p (B, n, 3),
+    q (B, n, 4), half_extents (n, 3), pair_i / pair_j (P,) int64 shared by
+    every scenario or (B, P) a list a scenario, gate None or (B, P) bool.
+    Returns pos (B, P, 12, 3), nrm (B, P, 3), dep (B, P, 12), act
+    (B, P, 12) bool."""
+    B, P = p.shape[0], pair_i.shape[-1]
     out = collide_boxes(*gather_pairs(p, quat_to_mat(q), half_extents, pair_i, pair_j))
+    act = out.active.reshape(B, P, MAX_POLY)
+    if gate is not None:
+        act = act & gate[..., None]
     return (out.position.reshape(B, P, MAX_POLY, 3), out.normal[:, 0].reshape(B, P, 3),
-            out.depth.reshape(B, P, MAX_POLY), out.active.reshape(B, P, MAX_POLY))
+            out.depth.reshape(B, P, MAX_POLY), act)
 
 
-def collide_boxes_lanes_packed(p, q, half_extents, pair_i, pair_j):
+def collide_boxes_lanes_packed(p, q, half_extents, pair_i, pair_j, gate=None):
     """(pos, nrm, dep, act) of every candidate pair of every scenario; see
     `collide_boxes_lanes_packed_plain` for the arguments.  The kernel
-    gathers the pairs' bodies and forms R from q itself."""
+    gathers the pairs' bodies and forms R from q itself; it reads a
+    scenario's pair k at pair_i[k] from a (P,) list and at pair_i[s, k]
+    from a (B, P) one, and writes the gate into the flags."""
     if p.device.type == "cpu":
-        return collide_boxes_lanes_packed_plain(p, q, half_extents, pair_i, pair_j)
+        return collide_boxes_lanes_packed_plain(p, q, half_extents, pair_i, pair_j, gate)
     if p.device.type != "cuda":
         raise ValueError(f"unsupported device {p.device}")
     from eggshell_tpu_torch import kernels
 
     B, n = p.shape[:2]
-    P = pair_i.shape[0]
+    P = pair_i.shape[-1]
+    per_scenario = pair_i.dim() == 2
+    ids = (B, P) if per_scenario else (P,)
     dev = p.device
     f32 = torch.float32
-    for name, x, shape, dtype in (
-        ("p", p, (B, n, 3), f32), ("q", q, (B, n, 4), f32),
-        ("half_extents", half_extents, (n, 3), f32), ("pair_i", pair_i, (P,), torch.int64),
-        ("pair_j", pair_j, (P,), torch.int64),
-    ):
+    args = [("p", p, (B, n, 3), f32), ("q", q, (B, n, 4), f32),
+            ("half_extents", half_extents, (n, 3), f32), ("pair_i", pair_i, ids, torch.int64),
+            ("pair_j", pair_j, ids, torch.int64)]
+    if gate is not None:
+        args.append(("gate", gate, (B, P), torch.bool))
+    for name, x, shape, dtype in args:
         kernels.check_arg(name, x, shape, dtype, dev)
     plan = narrowphase_launch_plan(B * P)
     pos = torch.empty((B, P, MAX_POLY, 3), dtype=f32, device=dev)
@@ -147,7 +164,7 @@ def collide_boxes_lanes_packed(p, q, half_extents, pair_i, pair_j):
     dep = torch.empty((B, P, MAX_POLY), dtype=f32, device=dev)
     act = torch.empty((B, P, MAX_POLY), dtype=torch.bool, device=dev)
     kernels.launch("eggshell_narrowphase_packed_f32", dev, p, q, half_extents, pair_i, pair_j,
-                   pos, nrm, dep, act, B, n, P, *plan)
+                   gate, pos, nrm, dep, act, B, n, P, P if per_scenario else 0, *plan)
     collide_boxes_lanes_packed.launches += 1
     return pos, nrm, dep, act
 

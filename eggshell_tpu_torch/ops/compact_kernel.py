@@ -8,7 +8,8 @@ collide_boxes_lanes_packed`), it writes the K contact lanes of every
 scenario as a `ContactSet`, as the Jacobian-block kernel takes them:
 
 - candidates: the ground corners, 8 per body, body-major, then pair k's 12
-  lanes, with b0 = pair_i[k], b1 = pair_j[k];
+  lanes, with b0 = pair_i[k], b1 = pair_j[k] (pair_i[s, k] and
+  pair_j[s, k] where the lists are the broadphase's, one a scenario);
 - depth capped at `depth_cap` (None: no cap);
 - stable compaction: active candidate number o goes to lane o, those past
   K are dropped; lanes never filled have b0 = b1 = -1 and zero geometry;
@@ -36,7 +37,8 @@ def compact_contacts_plain(p, q, half_extents, ground_enabled, pair, pair_i, pai
     `contacts._dedupe`.  p (B, n, 3), q (B, n, 4), half_extents (n, 3),
     ground_enabled (n,) bool; pair None (no pairs) or the packed
     narrowphase's (pos (B, P, 12, 3), nrm (B, P, 3), dep (B, P, 12),
-    act (B, P, 12) bool); pair_i / pair_j (P,) int64."""
+    act (B, P, 12) bool); pair_i / pair_j (P,) int64, shared by every
+    scenario, or (B, P), a list a scenario."""
     parts = [contacts.ground_candidates(p, q, half_extents, ground_enabled)]
     if pair is not None:
         parts.append(contacts.pair_candidates(pair, pair_i, pair_j))
@@ -68,13 +70,16 @@ def compact_contacts(p, q, half_extents, ground_enabled, pair, pair_i, pair_j, K
             ("ground_enabled", ground_enabled, (n,), torch.bool)]
     P = 0
     pp = (None,) * 4
+    stride = 0
     if pair is not None:
-        P = pair_i.shape[0]
+        P = pair_i.shape[-1]
+        stride = P if pair_i.dim() == 2 else 0
+        ids = (B, P) if stride else (P,)
         pp = pair
         args += [("pair_pos", pair[0], (B, P, C, 3), f32), ("pair_nrm", pair[1], (B, P, 3), f32),
                  ("pair_dep", pair[2], (B, P, C), f32),
                  ("pair_act", pair[3], (B, P, C), torch.bool),
-                 ("pair_i", pair_i, (P,), torch.int64), ("pair_j", pair_j, (P,), torch.int64)]
+                 ("pair_i", pair_i, ids, torch.int64), ("pair_j", pair_j, ids, torch.int64)]
     for name, x, shape, dtype in args:
         kernels.check_arg(name, x, shape, dtype, dev)
     if P and pair[3].data_ptr() % 4:
@@ -89,7 +94,7 @@ def compact_contacts(p, q, half_extents, ground_enabled, pair, pair_i, pair_j, K
     cap = float("inf") if depth_cap is None else float(depth_cap)
     kernels.launch("eggshell_compact_f32", dev, p, q, half_extents, ground_enabled, *pp,
                    pair_i if P else None, pair_j if P else None, b0, b1, pos, nrm, dep, act,
-                   B, n, P, K, float(eps2), cap)
+                   B, n, P, stride, K, float(eps2), cap)
     compact_contacts.launches += 1
     return ContactSet(b0=b0, b1=b1, position=pos, normal=nrm, depth=dep, active=act)
 

@@ -4,11 +4,12 @@ The JAX package scans the step over the horizon inside one compiled
 program.  Here, on the card, the step is captured once in a CUDA graph
 (`StepGraph`) and the graph is replayed once a step, so no host work
 stands between two steps; the graphs are cached by scene, configuration
-and batch.  On the CPU, and on the card for a configuration whose step
-waits on the host (`capture_refusal`), the horizon is a Python loop over
-`step_ode_batched`.  Both give the same bits.  A `StepGraph` with a
-control input replays one control period a graph (the controlled
-rollouts of `mpc.sampling`).
+and batch.  The fused chain, the matrix-free step and the unfused branch
+without a host read all capture.  On the CPU, and on the card for a
+configuration whose step waits on the host (`capture_refusal`), the
+horizon is a Python loop over `step_ode_batched`.  Both give the same
+bits.  A `StepGraph` with a control input replays one control period a
+graph (the controlled rollouts of `mpc.sampling`).
 
 `rollout` steps one scene through `step_ode`, a Python loop, with its
 trajectory stacked on a leading time axis.
@@ -48,20 +49,20 @@ def capture_refusal(cfg: SimConfig) -> Optional[str]:
 
     - the fused chain (`stepper._is_fused`) captures: fixed sweeps, every
       launch plan from shapes, no host read (solver_tol does not reach it);
-    - every unfused step copies constants from the host in its contacts
-      (`torch.tensor` of Python lists in `ops.collision` and
-      `physics.contacts`), which a capture refuses;
-    - and besides, under conditional CFM, the exact estimator's
-      `torch.linalg.eigvalsh` checks its errors on the host, and the power
-      estimator's `cholesky_ex` and `cholesky_solve` (MAGMA's batched
-      routines) invalidate a capture; the plain solves (PGS, SOR, JACOBI,
-      and JACOBI_KERNEL under COULOMB_PYRAMID) with solver_tol > 0 read
-      bool(done.all()) on the host every sweep.
+    - so does the matrix-free step (SolverKind.MATRIX_FREE): fixed sweeps,
+      and the broadphase and contacts read nothing back; the constants of
+      the contacts and constraints are made on the card at the warm-up
+      step (`utils.constants`);
+    - the unfused branch captures but where, under conditional CFM, the
+      exact estimator's `torch.linalg.eigvalsh` checks its errors on the
+      host, and the power estimator's `cholesky_ex` and `cholesky_solve`
+      (MAGMA's batched routines) invalidate a capture, and where the plain
+      solves (PGS, SOR, JACOBI, and JACOBI_KERNEL under COULOMB_PYRAMID)
+      with solver_tol > 0 read bool(done.all()) on the host every sweep.
     """
-    if _is_fused(cfg):
+    if _is_fused(cfg) or cfg.solver == SolverKind.MATRIX_FREE:
         return None
-    reasons = ["the unfused contacts copy constants from the host (torch.tensor of Python "
-               "lists)"]
+    reasons = []
     if cfg.conditional_cfm and cfg.cond_estimator == "exact":
         reasons.append("the exact condition estimator's torch.linalg.eigvalsh checks its "
                        "errors on the host")
@@ -73,7 +74,7 @@ def capture_refusal(cfg: SimConfig) -> Optional[str]:
     if not kernel_solve and cfg.solver_tol > 0:
         reasons.append("solver_tol > 0: the plain solve reads bool(done.all()) on the host "
                        "every sweep")
-    return "; ".join(reasons)
+    return "; ".join(reasons) or None
 
 
 def graph_capturable(cfg: SimConfig) -> bool:
@@ -109,13 +110,28 @@ def _monitor(nxt: State, sts: State, diverged, first_bad, i, speed_limit: float,
     return state, diverged, first_bad
 
 
+def _step(spec: SceneSpec, states: State, cfg: SimConfig, ext=None, out=None) -> State:
+    """One step of `step_ode_batched`; with `out`, a State of buffers, the
+    next state is written into them: by B7 itself on the fused chain,
+    copied there on the other branches."""
+    if _is_fused(cfg):
+        return _fused_step(spec, states, cfg, ext, out=out)
+    nxt = step_ode_batched(spec, states, cfg, ext)
+    if out is None:
+        return nxt
+    for dst, src in zip(out, nxt):
+        dst.copy_(src)
+    return out
+
+
 class StepGraph:
-    """One fused step of B scenarios of one scene under `cfg`, captured in
-    CUDA graphs and replayed.
+    """One step of B scenarios of one scene under `cfg` (a configuration
+    `graph_capturable` takes), captured in CUDA graphs and replayed.
 
     Two state buffers and two graphs on one memory pool: the first graph
     reads the state from buffer 0 and writes the next state into buffer 1
-    (B7 writes it there), the second the other way round.  `replay`
+    (B7 writes it there on the fused chain; the other branches copy it
+    there), the second the other way round.  `replay`
     alternates them, so replaying r times advances r steps and `state` is
     the buffer written last; nothing is copied between steps.  With
     `speed_limit` the graphs also carry the divergence monitor's flags
@@ -198,11 +214,11 @@ class StepGraph:
         sts, out = self.buffers[src], self.buffers[1 - src]
         ext = None if self.controls is None else self._control()
         for _ in range(self.substeps - 1):
-            sts = _fused_step(self.spec, sts, self.cfg, ext)
+            sts = _step(self.spec, sts, self.cfg, ext)
         if self.speed_limit is None:
-            _fused_step(self.spec, sts, self.cfg, ext, out=out)
+            _step(self.spec, sts, self.cfg, ext, out=out)
         else:
-            nxt = _fused_step(self.spec, sts, self.cfg, ext)
+            nxt = _step(self.spec, sts, self.cfg, ext)
             _, diverged, first_bad = _monitor(nxt, sts, self.diverged, self.first_bad,
                                               self.index, self.speed_limit, out)
             self.diverged.copy_(diverged)

@@ -1,12 +1,17 @@
-"""Scene-level contact assembly for a batch of scenarios: narrowphase
-fan-out, stable compaction into K lanes, same-pair deduplication, and the
-joint-contact dedupe.
+"""Scene-level contact assembly for a batch of scenarios: broadphase and
+narrowphase fan-out, stable compaction into K lanes, same-pair
+deduplication, and the joint-contact dedupe.
 
 Counterpart of `eggshell_tpu.physics.contacts`.  Candidates come in the
 reference order — ground corners body-major (8 per body), then the
 candidate pairs in order (MAX_CONTACTS_PER_PAIR lanes each) — and active
 candidates are compacted in that order, so lane k here is lane k in the
-JAX package.  `make_contacts_batched` is the unfused branch's contact
+JAX package.  With 0 < cfg.pair_capacity < P the candidate pairs are each
+scenario's broadphase selection (`ops.broadphase.select_scene_pairs`), its
+gate folded into the pairs' flags before compaction.  The compaction is a
+cumsum and a scatter at every size: it gives the lanes of both of the JAX
+package's forms (a one-hot matmul, and `top_k` where K * C > 2**23).
+`make_contacts_batched` is the unfused branch's contact
 step (`make_contacts` that of one scene); the fused chain runs the
 compaction kernel (`ops.compact_kernel`), whose plain version is built
 from `ground_candidates`, `pair_candidates`, `_compact` and `_dedupe`
@@ -20,15 +25,16 @@ from typing import NamedTuple
 
 import torch
 
-from eggshell_tpu_torch.ops import collision
+from eggshell_tpu_torch.ops import broadphase, collision
 from eggshell_tpu_torch.ops import quaternion as quat
 from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes, gather_pairs
 from eggshell_tpu_torch.physics.scene import SceneSpec, State
 from eggshell_tpu_torch.utils.config import SimConfig
+from eggshell_tpu_torch.utils.constants import constant
 
-# `_dedupe` compares every pair of lanes; the JAX package switches to a
-# windowed form at this capacity.
-_PAIRWISE_DEDUPE_MAX_K = 32 * collision.MAX_CONTACTS_PER_PAIR
+# `_dedupe` compares every pair of lanes; from this capacity on the contacts
+# take the JAX package's windowed form (`_dedupe_windowed`).
+WINDOWED_DEDUPE_MIN_K = 32 * collision.MAX_CONTACTS_PER_PAIR
 
 
 class ContactSet(NamedTuple):
@@ -47,9 +53,25 @@ class ContactSet(NamedTuple):
         return self.b0.shape[-1]
 
 
-def _candidates(spec: SceneSpec, states: State):
+def broadphase_on(spec: SceneSpec, cfg: SimConfig) -> bool:
+    """Whether the narrowphase takes each scenario's broadphase selection:
+    0 < cfg.pair_capacity < the scene's pairs, as in the JAX package."""
+    return 0 < cfg.pair_capacity < spec.num_pairs
+
+
+def scene_pairs(spec: SceneSpec, states: State, cfg: SimConfig):
+    """(pair_i, pair_j, gate) the narrowphase takes: each scenario's
+    broadphase selection, (B, pair_capacity) each, where `broadphase_on`,
+    else the scene's (P,) lists and no gate."""
+    if broadphase_on(spec, cfg):
+        return broadphase.select_scene_pairs(spec, states, cfg)
+    return spec.pair_i, spec.pair_j, None
+
+
+def _candidates(spec: SceneSpec, states: State, cfg: SimConfig):
     """All candidate contacts of every scenario in reference order:
-    (b0, b1, pos, nrm, dep, act) with a candidate axis of n*8 + P*12."""
+    (b0, b1, pos, nrm, dep, act) with a candidate axis of n*8 + P*12 (P the
+    pairs the narrowphase takes, `scene_pairs`)."""
     B, n = states.p.shape[:2]
     device = states.p.device
     R = states.R()                                                  # (B, n, 3, 3)
@@ -64,16 +86,19 @@ def _candidates(spec: SceneSpec, states: State):
 
     parts = [(g_b0, g_b1, gpos.reshape(B, n * G, 3), gnrm.reshape(B, n * G, 3),
               gdep.reshape(B, n * G), gact.reshape(B, n * G))]
-    P = spec.num_pairs
-    if P > 0:
-        pi, pj = spec.pair_i, spec.pair_j
+    if spec.num_pairs > 0:
+        pi, pj, gate = scene_pairs(spec, states, cfg)
+        P = pi.shape[-1]
         out = collide_boxes_lanes(*gather_pairs(states.p, R, spec.half_extents, pi, pj))
         C = collision.MAX_CONTACTS_PER_PAIR
+        act = out.active.reshape(B, P, C)
+        if gate is not None:
+            act = act & gate[..., None]
         parts.append((
-            pi.repeat_interleave(C).expand(B, P * C),
-            pj.repeat_interleave(C).expand(B, P * C),
+            pi.repeat_interleave(C, dim=-1).expand(B, P * C),
+            pj.repeat_interleave(C, dim=-1).expand(B, P * C),
             out.position.reshape(B, P * C, 3), out.normal.reshape(B, P * C, 3),
-            out.depth.reshape(B, P * C), out.active.reshape(B, P * C),
+            out.depth.reshape(B, P * C), act.reshape(B, P * C),
         ))
     return tuple(torch.cat([part[i] for part in parts], dim=1) for i in range(6))
 
@@ -84,8 +109,7 @@ def _compact(b0, b1, pos, nrm, dep, act, K: int) -> ContactSet:
     geometry.  Every field is contiguous, as the fused chain's kernels
     take them."""
     B, C = act.shape
-    a = act.to(torch.int64)
-    offs = torch.cumsum(a, dim=1) - a
+    offs = broadphase.running_count(act) - act.to(torch.int64)
     slot = torch.where(act & (offs < K), offs, torch.full_like(offs, K))  # K = discard
 
     def scatter(vals, fill):
@@ -123,6 +147,27 @@ def _dedupe(cs: ContactSet, eps2: float) -> ContactSet:
     return cs._replace(active=cs.active & ~drop)
 
 
+def _dedupe_windowed(cs: ContactSet, eps2: float) -> ContactSet:
+    """`_dedupe` judging each lane against the MAX_CONTACTS_PER_PAIR - 1
+    lanes before it only, the JAX package's form for large capacities: a
+    pair's candidates are contiguous and the compaction keeps their order,
+    so an earlier lane of the same pair is never further back."""
+    lo_b = torch.minimum(cs.b0, cs.b1)
+    hi_b = torch.maximum(cs.b0, cs.b1)
+    ok = (lo_b >= 0) & cs.active
+    K = cs.capacity
+    dev = cs.b0.device
+    back = torch.arange(K, device=dev)[:, None] - torch.arange(
+        1, collision.MAX_CONTACTS_PER_PAIR, device=dev)                # (K, W-1)
+    inside = back >= 0
+    prev = back.clamp(min=0)
+    d = cs.position[:, :, None, :] - cs.position[:, prev]              # (B, K, W-1, 3)
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    hit = ((lo_b[:, :, None] == lo_b[:, prev]) & (hi_b[:, :, None] == hi_b[:, prev])
+           & ok[:, :, None] & ok[:, prev] & inside & (d2 < eps2))
+    return cs._replace(active=cs.active & ~torch.any(hit, dim=2))
+
+
 def ground_candidates(p, q, half_extents, ground_enabled):
     """The ground corners of every body, 8 per body, body-major, in the
     compaction kernel's expressions (csrc/compact.cu): R = quat_to_mat(q),
@@ -133,7 +178,7 @@ def ground_candidates(p, q, half_extents, ground_enabled):
     B, n = p.shape[:2]
     G = collision.GROUND_CONTACTS
     R = quat.quat_to_mat(q)                                           # (B, n, 3, 3)
-    signs = torch.tensor(collision._CORNER_SIGNS, dtype=p.dtype, device=p.device)
+    signs = constant(collision._CORNER_SIGNS, p.dtype, p.device)
     o = signs * half_extents[:, None, :]                              # (n, 8, 3)
     c = [p[..., r, None] + R[..., r, 0, None] * o[..., 0] + R[..., r, 1, None] * o[..., 1]
          + R[..., r, 2, None] * o[..., 2] for r in range(3)]           # (B, n, 8) each
@@ -149,12 +194,12 @@ def ground_candidates(p, q, half_extents, ground_enabled):
 def pair_candidates(pair, pair_i, pair_j):
     """The narrowphase lanes of every candidate pair as candidates: pair
     = (pos (B, P, 12, 3), nrm (B, P, 3), dep (B, P, 12), act (B, P, 12)), the
-    packed narrowphase's outputs.  Returns (b0, b1, pos, nrm, dep, act) with
-    a candidate axis of 12P, pair-major."""
+    packed narrowphase's outputs; pair_i / pair_j (P,) or (B, P).  Returns
+    (b0, b1, pos, nrm, dep, act) with a candidate axis of 12P, pair-major."""
     pos, nrm, dep, act = pair
     B, P, C = dep.shape
-    return (pair_i.repeat_interleave(C).expand(B, P * C),
-            pair_j.repeat_interleave(C).expand(B, P * C),
+    return (pair_i.repeat_interleave(C, dim=-1).expand(B, P * C),
+            pair_j.repeat_interleave(C, dim=-1).expand(B, P * C),
             pos.reshape(B, P * C, 3), nrm[:, :, None, :].expand(B, P, C, 3).reshape(B, P * C, 3),
             dep.reshape(B, P * C), act.reshape(B, P * C))
 
@@ -200,20 +245,16 @@ def joint_anchors(spec: SceneSpec, states: State):
 
 def make_contacts_batched(spec: SceneSpec, states: State, cfg: SimConfig) -> ContactSet:
     """Detect, compact and dedupe the contacts of B scenarios into
-    `cfg.contact_capacity` lanes each: the same-pair dedupe, then, in a
+    `cfg.contact_capacity` lanes each: the same-pair dedupe (windowed from
+    WINDOWED_DEDUPE_MIN_K lanes on, as in the JAX package), then, in a
     scene with joints, the joint-contact dedupe.  Both judge the lanes'
     incoming flags, as the JAX package's one `_dedupe` does.  The box pairs
-    of all scenarios go through one narrowphase call (B * P pairs)."""
-    if 0 < cfg.pair_capacity < spec.num_pairs:
-        raise NotImplementedError(
-            "pair_capacity > 0 (broadphase) is not ported yet (ROADMAP A9: broadphase scenes)")
-    if cfg.contact_capacity >= _PAIRWISE_DEDUPE_MAX_K:
-        raise NotImplementedError(
-            "windowed dedupe for large contact capacities is not ported yet "
-            "(ROADMAP A12: matrix-free large-scene tier)"
-        )
+    of all scenarios go through one narrowphase call (B * P pairs, P the
+    scene's pairs or the broadphase's capacity)."""
     eps2 = cfg.min_constraint_distance ** 2
-    cs = _dedupe(_compact(*_candidates(spec, states), cfg.contact_capacity), eps2)
+    K = cfg.contact_capacity
+    dedupe = _dedupe_windowed if K >= WINDOWED_DEDUPE_MIN_K else _dedupe
+    cs = dedupe(_compact(*_candidates(spec, states, cfg), K), eps2)
     if spec.num_joints > 0:
         a0, a1 = joint_anchors(spec, states)
         cs = drop_joint_contacts(cs, joint_points(a0, a1, spec.joint_b1), spec.joint_b0,
@@ -227,6 +268,22 @@ def make_contacts(spec: SceneSpec, state: State, cfg: SimConfig) -> ContactSet:
     vmap of its per-scene ones), fields (K, ...)."""
     cs = make_contacts_batched(spec, State(*(x[None] for x in state)), cfg)
     return ContactSet(*(x[0] for x in cs))
+
+
+def count_dropped_contacts(spec: SceneSpec, states: State, cfg: SimConfig) -> torch.Tensor:
+    """(B,) int64: the active contact candidates of each scenario that do
+    not fit into cfg.contact_capacity lanes, plus MAX_CONTACTS_PER_PAIR for
+    each overlapping pair the broadphase left out at cfg.pair_capacity;
+    0 where both capacities suffice.  Counterpart of the JAX package's
+    `count_dropped_contacts` (one scene there)."""
+    act = _candidates(spec, states, cfg)[5]
+    dropped = torch.clamp(act.sum(dim=1) - cfg.contact_capacity, min=0)
+    if broadphase_on(spec, cfg):
+        mask = broadphase.pair_overlap_mask(states.p, states.q, spec.half_extents, spec.pair_i,
+                                            spec.pair_j, cfg.broadphase_margin)
+        pair_drop = torch.clamp(mask.sum(dim=1) - cfg.pair_capacity, min=0)
+        dropped = dropped + pair_drop * collision.MAX_CONTACTS_PER_PAIR
+    return dropped
 
 
 def depth_cap(cfg: SimConfig):
@@ -247,5 +304,5 @@ def effective_depth(depth: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
 def contact_frames(cs: ContactSet) -> torch.Tensor:
     """Rotations taking global vectors into the contact frame (z = the
     contact normal): AlignVectors(normal, z), (..., K, 3, 3)."""
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=cs.normal.dtype, device=cs.normal.device)
+    z = constant((0.0, 0.0, 1.0), cs.normal.dtype, cs.normal.device)
     return quat.align_vectors_mat(cs.normal, z.expand(cs.normal.shape))

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from eggshell_tpu_torch.ops import quaternion as quat
+from eggshell_tpu_torch.utils.constants import constant
 
 
 class SceneSpec(NamedTuple):
@@ -157,7 +158,7 @@ def inv_mass_blocks(spec: SceneSpec, state: State) -> torch.Tensor:
 def external_forces(spec: SceneSpec, state: State, gravity) -> torch.Tensor:
     """Gravity and gyroscopic torque per body, [m g; -w x (I_g w)],
     (..., n, 6)."""
-    g = torch.as_tensor(gravity, dtype=state.p.dtype, device=state.p.device)
+    g = constant(tuple(gravity), state.p.dtype, state.p.device)
     im = spec.inv_mass
     mass = torch.where(im > 0, 1.0 / torch.where(im > 0, im, torch.ones_like(im)),
                        torch.zeros_like(im))

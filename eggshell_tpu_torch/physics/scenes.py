@@ -15,7 +15,7 @@ import torch
 
 from eggshell_tpu_torch.ops import quaternion as quat
 from eggshell_tpu_torch.physics.scene import State, make_scene
-from eggshell_tpu_torch.utils.config import BENCH
+from eggshell_tpu_torch.utils.config import BENCH, SolverKind
 
 
 def chain(num_links: int = 10, anchor_position=(2.0, 2.0, 1.0), collide: bool = False, *,
@@ -99,14 +99,66 @@ def living_room(*, device="cuda", dtype=torch.float64):
         ("elegant_armchair", (2.5, 2.5, 1.2), (1.0, 0.8, 0.8), -45.0, False),
         ("table_lamp", (0.0, -3.0, 1.4), (0.3, 0.3, 0.6), 0.0, False),
     ]
-    static = [g[4] for g in geoms]
-    n = len(geoms)
+    return _with_static([g[1] for g in geoms], [yaw_quat(g[3]) for g in geoms],
+                        [g[2] for g in geoms], [g[4] for g in geoms], device, dtype)
+
+
+def _with_static(positions, quats, half_extents, static, device, dtype):
+    """A scene of boxes some of which are static (infinite mass, no ground
+    contacts); every pair but static-static is a candidate."""
+    n = len(positions)
     pairs = [(i, j) for i in range(n) for j in range(i + 1, n) if not (static[i] and static[j])]
-    spec, state = make_scene([g[1] for g in geoms], quats=[yaw_quat(g[3]) for g in geoms],
-                             half_extents=[g[2] for g in geoms], static=static, ground=True,
-                             pairs=pairs, device=device, dtype=dtype)
+    spec, state = make_scene(positions, quats=quats, half_extents=half_extents, static=static,
+                             ground=True, pairs=pairs, device=device, dtype=dtype)
     ground = torch.as_tensor([not st for st in static], device=spec.ground_enabled.device)
     return spec._replace(ground_enabled=ground), state
+
+
+def box_pile(num_boxes: int = 216, side: float = 0.3, spacing: float = 1.15, seed: int = 0,
+             jitter: float = 0.02, *, device="cuda", dtype=torch.float64):
+    """A large scene: a cubic lattice of num_boxes (a cube) boxes of side
+    `side` at `spacing` sides apart, the lowest layer on the ground, x and
+    y jittered by uniform(-jitter, jitter); it collapses into a pile.  All
+    pairs are candidates; the bench runs it with SolverKind.MATRIX_FREE and
+    a pair capacity."""
+    rng = np.random.default_rng(seed)
+    m = round(num_boxes ** (1 / 3))
+    if m ** 3 != num_boxes:
+        raise ValueError(f"num_boxes must be a perfect cube, got {num_boxes}")
+    g = np.arange(m) - (m - 1) / 2
+    xx, yy, zz = np.meshgrid(g, g, np.arange(m), indexing="ij")
+    p = np.stack([xx.ravel() * side * spacing, yy.ravel() * side * spacing,
+                  side / 2 + zz.ravel() * side * spacing], -1)
+    p[:, :2] += rng.uniform(-jitter, jitter, (num_boxes, 2))
+    return make_scene(p, ground=True, device=device, dtype=dtype)
+
+
+def mjcf_boxes(path: str, *, device="cuda", dtype=torch.float64):
+    """The box geoms of a MuJoCo XML file as a scene: a body with a
+    <freejoint/> is free, any other static (infinite mass, no ground
+    contacts); geom pos, size (half extents) and euler (degrees, applied
+    x, then y, then z) as the JAX package's minimal importer reads them;
+    every pair but static-static is a candidate."""
+    import xml.etree.ElementTree as ET
+
+    def axis_quat(axis, deg):
+        phi = torch.zeros(3, dtype=torch.float64)
+        phi[axis] = math.radians(deg)
+        return quat.quat_from_scaled_axis(phi)
+
+    positions, half, quats, static = [], [], [], []
+    for body in ET.parse(path).getroot().iter("body"):
+        free = body.find("freejoint") is not None
+        for geom in body.findall("geom"):
+            if geom.get("type") != "box":
+                continue
+            euler = [float(x) for x in geom.get("euler", "0 0 0").split()]
+            rx, ry, rz = (axis_quat(a, e) for a, e in enumerate(euler))
+            positions.append([float(x) for x in geom.get("pos", "0 0 0").split()])
+            half.append([float(x) for x in geom.get("size", "0.1 0.1 0.1").split()])
+            quats.append(quat.quat_mul(rz, quat.quat_mul(ry, rx)).numpy())
+            static.append(not free)
+    return _with_static(positions, quats, half, static, device, dtype)
 
 
 # The scenes that bench.py rolls on the fused chain (`bench.py:148-176`,
@@ -131,3 +183,33 @@ def baseline_batch(name: str, B: int, *, device="cuda", dtype=torch.float32):
     shift = torch.linspace(0, jitter, B, device=device, dtype=dtype)
     return (spec, states._replace(p=states.p + shift[:, None, None]),
             BENCH.replace(contact_capacity=capacity))
+
+
+# bench.py:286-318's large-scene tier: boxes of the pile, batch, contact
+# capacity and pair capacity, on the bench solver with MATRIX_FREE, 60
+# sweeps, broadphase margin 0.05 and max_correcting_vel 2
+LARGE = {"pile216": (216, 8, 4096, 2048), "pile512": (512, 4, 8192, 4096)}
+LARGE_JITTER = 1e-3
+
+
+def large_batch(name: str, B: int = None, *, device="cuda", dtype=torch.float32):
+    """(spec, states, cfg) of the large-scene cell `name` (LARGE): B
+    scenarios (the cell's batch by default) of the pile, scenario b's
+    position + b * LARGE_JITTER / (B - 1) on every coordinate, as bench.py
+    spreads them."""
+    boxes, batch, K, pc = LARGE[name]
+    B = batch if B is None else B
+    spec, st = box_pile(boxes, device=device, dtype=dtype)
+    states = State(*[x.expand((B,) + x.shape).clone() for x in st])
+    shift = torch.linspace(0, LARGE_JITTER, B, device=device, dtype=dtype)
+    cfg = BENCH.replace(solver=SolverKind.MATRIX_FREE, solver_iters=60, contact_capacity=K,
+                        pair_capacity=pc, broadphase_margin=0.05, max_correcting_vel=2.0)
+    return spec, states._replace(p=states.p + shift[:, None, None]), cfg
+
+
+# living_room on the fused chain with the broadphase (`[scene_living_room_bp]`
+# of chip_smoke.py): margin 0.1, and the smallest pair capacity at which no
+# overlapping pair is left out over the bench rollout (B = 4096, H = 50; at
+# most 2 of the 15 candidate pairs overlap)
+LIVING_ROOM_BP_MARGIN = 0.1
+LIVING_ROOM_PAIR_CAPACITY = 2

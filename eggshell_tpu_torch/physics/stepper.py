@@ -10,6 +10,10 @@ dispatches as the JAX package's does:
   the body-prep, Jacobian-block, A-formation, packed-Jacobi (resident or
   streamed; scalar or 3x3 block sweeps, box or pyramid bounds) and
   integrate kernels on compact 3x12 blocks, for any B;
+- the large-scene tier (`SolverKind.MATRIX_FREE`), counterpart of the
+  vmapped `_step_matrix_free`: contacts (B2 on the broadphase's pairs),
+  compact two-body constraint blocks, and the matrix-free projected Jacobi
+  of `ops.lcp_matrix_free`; no dense Jacobian and no system matrix;
 - the unfused branch, every other configuration: contacts, dense
   constraints (ball joints, any friction model), the system matrix with
   always-on or conditional CFM, then the projected-Jacobi LCP kernel for
@@ -17,11 +21,13 @@ dispatches as the JAX package's does:
   Jacobi solve of `ops.lcp` (`_solve_lambda`), and the midpoint
   integration.
 
+With 0 < cfg.pair_capacity < the scene's pairs, every branch's narrowphase
+takes each scenario's broadphase selection (`ops.broadphase`).
+
 `step_ode` steps one scene: the unfused branch at a batch of one, under
 PGS, JACOBI or SOR (the JAX package's single-scene solver map has no
-JACOBI_KERNEL).  `SolverKind.DIRECT`, `SolverKind.MATRIX_FREE` and
-`pair_capacity > 0` raise `NotImplementedError` naming the ROADMAP item
-that ports them.
+JACOBI_KERNEL), or the matrix-free step.  `SolverKind.DIRECT` raises
+`NotImplementedError` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import math
 import torch
 
 from eggshell_tpu_torch.ops import lcp
+from eggshell_tpu_torch.ops import lcp_matrix_free as mf
 from eggshell_tpu_torch.ops import quaternion as quat
 from eggshell_tpu_torch.ops.amat_kernel import contact_system_matrix, padded_rows
 from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes_packed
@@ -41,10 +48,11 @@ from eggshell_tpu_torch.ops.pgs_kernel import (packed_streams, solve_lcp_jacobi,
                                                solve_lcp_jacobi_packed)
 from eggshell_tpu_torch.ops.prep_kernel import prep_bodies
 from eggshell_tpu_torch.physics import scene as scn
-from eggshell_tpu_torch.physics.constraints import ConstraintSystem, build_constraints
+from eggshell_tpu_torch.physics.constraints import (ConstraintSystem, build_compact_constraints,
+                                                    build_constraints)
 from eggshell_tpu_torch.physics.contacts import (ContactSet, depth_cap, drop_joint_contacts,
                                                  joint_anchors, joint_points,
-                                                 make_contacts_batched)
+                                                 make_contacts_batched, scene_pairs)
 from eggshell_tpu_torch.physics.scene import SceneSpec, State
 from eggshell_tpu_torch.utils.config import FrictionModel, SimConfig, SolverKind
 
@@ -116,17 +124,21 @@ def system_matrix(spec: SceneSpec, states: State, sys: ConstraintSystem,
     return A + torch.diag_embed(torch.where(sys.row_active, cfm[:, None], zero))
 
 
-def _post_solve(states: State, cfg: SimConfig, sys: ConstraintSystem, lam, u, Minv, F) -> State:
-    """v_dot = M^-1 (F + J^T lambda); midpoint position update and
+def _integrate(states: State, cfg: SimConfig, u, vdot) -> State:
+    """u_new = u + dt v_dot, then the midpoint position update and the
     exp-map orientation update."""
     dt = cfg.dt
-    JTlam = torch.einsum("bmnk,bm->bnk", sys.J, lam)
-    vdot = torch.einsum("bnij,bnj->bni", Minv, F + JTlam)
     u_new = u + dt * vdot
     u_mid = 0.5 * (u + u_new)
     p_new = states.p + dt * u_mid[..., :3]
     q_new = quat.integrate_quat(states.q, u_mid[..., 3:], dt)
     return State(p=p_new, v=u_new[..., :3], q=q_new, w=u_new[..., 3:])
+
+
+def _post_solve(states: State, cfg: SimConfig, sys: ConstraintSystem, lam, u, Minv, F) -> State:
+    """v_dot = M^-1 (F + J^T lambda), then `_integrate`."""
+    JTlam = torch.einsum("bmnk,bm->bnk", sys.J, lam)
+    return _integrate(states, cfg, u, torch.einsum("bnij,bnj->bni", Minv, F + JTlam))
 
 
 def _is_fused(cfg: SimConfig) -> bool:
@@ -139,16 +151,10 @@ def _is_fused(cfg: SimConfig) -> bool:
 
 def check_supported(cfg: SimConfig) -> None:
     """Raise NotImplementedError for every configuration that the JAX
-    package's `step_ode_batched` sends down a branch not ported yet."""
-    if cfg.solver == SolverKind.MATRIX_FREE:
-        raise NotImplementedError(
-            "SolverKind.MATRIX_FREE is not ported yet (ROADMAP A12: matrix-free large-scene tier)")
+    package's `step_ode_batched` sends down a branch not ported yet: DIRECT."""
     if cfg.solver == SolverKind.DIRECT:
         raise NotImplementedError(
             "SolverKind.DIRECT is not ported yet (ROADMAP A10: differentiable step and direct solvers)")
-    if cfg.pair_capacity > 0:
-        raise NotImplementedError(
-            "pair_capacity > 0 (broadphase) is not ported yet (ROADMAP A9: broadphase scenes)")
 
 
 def _pyramid_mu(cfg: SimConfig) -> float:
@@ -195,6 +201,35 @@ def _pre_solve(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None):
     rhs = -cfg.erp / dt / dt * sys.err - torch.einsum("bmnk,bnk->bm", sys.J, u / dt + MinvF)
     A = system_matrix(spec, states, sys, cfg)
     return cs, sys, A, rhs, u, Minv, F
+
+
+def _step_matrix_free(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
+                      cs=None):
+    """The large-scene step of B scenarios (the JAX package's vmapped
+    `_step_matrix_free`): contacts, compact constraint blocks, the rhs
+    -erp/dt^2 err - J (u/dt + M^-1 F), the matrix-free projected Jacobi
+    (cfg.solver_iters sweeps, jacobi_omega, jacobi_beta, cfm_always), then
+    v_dot = M^-1 (F + J^T lambda) and the midpoint integration.  `cs`
+    injects precomputed contacts.  Returns (next states, contacts)."""
+    dt = cfg.dt
+    n = spec.num_bodies
+    if cs is None:
+        cs = make_contacts_batched(spec, states, cfg)
+    sysc = build_compact_constraints(spec, states, cs, cfg)
+    u = scn.pack_velocity(states)
+    Minv = scn.inv_mass_blocks(spec, states)
+    F = scn.external_forces(spec, states, cfg.gravity)
+    if ext_forces is not None:
+        F = F + ext_forces
+    MinvF = torch.einsum("bnij,bnj->bni", Minv, F)
+    rhs = -cfg.erp / dt / dt * sysc.err - mf.j_v(sysc.blocks, sysc.b0, sysc.b1, u / dt + MinvF)
+    lam = mf.solve_lcp_matrix_free(
+        sysc.blocks, sysc.b0, sysc.b1, Minv, rhs, sysc.is_eq, sysc.lo, sysc.hi,
+        iters=cfg.solver_iters, omega=cfg.jacobi_omega, beta=cfg.jacobi_beta,
+        cfm=float(cfg.cfm_always))
+    JTlam = mf.jt_x(sysc.blocks, sysc.b0, sysc.b1, lam, n)
+    vdot = torch.einsum("bnij,bnj->bni", Minv, F + JTlam)
+    return _integrate(states, cfg, u, vdot), cs
 
 
 def _run(name, fn, args):
@@ -252,13 +287,17 @@ def _fused_step(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
     into them (the captured step of `parallel.rollout`)."""
     states = State(*(x.contiguous() for x in states))
     eps2 = cfg.min_constraint_distance ** 2
-    pair = None
+    pair = pi = pj = None
     if spec.num_pairs > 0:
+        # the scene's pairs, or each scenario's broadphase selection and its
+        # gate, which B2p writes into the flags (a gated-off lane is the
+        # self-pair (0, 0), a deep contact, and must not reach B3)
+        pi, pj, gate = scene_pairs(spec, states, cfg)
         pair = call("narrowphase", collide_boxes_lanes_packed, (
-            states.p, states.q, spec.half_extents, spec.pair_i, spec.pair_j))
+            states.p, states.q, spec.half_extents, pi, pj) + (() if gate is None else (gate,)))
     cs = call("compact", compact_contacts, (
-        states.p, states.q, spec.half_extents, spec.ground_enabled, pair, spec.pair_i,
-        spec.pair_j, cfg.contact_capacity, eps2, depth_cap(cfg)))
+        states.p, states.q, spec.half_extents, spec.ground_enabled, pair, pi, pj,
+        cfg.contact_capacity, eps2, depth_cap(cfg)))
     pos1, eq = cs.position, None
     if spec.num_joints > 0:
         cs, pos1, eq = _with_joint_lanes(spec, states, cs, eps2)
@@ -287,6 +326,8 @@ def step_ode_batched(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=
     check_supported(cfg)
     if _is_fused(cfg):
         return _fused_step(spec, states, cfg, ext_forces)
+    if cfg.solver == SolverKind.MATRIX_FREE:
+        return _step_matrix_free(spec, states, cfg, _batched_ext(ext_forces, states))[0]
     _, sys, A, rhs, u, Minv, F = _pre_solve(spec, states, cfg, _batched_ext(ext_forces, states))
     if (cfg.solver == SolverKind.JACOBI_KERNEL
             and cfg.friction_model != FrictionModel.COULOMB_PYRAMID):
@@ -308,8 +349,8 @@ def step_ode_batched(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=
 def check_single_scene(cfg: SimConfig) -> None:
     """`check_supported`, and besides a clear error for JACOBI_KERNEL: the
     JAX package's single-scene solver map has no entry for it (its
-    `step_ode` raises KeyError), so its single-scene path runs PGS, JACOBI
-    and SOR only."""
+    `step_ode` raises KeyError), so its single-scene path runs PGS, JACOBI,
+    SOR and the matrix-free step only."""
     check_supported(cfg)
     if cfg.solver == SolverKind.JACOBI_KERNEL:
         raise ValueError(
@@ -323,11 +364,14 @@ def step_ode(spec: SceneSpec, state: State, cfg: SimConfig, ext_force=None):
     (new_state, contact_set).  `ext_force` (n, 6) adds control wrenches
     [force; torque] per body.  The unfused branch at a batch of one, the
     batch axis dropped (the JAX package's batched unfused step is the vmap
-    of the same per-scene math); PGS, JACOBI and SOR only
+    of the same per-scene math); PGS, JACOBI, SOR and MATRIX_FREE only
     (`check_single_scene`)."""
     check_single_scene(cfg)
     states = State(*(x[None] for x in state))
     ext = None if ext_force is None else _batched_ext(ext_force, states)
+    if cfg.solver == SolverKind.MATRIX_FREE:
+        nxt, cs = _step_matrix_free(spec, states, cfg, ext)
+        return State(*(x[0] for x in nxt)), ContactSet(*(x[0] for x in cs))
     cs, sys, A, rhs, u, Minv, F = _pre_solve(spec, states, cfg, ext)
     lam = _solve_lambda(A, rhs, sys, cfg)
     nxt = _post_solve(states, cfg, sys, lam, u, Minv, F)

@@ -29,9 +29,13 @@ at contact_capacity 64, the path through B6b), joints_unfused
 (pendulum_chain6 on the unfused branch, 2 and 3 only), pgs (the JAX
 package's default `SimConfig()`, projected Gauss-Seidel, on box_stack4;
 2 and 3 over PGS_REPS steps), fdtd2d (one step of the 2D FDTD at
-n = 2048; 2 and 3) and mpc_living_room (living_room's step with a control
+n = 2048; 2 and 3), mpc_living_room (living_room's step with a control
 input, as the MPC update replays it: a `StepGraph` with controls, the
-control slot filled inside the graph; 4 only).
+control slot filled inside the graph; 4 only) and living_room_bp
+(living_room with the broadphase, pair capacity
+`scenes.LIVING_ROOM_PAIR_CAPACITY`).  pile216 and pile512, the large-scene
+cells of `scenes.LARGE` (their batch, the matrix-free step), get 2, 3 and
+4.
 
 Prints one line per result and a JSON line.  It needs a CUDA device; it
 never falls back to the CPU.
@@ -48,6 +52,7 @@ import torch
 
 from eggshell_tpu_torch.fem import fdtd
 from eggshell_tpu_torch.physics import scenes
+from eggshell_tpu_torch.parallel.rollout import graph_capturable
 from eggshell_tpu_torch.physics.stepper import _fused_step, _is_fused, step_ode_batched
 from eggshell_tpu_torch.utils.config import BENCH, FrictionModel, SimConfig
 from eggshell_tpu_torch.utils.profiling import device_window
@@ -65,6 +70,9 @@ CONFIGS = {
     "box_stack8_k64": ("box_stack8", BENCH.replace(contact_capacity=64)),
     "joints_unfused": ("pendulum_chain6", UNFUSED.replace(contact_capacity=4)),
     "pgs": ("box_stack4", SimConfig(contact_capacity=20)),
+    "living_room_bp": ("living_room", BENCH.replace(
+        contact_capacity=32, pair_capacity=scenes.LIVING_ROOM_PAIR_CAPACITY,
+        broadphase_margin=scenes.LIVING_ROOM_BP_MARGIN)),
 }
 FDTD_N = 2048
 
@@ -130,7 +138,7 @@ def _span_ms(events, per_replay: int, reps: int) -> float:
 
 def profile_graph(tag, spec, st, cfg, reps: int = REPS, controls=None,
                   controlled_body: int = 0) -> dict:
-    """Item 4 of the module's description for one fused step; with
+    """Item 4 of the module's description for one step; with
     `controls` (B, H, 6), H above the 7 * reps + 2 replays this makes, the
     step with that control input."""
     from eggshell_tpu_torch.parallel.rollout import StepGraph
@@ -192,13 +200,16 @@ def main(argv) -> int:
             dt = fdtd.courant_dt(1.0, 2, 0.7)
             result[name] = profile(name, lambda: fdtd.step_2d_fused(*grids, dt, 1.0))
             continue
-        scene, scfg = CONFIGS.get(name, (name, None))
-        sspec, sst, bcfg = scenes.baseline_batch(scene, B, device=dev)
-        scfg = bcfg if scfg is None else scfg
+        if name in scenes.LARGE:
+            sspec, sst, scfg = scenes.large_batch(name, device=dev)
+        else:
+            scene, scfg = CONFIGS.get(name, (name, None))
+            sspec, sst, bcfg = scenes.baseline_batch(scene, B, device=dev)
+            scfg = bcfg if scfg is None else scfg
         phases = report_phases(name, sspec, sst, scfg) if _is_fused(scfg) else {}
         result[name] = {"phases_ms": phases, **profile(
             name, lambda: step_ode_batched(sspec, sst, scfg), PGS_REPS if name == "pgs" else REPS)}
-        if _is_fused(scfg):
+        if graph_capturable(scfg):
             result[name]["graph"] = profile_graph(name, sspec, sst, scfg)
     print(json.dumps(result))
     return 0

@@ -835,6 +835,9 @@ GRAPH_CASES = {
     "slice_pyramid": ("box_stack4", "pyramid", ("narrowphase_packed", "compact", "prep",
                                                 "jassembly", "amat", "jacobi_packed_pyramid",
                                                 "integrate")),
+    "living_room_bp": ("living_room", "broadphase", ("narrowphase_packed", "compact", "prep",
+                                                     "jassembly", "amat", "jacobi_packed",
+                                                     "integrate")),
 }
 
 
@@ -852,6 +855,8 @@ def test_graph_rollout_is_bit_for_bit_the_loop(dev, case):
     spec, states, cfg = scenes.baseline_batch(scene, 256, device=dev)
     if form == "pyramid":
         cfg = cfg.replace(friction_model=FrictionModel.COULOMB_PYRAMID)
+    if form == "broadphase":
+        cfg = cfg.replace(pair_capacity=6, broadphase_margin=0.1)
     start = State(*(x.clone() for x in states))
     H = 7
     eager = rollout_batched(spec, states, cfg, H, graph=False)
@@ -985,3 +990,83 @@ def test_controlled_rollout_outside_the_capture_rule_loops_and_says_so(dev):
     cspec = type(spec)(*(x.cpu() for x in spec))
     with pytest.raises(ValueError, match="not on a CUDA device"):
         rollout_controlled_batched(cspec, cpu, cfg, ctrls.cpu(), 4, graph=True)
+
+
+def _pile27(dev, B, seed=0):
+    """B scenarios of a compressed box_pile(27), float32 on the card: each
+    box shifted by up to 2 mm and turned by up to about 0.05 rad (seeded),
+    some 160 overlapping pairs of the 351 at margin 0.05."""
+    spec, st = scenes.box_pile(27, spacing=0.97, device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    n = spec.num_bodies
+    p = st.p.cpu().double().numpy()[None] + rng.uniform(-2e-3, 2e-3, (B, n, 3))
+    p[..., 2] -= 3e-3
+    phi = rng.uniform(-0.05, 0.05, (B, n, 3))
+    ang = np.linalg.norm(phi, axis=-1, keepdims=True)
+    q = np.concatenate([np.cos(ang / 2), np.sin(ang / 2) * phi / ang], -1)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+    z = torch.zeros((B, n, 3), device=dev)
+    return spec, State(p=f(p), v=z, q=f(q), w=z.clone())
+
+
+def test_gated_narrowphase_and_compaction_match_plain(dev):
+    """B2p and B3 on each scenario's broadphase pair list (S = 64, pair
+    capacity 200 above the overlapping pairs, so gated-off self-pairs
+    (0, 0) exist): B2p bit for bit the lanes entry on the gathered pairs
+    with the gate applied, no active lane on a gated-off pair; B3 on those
+    lanes the plain version's ids and flags, geometry within 1e-6."""
+    from eggshell_tpu_torch.ops.broadphase import select_scene_pairs
+
+    spec, st = _pile27(dev, 64)
+    cfg = SimConfig(contact_capacity=256, pair_capacity=200, broadphase_margin=0.05)
+    pi, pj, gate = select_scene_pairs(spec, st, cfg)
+    assert not bool(gate.all()) and bool(gate.any())
+    before = collide_boxes_lanes_packed.launches
+    got = collide_boxes_lanes_packed(st.p, st.q, spec.half_extents, pi, pj, gate)
+    assert collide_boxes_lanes_packed.launches == before + 1
+    lanes = collide_boxes_lanes(*gather_pairs(st.p, quat_to_mat(st.q), spec.half_extents, pi, pj))
+    B, P = pi.shape
+    assert torch.equal(got[0], lanes.position.reshape(B, P, 12, 3))
+    assert torch.equal(got[1], lanes.normal[:, 0].reshape(B, P, 3))
+    assert torch.equal(got[2], lanes.depth.reshape(B, P, 12))
+    assert torch.equal(got[3], lanes.active.reshape(B, P, 12) & gate[..., None])
+    assert not bool(got[3][~gate].any()) and bool(lanes.active.reshape(B, P, 12)[~gate].any())
+    want = collide_boxes_lanes_packed_plain(st.p, st.q, spec.half_extents, pi, pj, gate)
+    normal_ok = (got[1] - want[1]).abs().amax(-1) <= 1e-4
+    assert float(normal_ok.float().mean()) >= 0.99
+    assert float((got[3] == want[3])[normal_ok].float().mean()) >= 0.99
+    args = (st.p, st.q, spec.half_extents, spec.ground_enabled, got, pi, pj, 256,
+            cfg.min_constraint_distance ** 2, 0.05)
+    cs = compact_contacts(*args)
+    plain = compact_contacts_plain(*args)
+    for k in ("b0", "b1", "active"):
+        assert torch.equal(getattr(cs, k), getattr(plain, k)), k
+    for k in ("position", "normal", "depth"):
+        assert float((getattr(cs, k) - getattr(plain, k)).abs().max()) <= 1e-6, k
+    assert int(cs.active.sum(1).min()) > 100
+
+
+def test_captured_matrix_free_rollout_is_bit_for_bit_the_loop(dev):
+    """The matrix-free step (box_pile(27), B = 3, K = 256, pair capacity
+    128, 40 sweeps, the "auto" matvec form) captures: the replayed rollout
+    gives the loop's bits and counts one B2 launch a step and nothing
+    else."""
+    from eggshell_tpu_torch.ops import launch_counters
+    from eggshell_tpu_torch.parallel.rollout import clear_graphs, graph_capturable
+
+    spec, st = _pile27(dev, 3)
+    cfg = BENCH.replace(solver=SolverKind.MATRIX_FREE, solver_iters=40, contact_capacity=256,
+                        pair_capacity=128, broadphase_margin=0.05, max_correcting_vel=2.0)
+    assert graph_capturable(cfg)
+    H = 5
+    eager = rollout_batched(spec, st, cfg, H, graph=False)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    got = rollout_batched(spec, st, cfg, H, graph=True)
+    torch.cuda.synchronize()
+    assert {k: f.launches for k, f in counters.items()} == \
+        {k: H if k == "narrowphase" else 0 for k in counters}
+    assert _same_bits(got, eager)
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    clear_graphs()

@@ -14,8 +14,9 @@ and rollout, against the JAX package, on the CPU in float64.
 - Single scene: `step_ode` over 6 steps on box_drop and box_stack(3) under
   PGS, JACOBI and SOR (`tests/test_mpc_parallel.py`'s configuration),
   states within 1e-8, ContactSet lanes equal and geometry within 1e-9;
-  JACOBI_KERNEL raising on both sides (and the unported MATRIX_FREE and
-  broadphase raising in the port); `rollout` with its trajectory over
+  JACOBI_KERNEL raising on both sides; one matrix-free `step_ode` on
+  box_drop and `make_contacts` with the broadphase (pair_capacity 1 of
+  box_stack(3)'s 3 pairs) against the JAX package's; `rollout` with its trajectory over
   10 steps; `rollout_controlled` (running cost, 2 substeps) and
   `_mppi_from_controls` as `mppi_update` runs it, at box_drop, S = 8,
   H = 6, within 1e-8; one solver_tol > 0 case at S = 4 (each sample's early
@@ -37,6 +38,7 @@ import torch
 
 from eggshell_tpu.mpc import sampling as jmpc
 from eggshell_tpu.parallel.rollout import rollout as jax_rollout
+from eggshell_tpu.physics import contacts as jcont
 from eggshell_tpu.physics import scenes as js
 from eggshell_tpu.physics import stepper as jstep
 from eggshell_tpu.utils.config import SimConfig as JaxSimConfig
@@ -288,12 +290,23 @@ def test_unported_and_refused_configurations_raise():
     for call in calls:
         with pytest.raises(ValueError, match="JACOBI_KERNEL"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        step_ode(tspec, tst, cfg.replace(solver=SolverKind.MATRIX_FREE))
-    # the broadphase (pair_capacity below the scene's pairs) is not ported
-    sspec, sst = _port(*js.box_stack(3, dtype=jnp.float64))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        make_contacts(sspec, sst, SimConfig(pair_capacity=1, **MPC_CFG))
+    # the matrix-free step and the broadphase (pair_capacity below the
+    # scene's pairs) match the JAX package's
+    mcfg = cfg.replace(solver=SolverKind.MATRIX_FREE)
+    got, got_cs = step_ode(tspec, tst, mcfg)
+    want, want_cs = jstep.step_ode(spec, st, _jax_cfg(mcfg))
+    _states_close(got, want)
+    np.testing.assert_array_equal(got_cs.active.numpy(), np.asarray(want_cs.active))
+    bspec, bst = js.box_stack(3, dtype=jnp.float64)
+    sspec, sst = _port(bspec, bst)
+    bcfg = SimConfig(pair_capacity=1, **MPC_CFG)
+    got_cs = make_contacts(sspec, sst, bcfg)
+    want_cs = _np(jax.jit(lambda s: jcont.make_contacts(bspec, s, _jax_cfg(bcfg)))(bst))
+    for k in ("b0", "b1", "active"):
+        np.testing.assert_array_equal(getattr(got_cs, k).numpy(), want_cs[k], err_msg=k)
+    for k in ("position", "normal", "depth"):
+        _close(getattr(got_cs, k).numpy(), want_cs[k], 1e-9, k)
+    assert int(got_cs.active.sum()) > 0
 
 
 # single-scene MPPI cases at box_drop: (solver, samples, configuration

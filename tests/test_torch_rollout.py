@@ -8,7 +8,9 @@
   rollout;
 - `batch_states` against the JAX package's;
 - the capture rule `graph_capturable` on every configuration
-  `chip_smoke.py` drives, on `SimConfig()` and on solver_tol > 0;
+  `chip_smoke.py` drives, on `SimConfig()`, on solver_tol > 0, on the
+  matrix-free step (which ignores conditional CFM and solver_tol) and on
+  the unfused branch with always-on CFM;
 - on the CPU the rollouts are the Python loop over `step_ode_batched`,
   bit for bit, and a forced capture raises; the fused step writes into
   the buffers it is given (the captured step's two state buffers).
@@ -94,6 +96,9 @@ def test_batch_states_matches_jax():
 
 
 UNFUSED = BENCH.replace(conditional_cfm=True, cond_estimator="power")
+# bench.py:298-306's large-scene solver (pile216)
+PILE = BENCH.replace(solver=SolverKind.MATRIX_FREE, solver_iters=60, contact_capacity=4096,
+                     pair_capacity=2048, broadphase_margin=0.05, max_correcting_vel=2.0)
 # Every configuration chip_smoke.py drives, and whether its rollout
 # replays a graph on the card.
 RULE_CASES = {
@@ -110,6 +115,12 @@ RULE_CASES = {
     "joints_unfused": (UNFUSED.replace(contact_capacity=4), False),
     "default_exact_estimator": (SimConfig(), False),
     "plain_solve_with_solver_tol": (SimConfig(conditional_cfm=False, solver_tol=1e-6), False),
+    "pile": (PILE, True),
+    "pile_conditional_cfm_solver_tol": (PILE.replace(conditional_cfm=True, solver_tol=1e-6),
+                                        True),
+    "living_room_bp": (BENCH.replace(contact_capacity=32, pair_capacity=6,
+                                     broadphase_margin=0.1), True),
+    "plain_solve_always_on_cfm": (SimConfig(conditional_cfm=False), True),
 }
 
 
@@ -120,7 +131,7 @@ def test_graph_capturable_rule(name):
     reason = capture_refusal(cfg)
     assert (reason is None) is want
     if not want:
-        assert "contacts copy constants" in reason
+        assert "constants" not in reason
     if name == "default_exact_estimator":
         assert "eigvalsh" in reason
     if name == "slice_unfused_power":

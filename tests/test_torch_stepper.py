@@ -12,10 +12,12 @@ against the JAX package, and the port's oracle gate.
 - every other configuration of `step_ode_batched` against the JAX
   package's, B=4, 6 steps, float64, within 1e-8: the default `SimConfig()`
   (PGS), SOR, the XLA Jacobi, NO_FRICTION, INFINITE, COULOMB_PYRAMID and
-  `jacobi_block` on the unfused branch, ball joints there, and the fused
-  chain with block-Jacobi or COULOMB_PYRAMID (against the JAX package's
-  XLA twin of that step, the same configuration with SolverKind.JACOBI);
-- DIRECT, MATRIX_FREE and the broadphase raise, naming their ROADMAP item.
+  `jacobi_block` on the unfused branch, ball joints there, the broadphase
+  there (pair_capacity 2 of a 3-stack's 3 pairs), the matrix-free step,
+  and the fused chain with block-Jacobi or COULOMB_PYRAMID (against the
+  JAX package's XLA twin of that step, the same configuration with
+  SolverKind.JACOBI);
+- DIRECT raises, naming its ROADMAP item.
 """
 
 import functools
@@ -138,9 +140,7 @@ def test_oracle_gate_f32():
 
 
 UNSUPPORTED = {
-    "matrix_free": dict(solver=SolverKind.MATRIX_FREE),
     "direct": dict(solver=SolverKind.DIRECT),
-    "broadphase": dict(pair_capacity=4),
 }
 
 
@@ -168,6 +168,8 @@ PORTED = {
     "pyramid_unfused": ("sliding", {**SMALL, **PYRAMID}, None),
     "jacobi_block_unfused": ("stack", {**SMALL, "jacobi_block": True}, None),
     "joints": ("joints", {**SMALL, "min_constraint_distance": 0.25}, None),
+    "broadphase": ("stack3", {**SMALL, "solver": SolverKind.JACOBI, "pair_capacity": 2}, None),
+    "matrix_free": ("stack", {**SMALL, "solver": SolverKind.MATRIX_FREE}, None),
     "fused_chain_block": ("stack", {**FUSED, "jacobi_block": True},
                           {**FUSED, "jacobi_block": True, "solver": SolverKind.JACOBI}),
     "fused_chain_pyramid": ("sliding", {**FUSED, **PYRAMID},
@@ -183,7 +185,10 @@ def _scene(kind, make):
     impulses reach their caps (tests/test_pgs_kernel.py:443-451); "joints":
     two boxes overlapping by 1 mm side by side, joined at their common face
     and hung from the world by the first's top, so the joint-contact dedupe
-    drops their contacts (min_constraint_distance 0.25)."""
+    drops their contacts (min_constraint_distance 0.25); "stack3":
+    box_stack(3), whose 3 pairs the broadphase cuts to the 2 that touch."""
+    if kind == "stack3":
+        return make([[0.0, 0.0, 0.15], [0.0, 0.0, 0.45], [0.0, 0.0, 0.75]])
     if kind == "joints":
         return make([[0.0, 0.0, 1.0], [0.299, 0.0, 1.0]], ground=True,
                      joints=[(0, 1, [0.15, 0.0, 0.0], [-0.15, 0.0, 0.0]),

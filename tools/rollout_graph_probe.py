@@ -17,12 +17,12 @@ and which unfused configurations capture at all.
    must give the loop's bits.  Prints each one's rollouts/s (host clock
    of a synchronised call) and its capture seconds.  These are the
    measurements behind the one-step graphs of `parallel.rollout`.
-2. Captures.  Each unfused configuration that `capture_refusal` refuses
-   for a reason found on the card (the conditional-CFM slice with the
-   power estimator, the jointed chain on the unfused branch, and the plain
-   Jacobi solve) is captured by force (`UnfusedGraph`, a `StepGraph` of
-   `step_ode_batched` built here only, bypassing the rule) in a process of
-   its own, replayed 3 steps and held against the loop.
+2. Captures.  Unfused configurations (the conditional-CFM slice with the
+   power estimator and the jointed chain on the unfused branch, which
+   `capture_refusal` refuses, and the plain Jacobi solve with always-on
+   CFM, which it takes since the contacts' constants are made on the card)
+   are captured (`StepGraph`, bypassing the rule) each in a process of its
+   own, replayed 3 steps and held against the loop.
    Prints whether it captured, or the error it raised.  The power
    estimator's factorisation and solves (`stepper._cond_bounds_power`:
    `cholesky_ex`, `cholesky_solve`) are captured alone too, on a seeded
@@ -55,7 +55,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from eggshell_tpu_torch.parallel.rollout import StepGraph, rollout_batched  # noqa: E402
 from eggshell_tpu_torch.physics import scenes  # noqa: E402
-from eggshell_tpu_torch.physics.stepper import _fused_step, step_ode_batched  # noqa: E402
+from eggshell_tpu_torch.physics.stepper import _fused_step  # noqa: E402
 from eggshell_tpu_torch.utils.config import BENCH, SolverKind  # noqa: E402
 
 B, H, REPS = 4096, 50, 3
@@ -76,15 +76,6 @@ class UnrolledGraph(StepGraph):
         for _ in range(H - 1):
             sts = _fused_step(self.spec, sts, self.cfg)
         _fused_step(self.spec, sts, self.cfg, out=out)
-
-
-class UnfusedGraph(StepGraph):
-    """A forced capture of the step under any configuration."""
-
-    def _body(self, src):
-        for dst, x in zip(self.buffers[1 - src],
-                          step_ode_batched(self.spec, self.buffers[src], self.cfg)):
-            dst.copy_(x)
 
 
 class HostFillGraph(StepGraph):
@@ -211,7 +202,7 @@ def try_capture(name, dev) -> None:
     scene, cfg = CAPTURES[name]
     spec, st, _ = scenes.baseline_batch(scene, 256, device=dev)
     want = rollout_batched(spec, st, cfg, 3, graph=False)
-    g = UnfusedGraph(spec, cfg, st)
+    g = StepGraph(spec, cfg, st)
     g.load(st)
     g.replay(3)
     same = all(torch.equal(x, y) for x, y in zip(g.state, want))
