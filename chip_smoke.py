@@ -1894,6 +1894,407 @@ def phase_living_room_bp(dev, all_pairs_final):
     return launches, pc
 
 
+GRAD_CHECK_H = 5
+GRAD_CHECK_BOUND = 1e-2     # tests/test_diff_kernel.py:96-103
+# Steps the check's scenarios settle first.  From the bench's start, where
+# the boxes touch at zero depth, a float32 gradient changes by 70-100 % of
+# its scale under a one-ulp change of the positions (contacts appear or not
+# by rounding); after GRAD_SETTLE steps by about 1e-6 (measured on the CPU's
+# plain path).
+GRAD_SETTLE = 200
+GRAD_REPS = 3
+
+
+def _zero_counters(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def counted_gradient(spec, states, cfg, H, counters):
+    """One `profile_step.bench_gradient` call, the launches of its forward
+    (H steps) and of its backward read apart."""
+    from eggshell_tpu_torch.profile_step import bench_loss
+
+    e = torch.zeros(states.p.shape[:2] + (6,), dtype=states.p.dtype,
+                    device=states.p.device).requires_grad_()
+    _zero_counters(counters)
+    with torch.enable_grad():
+        loss = bench_loss(spec, states, cfg, e, H)
+        torch.cuda.synchronize()
+        fwd = {name: fn.launches for name, fn in counters.items()}
+        _zero_counters(counters)
+        (g,) = torch.autograd.grad(loss, e)
+    torch.cuda.synchronize()
+    return g, fwd, {name: fn.launches for name, fn in counters.items()}
+
+
+def phase_gradient_mpc(dev):
+    """bench.py:220-284's gradient cell: the value and gradient with respect
+    to the control wrenches (B, n, 6), held over H steps, of
+    sum(p[:, -1, 2]) + sum(e^2) on box_stack(4) with the bench's jitter,
+    float32, ext zero, at small_B256_H20 and production_B4096_H50, in two
+    arms: kernel_ift (the bench configuration: the fused chain forward, its
+    Function's backward the plain twin adopting B6's impulses) and
+    xla_unrolled (SolverKind.JACOBI: the unfused branch, reverse through
+    its 16 sweeps).  Each arm: one warm-up call, then GRAD_REPS synchronised
+    calls; grad_steps_per_s = GRAD_REPS * B * H / s; the peak of
+    max_memory_allocated over the timed calls; finite gradients.  A
+    kernel_ift call's forward must launch each fused kernel H times and
+    nothing else, its backward B2 H times (the twin's contacts) and
+    nothing else.  Then scenarios 0-7 of the small shape, settled
+    GRAD_SETTLE steps on the card: the kernel_ift gradient at H =
+    GRAD_CHECK_H from the settled state against the same Function's on the
+    CPU (its plain path) from the same state in float32, within
+    GRAD_CHECK_BOUND of the latter's largest magnitude, and, printed
+    without a bound, against it in float64: float32 and float64 find other
+    contact points on the same stack (clip points whose depth rounds to
+    either side of zero), so the two precisions' gradients differ by their
+    own size on the CPU's plain path already.
+    Returns (per-shape results, the launches of a small-shape kernel_ift
+    call)."""
+    from eggshell_tpu_torch.physics import scenes
+    from eggshell_tpu_torch.physics.scene import State
+    from eggshell_tpu_torch.profile_step import GRAD_SHAPES, bench_gradient
+    from eggshell_tpu_torch.utils.config import SolverKind
+
+    tag = "gradient_mpc"
+    counters = launch_counters()
+    out, grad_launches = {}, None
+    for shape, (Bg, Hg) in GRAD_SHAPES.items():
+        spec, st, kcfg = scenes.baseline_batch("box_stack4", Bg, device=dev)
+        ext = torch.zeros(st.p.shape[:2] + (6,), device=dev)
+        res, grads = {}, {}
+        for arm, cfg in (("kernel_ift", kcfg),
+                         ("xla_unrolled", kcfg.replace(solver=SolverKind.JACOBI))):
+            bench_gradient(spec, st, cfg, ext, Hg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            for _ in range(GRAD_REPS):
+                val, g = bench_gradient(spec, st, cfg, ext, Hg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            check(bool(torch.isfinite(g).all()) and bool(torch.isfinite(val)),
+                  f"{tag} {shape} {arm}: gradient not finite")
+            res[arm] = {"grad_steps_per_s": GRAD_REPS * Bg * Hg / dt, "s_a_call": dt / GRAD_REPS,
+                        "peak_bytes": peak, "value": float(val)}
+            grads[arm] = g
+        g_k, fwd, bwd = counted_gradient(spec, st, kcfg, Hg, counters)
+        want_fwd = {name: Hg if name in FUSED_PATH else 0 for name in counters}
+        want_bwd = {name: Hg if name == "narrowphase" else 0 for name in counters}
+        check(fwd == want_fwd, f"{tag} {shape} forward launches {fwd}, expected {want_fwd}")
+        check(bwd == want_bwd, f"{tag} {shape} backward launches {bwd}, expected {want_bwd}")
+        # the backward's scatters (autograd of the gathers) add by atomics
+        # in any order: a call's gradient is not bit for bit the last one's
+        rerun = float((g_k - grads["kernel_ift"]).abs().max() / grads["kernel_ift"].abs().max())
+        check(rerun <= 1e-4, f"{tag} {shape}: two kernel_ift calls' gradients differ by "
+                             f"{rerun} of the scale")
+        if grad_launches is None:
+            grad_launches = {name: fwd[name] + bwd[name] for name in counters}
+        gap = float((grads["kernel_ift"] - grads["xla_unrolled"]).abs().max()
+                    / grads["xla_unrolled"].abs().max())
+        k, x = res["kernel_ift"], res["xla_unrolled"]
+        res["speedup"] = k["grad_steps_per_s"] / x["grad_steps_per_s"]
+        res["relative_gap"] = gap
+        print(f"[{tag}] {shape} (box_stack4, B={Bg}, H={Hg}, f32): kernel_ift "
+              f"{k['grad_steps_per_s']:.1f} grad steps/s ({k['s_a_call']:.4f} s a call, peak "
+              f"{k['peak_bytes'] / 2**20:.1f} MiB), xla_unrolled {x['grad_steps_per_s']:.1f} "
+              f"grad steps/s ({x['s_a_call']:.4f} s a call, peak {x['peak_bytes'] / 2**20:.1f} "
+              f"MiB); kernel_ift / xla_unrolled {res['speedup']:.2f}x; launches of a kernel_ift "
+              f"call: forward {fwd}, backward {bwd}; two kernel_ift calls {rerun:.3e} of the "
+              f"scale apart (bound 1e-4: atomics in the backward's scatters); max |g_ift - g_unrolled| / max |g_unrolled| "
+              f"{gap:.3e} (no bound: IFT at 16 unconverged sweeps is not reverse through them)")
+        out[shape] = res
+
+    from eggshell_tpu_torch.parallel.rollout import rollout_batched
+
+    Bs = GRAD_SHAPES["small_B256_H20"][0]
+    spec, st, kcfg = scenes.baseline_batch("box_stack4", Bs, device=dev)
+    settled = rollout_batched(spec, State(*(x[:8].contiguous() for x in st)), kcfg, GRAD_SETTLE)
+    g_card, _, _ = counted_gradient(spec, settled, kcfg, GRAD_CHECK_H, counters)
+    errs = {}
+    for dtype in (torch.float32, torch.float64):
+        spec_c, _ = scenes.BASELINE["box_stack4"][0](device="cpu", dtype=dtype)
+        st_c = State(*(x.to("cpu", dtype) for x in settled))
+        g = bench_gradient(spec_c, st_c, kcfg, torch.zeros(st_c.p.shape[:2] + (6,), dtype=dtype),
+                           GRAD_CHECK_H)[1].double()
+        errs[dtype] = (float((g_card.double().cpu() - g).abs().max()), float(g.abs().max()))
+    (e32, s32), (e64, s64) = errs[torch.float32], errs[torch.float64]
+    print(f"[{tag}] scenarios 0-7 settled {GRAD_SETTLE} steps on the card, H={GRAD_CHECK_H}: "
+          f"kernel_ift gradient on the card (f32) against the same Function on the CPU (plain "
+          f"path) from the same state: f32 max |dg| {e32:.3e}, {e32 / s32:.3e} of max |g| "
+          f"{s32:.3e} (bound {GRAD_CHECK_BOUND:.0e}); f64 {e64:.3e}, {e64 / s64:.3e} of max |g| "
+          f"{s64:.3e} (no bound: the precisions find other contact points)")
+    check(s32 > 0 and e32 <= GRAD_CHECK_BOUND * s32, f"{tag} H={GRAD_CHECK_H} gradient "
+                                                     f"disagrees: {e32} of scale {s32}")
+    return out, grad_launches
+
+
+def narrowphase_vjp_inputs(dev):
+    """tests/test_diff_kernel.py:147-187's five pairs, float32."""
+    from eggshell_tpu_torch.ops.quaternion import quat_to_mat
+
+    rng = np.random.default_rng(3)
+    n = 5
+    p1 = rng.uniform(-0.1, 0.1, (n, 3))
+    p2 = p1 + np.asarray([0.25, 0.0, 0.1]) + rng.uniform(-0.02, 0.02, (n, 3))
+    q = rng.normal(size=(n, 4))
+    q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+    R1 = f(np.broadcast_to(np.eye(3), (n, 3, 3)))
+    return f(p1), R1, f(np.full((n, 3), 0.15)), f(p2), quat_to_mat(f(q)).contiguous(), \
+        f(np.full((n, 3), 0.15))
+
+
+def phase_narrowphase_vjp(dev):
+    """The gradient of sum(depth of active lanes) + sum(position . normal)
+    + sum(info_depth) with respect to p1 and R2 through
+    `collide_boxes_lanes_diff` (B2 forward) against autograd of the plain
+    `collide_boxes`, both on the card: within 1e-5 of the gradient's
+    largest magnitude (the kernel's positions and normals, which the
+    backward multiplies by, differ from the plain version's in the last
+    bits); B2 launched once."""
+    from eggshell_tpu_torch.ops.collision import collide_boxes
+    from eggshell_tpu_torch.ops.collision_kernel import (collide_boxes_lanes,
+                                                        collide_boxes_lanes_diff)
+
+    tag = "narrowphase_vjp"
+
+    def grads(fn):
+        p1, R1, hs1, p2, R2, hs2 = narrowphase_vjp_inputs(dev)
+        p1.requires_grad_()
+        R2.requires_grad_()
+        out = fn(p1, R1, hs1, p2, R2, hs2)
+        zero = torch.zeros((), device=dev)
+        loss = (torch.sum(torch.where(out.active, out.depth, zero))
+                + torch.sum(out.position * out.normal) + torch.sum(out.info_depth))
+        loss.backward()
+        return p1.grad, R2.grad
+
+    before = collide_boxes_lanes.launches
+    got = grads(collide_boxes_lanes_diff)
+    launched = collide_boxes_lanes.launches - before
+    want = grads(collide_boxes)
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    print(f"[{tag}] d/dp1 and d/dR2 of 5 pairs (tests/test_diff_kernel.py:147-187, f32): "
+          f"B2 forward and the plain backward against autograd of the plain narrowphase: max "
+          f"|d| {err:.3e} of max |g| {scale:.3e} (bound 1e-5 of it); B2 launches {launched}")
+    check(launched == 1, f"{tag}: B2 launched {launched} times")
+    check(scale > 0.1 and err <= 1e-5 * scale, f"{tag} gradients differ: {err} of {scale}")
+    return err
+
+
+GRAD_PATHS = ("JACOBI", "PGS", "SOR", "DIRECT", "MATRIX_FREE")
+
+
+def _paths_problem(dev, dtype):
+    from eggshell_tpu_torch.physics import scenes
+    from eggshell_tpu_torch.physics.scene import State
+
+    spec, st = scenes.box_stack(2, jitter=0.01, seed=1, device=dev, dtype=dtype)
+    states = State(*(x.expand((2,) + x.shape).clone() for x in st))
+    return spec, states._replace(p=states.p + torch.tensor([0.0, 1e-4], device=dev,
+                                                           dtype=dtype)[:, None, None])
+
+
+def _paths_gradient(spec, states, cfg):
+    from eggshell_tpu_torch.physics.stepper import step_ode_batched
+
+    e = torch.zeros(states.p.shape[:2] + (6,), dtype=states.p.dtype,
+                    device=states.p.device).requires_grad_()
+    with torch.enable_grad():
+        out = step_ode_batched(spec, states, cfg, e)
+        (g,) = torch.autograd.grad(torch.sum(out.p[:, -1, 2]) + torch.sum(out.v ** 2), e)
+    return g
+
+
+def phase_gradient_paths(dev):
+    """One step of box_stack(2, jitter=0.01) at B = 2 under each solver of
+    GRAD_PATHS (tests/test_diff_kernel.py:106-145's configuration with
+    cfm_always 0.01 for float32): the gradient of sum(p[:, -1, 2]) +
+    sum(v^2) with respect to the wrench on the card (float32, B2 forward)
+    finite and within 1e-3 of its largest magnitude of the CPU's plain path
+    in float64, and in float32 for DIRECT, whose float64 gap is printed:
+    the boxes touch at zero depth, float32 rounds the depth to about 1e-7,
+    and ERP turns that into normal impulses of 7e-4 where float64 finds
+    1e-12, so DIRECT's exact solve has another active set in each
+    precision (1.3e-2 of the scale apart on the CPU's plain path).  Then the guard: a kernel wrapper called outside its
+    Function with a tensor that requires grad, and JACOBI_KERNEL's unfused
+    solve (B6c, no backward), raise."""
+    from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes
+    from eggshell_tpu_torch.physics.stepper import step_ode_batched
+    from eggshell_tpu_torch.utils.config import SimConfig, SolverKind
+
+    tag = "gradient_paths"
+    counters = launch_counters()
+    spec, states = _paths_problem(dev, torch.float32)
+    cpu = {dtype: _paths_problem("cpu", dtype) for dtype in (torch.float32, torch.float64)}
+    errs = {}
+    for name in GRAD_PATHS:
+        cfg = SimConfig(conditional_cfm=False, cfm_always=0.01,
+                        solver_iters=0 if name == "DIRECT" else 40, jacobi_omega=0.3,
+                        contact_capacity=16, solver=SolverKind[name])
+        _zero_counters(counters)
+        g = _paths_gradient(spec, states, cfg)
+        b2 = counters["narrowphase"].launches
+        rel = {}
+        for dtype, (spec_c, states_c) in cpu.items():
+            g_c = _paths_gradient(spec_c, states_c, cfg).double()
+            rel[dtype] = float((g.double().cpu() - g_c).abs().max() / g_c.abs().max())
+        errs[name] = rel
+        bounded = torch.float32 if name == "DIRECT" else torch.float64
+        check(bool(torch.isfinite(g).all()), f"{tag} {name}: gradient not finite")
+        check(b2 == 1, f"{tag} {name}: B2 launched {b2} times")
+        check(rel[bounded] <= 1e-3, f"{tag} {name}: card against CPU {bounded} "
+                                    f"{rel[bounded]} of scale")
+    refused = []
+    x = narrowphase_vjp_inputs(dev)
+    p1 = x[0].clone().requires_grad_()
+    for what, call in (
+            ("collide_boxes_lanes", lambda: collide_boxes_lanes(p1, *x[1:])),
+            ("JACOBI_KERNEL unfused (B6c)", lambda: _paths_gradient(
+                spec, states, SimConfig(solver=SolverKind.JACOBI_KERNEL, conditional_cfm=True,
+                                        contact_capacity=16)))):
+        try:
+            call()
+        except RuntimeError as exc:
+            check("requires grad" in str(exc), f"{tag} {what} raised {exc}")
+            refused.append(what)
+    check(len(refused) == 2, f"{tag}: only {refused} refused a gradient")
+    print(f"[{tag}] box_stack(2) B=2 one step, card f32 against the CPU's plain path, max |dg| "
+          f"/ max |g| against f64 and f32: "
+          + ", ".join(f"{k} {v[torch.float64]:.3e} and {v[torch.float32]:.3e}"
+                      for k, v in errs.items())
+          + f" (bound 1e-3: f64, and f32 for DIRECT); B2 once on each; refused under grad: "
+          + ", ".join(refused))
+    return errs
+
+
+def lcp_problems(n_problems=30, size=50):
+    """tests/test_lcp.py:18-37's problems (numpy, seed 0), its bounded
+    Murty test's bounds (seed 1) and an equality split of its mixed test
+    (seed 3, 40 %, bounds +-5)."""
+    def gen_spd(rng, n, cond_limit=1e7):
+        while True:
+            m = rng.uniform(-1, 1, (n, n))
+            A = m.T @ m
+            s = np.linalg.svd(A, compute_uv=False)
+            if s[0] / s[-1] < cond_limit:
+                return A
+
+    rng = np.random.default_rng(0)
+    probs = [(gen_spd(rng, size), rng.uniform(-1, 1, size)) for _ in range(n_problems)]
+    rb, re = np.random.default_rng(1), np.random.default_rng(3)
+    lo_b, hi_b, eq = [], [], []
+    for _ in probs:
+        lo_b.append(np.full(size, -rb.uniform(0, 2)))
+        hi_b.append(np.full(size, rb.uniform(0.01, 2)))
+        eq.append(re.uniform(size=size) < 0.4)
+    return {"A": np.stack([p[0] for p in probs]), "b": np.stack([p[1] for p in probs]),
+            "lo_b": np.stack(lo_b), "hi_b": np.stack(hi_b), "eq": np.stack(eq)}
+
+
+def phase_direct(dev):
+    """`murty_principal_pivot` without bounds ([0, inf)) and with
+    tests/test_lcp.py's bounds, and `mixed_constraints_solver` (40 %
+    equality rows, bounds +-5), float64 on the card, batched over the 30
+    problems of tests/test_lcp.py's generator: every solution certified by
+    the port's `oracle.lcp_oracle.check_lcp_solution` at 1e-8, every
+    problem converged, and each problem's pivots equal to a call on it
+    alone.  Prints the pivots and the ms of a batched call."""
+    from eggshell_tpu_torch.ops import lcp_direct
+    from eggshell_tpu_torch.oracle import lcp_oracle
+
+    tag = "direct"
+    pr = lcp_problems()
+    N, n = pr["b"].shape
+    t = {k: torch.tensor(v, device=dev) for k, v in pr.items()}
+    cases = {
+        "murty": (lcp_direct.murty_principal_pivot, (t["A"], t["b"], torch.zeros_like(t["b"]),
+                                                     torch.full_like(t["b"], float("inf")))),
+        "murty_bounds": (lcp_direct.murty_principal_pivot, (t["A"], t["b"], t["lo_b"],
+                                                            t["hi_b"])),
+        "mixed": (lcp_direct.mixed_constraints_solver, (t["A"], t["b"], t["eq"],
+                                                        torch.full_like(t["b"], -5.0),
+                                                        torch.full_like(t["b"], 5.0))),
+    }
+    out = {}
+    for name, (fn, args) in cases.items():
+        fn(*args, return_info=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, w, info = fn(*args, return_info=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        eq = args[2].cpu().numpy() if name == "mixed" else np.zeros((N, n), bool)
+        lo, hi = (args[-2].cpu().numpy(), args[-1].cpu().numpy())
+        ok = [lcp_oracle.check_lcp_solution(pr["A"][i], pr["b"][i], x[i].cpu().numpy(),
+                                            w[i].cpu().numpy(), eq[i], lo[i], hi[i], 1e-8)
+              for i in range(N)]
+        alone = [int(fn(*(a[i:i + 1] for a in args), return_info=True)[2].iterations[0])
+                 for i in range(N)]
+        pivots = info.iterations.tolist()
+        print(f"[{tag}] {name}, {N} problems of n={n}, f64, batched: {ms:.2f} ms a call; pivots "
+              f"{min(pivots)} to {max(pivots)} (mean {sum(pivots) / N:.1f}); certified at 1e-8: "
+              f"{sum(ok)}/{N}; converged {int(info.converged.sum())}/{N}; pivots equal to a call "
+              f"on the problem alone: {pivots == alone}")
+        check(all(ok), f"{tag} {name}: {N - sum(ok)} solutions fail the certificate")
+        check(bool(info.converged.all()), f"{tag} {name}: not every problem converged")
+        check(pivots == alone, f"{tag} {name}: batched pivots {pivots} against alone {alone}")
+        out[name] = {"ms": ms, "pivots": pivots}
+    return out
+
+
+def direct_cfg():
+    """tools/golden/gen_oracle_npz.py's configuration: DIRECT, cfm 0.01
+    always, contact capacity 64."""
+    from eggshell_tpu_torch.utils.config import SimConfig, SolverKind
+
+    return SimConfig(solver=SolverKind.DIRECT, conditional_cfm=False, cfm_always=0.01,
+                     contact_capacity=64)
+
+
+def phase_gradient_mpc_update(dev):
+    """tests/test_mpc_parallel.py:57-75 on the card: `gradient_mpc_update`
+    on box_drop(height=5), H = 20, learning rate 1e7, 60 updates, float32,
+    under JACOBI with 40 sweeps (the test's PGS is a Python row loop in the
+    port: some 2,000 row updates a step, each a few launches); the final
+    cost below 0.2 of the zero plan's and the mean force along +x."""
+    from eggshell_tpu_torch.mpc import gradient_mpc_update
+    from eggshell_tpu_torch.mpc.sampling import rollout_controlled
+    from eggshell_tpu_torch.physics import scenes
+    from eggshell_tpu_torch.utils.config import SimConfig, SolverKind
+
+    tag = "gradient_mpc_update"
+    cfg = SimConfig(solver=SolverKind.JACOBI, solver_iters=40, conditional_cfm=False,
+                    cfm_always=0.01, contact_capacity=16)
+    spec, st = scenes.box_drop(height=5.0, device=dev, dtype=torch.float32)
+    H = 20
+    target = torch.tensor([0.2, 0.0, 5.0 - 0.5 * 9.8 * (H * cfg.dt) ** 2], device=dev)
+
+    def cost(final):
+        return torch.sum((final.p[0] - target) ** 2)
+
+    ctrl = torch.zeros((H, 6), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctrl2, c2 = gradient_mpc_update(spec, st, cfg, ctrl, cost, learning_rate=1e7, steps=60)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c0 = float(cost(rollout_controlled(spec, st, cfg, ctrl, 0)[0]))
+    fx = float(ctrl2[:, 0].mean())
+    print(f"[{tag}] box_drop(5), H={H}, lr 1e7, 60 updates, f32, JACOBI 40 sweeps (not the "
+          f"test's PGS: the port's PGS is a Python row loop): cost {c0:.4e} -> {float(c2):.4e} "
+          f"(bound 0.2x), mean force along x {fx:.3f} N (bound > 0); {dt:.2f} s, "
+          f"{dt / 60 * 1e3:.1f} ms an update")
+    check(float(c2) < 0.2 * c0, f"{tag}: cost {float(c2)} not below 0.2 x {c0}")
+    check(fx > 0.0, f"{tag}: mean force along x {fx}")
+    return float(c2), c0
+
+
 FUSED_PATH = ("narrowphase_packed", "compact", "prep", "jassembly", "amat", "jacobi_packed",
               "integrate")
 UNFUSED_PATH = ("narrowphase", "jacobi")
@@ -2032,6 +2433,7 @@ def main() -> int:
     res.update(phase_jacobi_cluster(dev))
     res["jacobi_packed_rows"] = phase_jacobi_packed_rows(dev)
     res["fdtd2d"] = phase_fdtd2d(dev)
+    phase_narrowphase_vjp(dev)
 
     phase_oracle(dev, bench_cfg(), "oracle_fused")
     fused_launches, _ = phase_rollout(dev, "slice_fused", "box_stack4", FUSED_PATH, stands)
@@ -2055,6 +2457,11 @@ def main() -> int:
     phase_rollout(dev, "slice_joints_unfused", "pendulum_chain6", ("jacobi",), joints_hold,
                   cfg=joints_unfused_cfg())
     mpc_launches = phase_mpc(dev)
+    grad, grad_launches = phase_gradient_mpc(dev)
+    phase_gradient_paths(dev)
+    phase_direct(dev)
+    phase_oracle(dev, direct_cfg(), "oracle_direct")
+    phase_gradient_mpc_update(dev)
     piles = {name: phase_pile(dev, name) for name in ("pile216", "pile512")}
     fdtd_launches, _ = phase_fdtd2d_rollout(dev)
     res["narrowphase"].update({"launches_pile": piles["pile512"]["launches"]["narrowphase"],
@@ -2069,7 +2476,10 @@ def main() -> int:
     print(f"[summary] pile216 {piles['pile216']['steps_per_s']['graph_s']:.1f} and pile512 "
           f"{piles['pile512']['steps_per_s']['graph_s']:.1f} steps/s captured; "
           f"living_room_bp pair capacity {bp_capacity}; pile512 matvec forms (ms a solve) "
-          f"{piles['pile512']['matvec_ms']}")
+          f"{piles['pile512']['matvec_ms']}; gradient_mpc grad steps/s kernel_ift and "
+          f"xla_unrolled " + ", ".join(
+              f"{shape} {r['kernel_ift']['grad_steps_per_s']:.1f} and "
+              f"{r['xla_unrolled']['grad_steps_per_s']:.1f}" for shape, r in grad.items()))
 
     rows = [("narrowphase", "eggshell_tpu_torch/csrc/narrowphase.cu",
              "eggshell_tpu/ops/collision_kernel.py:58", "unfused", unfused_launches["narrowphase"]),
@@ -2124,6 +2534,7 @@ def main() -> int:
          "plain_ms": res[name]["plain_ms"], "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"], "library_ms": None,
          **({"launches_mpc": mpc_launches[name]} if mpc_launches.get(name) else {}),
+         **({"launches_grad": grad_launches[name]} if grad_launches.get(name) else {}),
          **{k: res[name][k] for k in ("resident_ms", "ms_extra", "plain_ms_extra",
                                       "bound_ms_extra", "shapes", "launches_pile", "ms_pile",
                                       "plain_ms_pile", "bound_ms_pile", "launches_bp", "ms_bp",

@@ -20,6 +20,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -193,10 +194,42 @@ def check_arg(name: str, x, shape: tuple, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+# What to differentiate instead of a kernel's wrapper, by C entry: the
+# kernels write into fresh tensors that autograd cannot see through.
+_FUSED_ENTRY = ("differentiate through physics.stepper.step_ode_batched, whose fused step is "
+                "a torch.autograd.Function (its backward recomputes the plain twin)")
+_NO_BACKWARD = ("this kernel has no backward, nor has the JAX package's: differentiate the "
+                "plain solve (SolverKind.JACOBI, PGS, SOR or DIRECT) instead")
+DIFFERENTIABLE_ENTRY = {
+    "eggshell_narrowphase_f32": "differentiate through ops.collision_kernel.collide_boxes_lanes_diff",
+    "eggshell_jacobi_f32": _NO_BACKWARD,
+    "eggshell_jacobi_block_f32": _NO_BACKWARD,
+    "eggshell_fdtd2d_f32": ("this kernel has no backward, nor has the JAX package's: "
+                            "differentiate the plain step fem.fdtd.step_2d instead"),
+}
+
+
+def grad_refusal(fn_name: str, args, grad_enabled: bool) -> Optional[str]:
+    """Why launching the C entry `fn_name` on `args` would lose a gradient,
+    or None: grad mode is on and a tensor argument requires grad.  The
+    message names the kernel and says what to differentiate instead."""
+    if not grad_enabled or not any(isinstance(a, torch.Tensor) and a.requires_grad
+                                   for a in args):
+        return None
+    wrapper = fn_name.removeprefix("eggshell_").removesuffix("_f32")
+    return (f"the {wrapper} kernel ({fn_name}) was called with a tensor that requires grad "
+            f"while grad mode is on; its output would stop the gradient: "
+            f"{DIFFERENTIABLE_ENTRY.get(fn_name, _FUSED_ENTRY)}")
+
+
 def launch(fn_name: str, device, *args) -> None:
     """Call the C entry point `fn_name` on the current stream of `device`
     (tensors go as their data pointers, None as a null pointer) and raise
-    if the launch was refused."""
+    if the launch was refused.  Raises RuntimeError, before launching,
+    where a gradient would be lost (`grad_refusal`)."""
+    refusal = grad_refusal(fn_name, args, torch.is_grad_enabled())
+    if refusal is not None:
+        raise RuntimeError(refusal)
     lib = load()
     raw = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):

@@ -1,5 +1,5 @@
 """Model-predictive control, counterpart of `eggshell_tpu.mpc`: the sampling
-(MPPI) controller.  The gradient controller (`mpc/gradient.py`) waits for
-the differentiable step (ROADMAP A10, A11b)."""
+(MPPI) controller and the gradient controller."""
 
+from eggshell_tpu_torch.mpc.gradient import gradient_mpc_update  # noqa: F401
 from eggshell_tpu_torch.mpc.sampling import SamplingMPC, mppi_update  # noqa: F401

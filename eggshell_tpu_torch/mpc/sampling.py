@@ -15,8 +15,11 @@ update, on the generator's device.
   horizon is a Python loop with a `RolloutLoopWarning`.  `graph` behaves
   as in `parallel.rollout.rollout_batched`.
 - `rollout_controlled`, `mppi_update` and `SamplingMPC` step one scene
-  through `step_ode`: PGS, JACOBI or SOR, and JACOBI_KERNEL refused, as the
-  JAX package's single-scene path fails there.  `mppi_update` rolls its
+  through `step_ode`: PGS, JACOBI, SOR or DIRECT, and JACOBI_KERNEL
+  refused, as the JAX package's single-scene path fails there.
+  `rollout_controlled` is differentiable with respect to the controls
+  (`mpc.gradient`): the wrench is written into its slot of a fresh zero
+  tensor, which autograd records.  `mppi_update` rolls its
   samples as one batch on the unfused branch of `step_ode_batched`, the
   vmap of the JAX package's `step_ode`.
 """
@@ -29,8 +32,7 @@ import torch
 
 from eggshell_tpu_torch.parallel.rollout import _fresh, _replayed, _use_graph
 from eggshell_tpu_torch.physics.scene import SceneSpec, State
-from eggshell_tpu_torch.physics.stepper import (check_single_scene, check_supported, step_ode,
-                                                step_ode_batched)
+from eggshell_tpu_torch.physics.stepper import check_single_scene, step_ode, step_ode_batched
 from eggshell_tpu_torch.utils.config import SimConfig
 
 
@@ -66,9 +68,8 @@ def rollout_controlled_batched(spec: SceneSpec, states: State, cfg: SimConfig, c
     step of every sample one `step_ode_batched` step (on the card, a
     captured control period replayed H times, see the module).  Returns
     (final_states (S, ...), total running cost (S,))."""
-    check_supported(cfg)
     S, H = controls.shape[:2]
-    if H > 0 and _use_graph(states, cfg, graph):
+    if H > 0 and _use_graph(states, cfg, graph, controls):
         g = _replayed(spec, states, cfg, H, controls=controls, controlled_body=controlled_body,
                       substeps=substeps, running_cost=running_cost)
         acc = g.acc.clone() if running_cost is not None else torch.zeros_like(g.acc)

@@ -4,6 +4,11 @@ their wrappers.
 - `collide_boxes_lanes`: counterpart of
   `eggshell_tpu.ops.collision_kernel.collide_boxes_lanes`, gathered pairs
   in, every output of `PairContacts` out (the unfused branch).
+- `collide_boxes_lanes_diff`: `collide_boxes_lanes` as a
+  `torch.autograd.Function`, the kernel forward and autograd of the plain
+  `collide_boxes` backward (the JAX package's custom VJP).  The unfused
+  branch's and the matrix-free step's contacts take it, so a gradient
+  crosses their narrowphase on the card as on the CPU.
 - `collide_boxes_lanes_packed` (B2p): counterpart of
   `eggshell_tpu.ops.collision_kernel.collide_boxes_lanes_packed`, the fused
   chain's entry: the (B, n) state and the pair lists in, and only what the
@@ -96,6 +101,45 @@ def collide_boxes_lanes(p1, R1, hs1, p2, R2, hs2) -> PairContacts:
 
 
 collide_boxes_lanes.launches = 0
+
+
+class _CollideBoxesLanesDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p1, R1, hs1, p2, R2, hs2):
+        out = collide_boxes_lanes(p1, R1, hs1, p2, R2, hs2)
+        ctx.save_for_backward(p1, R1, hs1, p2, R2, hs2)
+        ctx.mark_non_differentiable(out.active, out.code)
+        return (out.position, out.normal[:, 0], out.depth, out.active, out.code,
+                out.info_depth, out.separating_axis)
+
+    @staticmethod
+    def backward(ctx, g_pos, g_nrm, g_dep, g_act, g_code, g_idep, g_iax):
+        inputs = [x.detach().requires_grad_(need)
+                  for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [x for x in inputs if x.requires_grad]
+        if not wanted:
+            return (None,) * 6
+        with torch.enable_grad():
+            out = collide_boxes(*inputs)
+            pairs = [(o, g) for o, g in ((out.position, g_pos), (out.normal[:, 0], g_nrm),
+                                         (out.depth, g_dep), (out.info_depth, g_idep),
+                                         (out.separating_axis, g_iax))
+                     if g is not None and o.requires_grad]
+        outs, grads = [o for o, _ in pairs], [g for _, g in pairs]
+        got = iter(torch.autograd.grad(outs, wanted, grads, allow_unused=True)
+                   if outs else [None] * len(wanted))
+        return tuple(next(got) if x.requires_grad else None for x in inputs)
+
+
+def collide_boxes_lanes_diff(p1, R1, hs1, p2, R2, hs2) -> PairContacts:
+    """`collide_boxes_lanes` with a backward: the kernel (on a CUDA tensor)
+    or the plain version forward, and autograd of the plain
+    `ops.collision.collide_boxes` over the saved inputs backward.  The
+    flags and codes carry no gradient."""
+    pos, nrm, dep, act, code, idep, iax = _CollideBoxesLanesDiff.apply(p1, R1, hs1, p2, R2, hs2)
+    N = pos.shape[0]
+    return PairContacts(position=pos, normal=nrm[:, None, :].expand(N, MAX_POLY, 3), depth=dep,
+                        active=act, code=code, info_depth=idep, separating_axis=iax)
 
 
 def gather_pairs(p, R, half_extents, pair_i, pair_j):

@@ -1,7 +1,6 @@
 """Projected splitting iterations for mixed LCPs, batched.
 
-Counterpart of `eggshell_tpu.ops.lcp` (its IFT pieces wait for the
-differentiable step).  Problem: A x = b + w with, per row, either an
+Counterpart of `eggshell_tpu.ops.lcp`.  Problem: A x = b + w with, per row, either an
 equality (w = 0, x free) or box bounds lo <= x <= hi with
 complementarity.  Every function takes a leading scenario dimension: A
 (B, m, m), vectors (B, m), `couple` (B, m) int64 (-1 = not coupled), and
@@ -10,7 +9,16 @@ the JAX package's vmap over scenarios is that dimension written out.
 - Jacobi (plain, heavy-ball, exact 3x3 block), fully parallel over rows;
 - projected Gauss-Seidel (PGS) and backward SOR, a Python loop over rows
   with every scenario's row updated at once (the JAX package's XLA scan).
-  No TPU kernel exists for these two, and none is written here.
+  No TPU kernel exists for these two, and none is written here.  Each row
+  update builds a new x (`torch.where` on the row's column), so autograd
+  can run backward through the sweeps;
+- the implicit-function-theorem (IFT) backward: `ift_adjoint`, and the
+  `torch.autograd.Function`s `solve_lcp_implicit` (the sweeps forward, one
+  adjoint solve backward) and `adopt_lcp_solution` (a solution computed
+  elsewhere, the fused chain's B6, adopted with the same backward).  The
+  masked adjoint system is solved by LU (`torch.linalg.solve`) on every
+  device, as the JAX package does on the CPU (on the TPU it takes
+  Cholesky).
 """
 
 from __future__ import annotations
@@ -73,11 +81,12 @@ def _gs_sweep(A, b, x, is_eq, lo, hi, couple=None, mu: float = 0.0):
     freshest x, x_i <- proj((b_i - A_i x + A_ii x_i) / A_ii)."""
     m = b.shape[-1]
     diag = torch.diagonal(A, dim1=-2, dim2=-1)
-    x = x.clone()
+    col = torch.arange(m, device=x.device)
     for i in range(m):
         r = b[:, i] - torch.einsum("bj,bj->b", A[:, i], x) + diag[:, i] * x[:, i]
         lo_e, hi_e = _bounds(x, lo, hi, couple, mu)
-        x[:, i] = project(r / diag[:, i], is_eq[:, i], lo_e[:, i], hi_e[:, i])
+        xi = project(r / diag[:, i], is_eq[:, i], lo_e[:, i], hi_e[:, i])
+        x = torch.where(col == i, xi[:, None], x)
     return x
 
 
@@ -87,11 +96,12 @@ def _sor_sweep(A, b, x, is_eq, lo, hi, omega: float):
     m = b.shape[-1]
     diag = torch.diagonal(A, dim1=-2, dim2=-1)
     k = 1.0 / omega
-    x = x.clone()
+    col = torch.arange(m, device=x.device)
     for i in reversed(range(m)):
         d, xi = diag[:, i], x[:, i]
         r = b[:, i] - torch.einsum("bj,bj->b", A[:, i], x) + d * xi - (1.0 - k) * d * xi
-        x[:, i] = project(r / (k * d), is_eq[:, i], lo[:, i], hi[:, i])
+        xi = project(r / (k * d), is_eq[:, i], lo[:, i], hi[:, i])
+        x = torch.where(col == i, xi[:, None], x)
     return x
 
 
@@ -224,3 +234,77 @@ def solve_lcp_batched(A, b, is_eq, lo, hi, **kw):
     `solve_lcp` itself, whose every argument already has the scenario
     dimension."""
     return solve_lcp(A, b, is_eq, lo, hi, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Implicit differentiation
+
+
+def ift_adjoint(A, b, is_eq, lo, hi, x, g, eps: float = 1e-8):
+    """The implicit-function-theorem adjoint of the mixed box LCP at its
+    solution x, for the output cotangent g: (gA, gb, glo, ghi).  At the
+    solution the active set is fixed: the free rows (equalities, and x
+    more than eps inside its bounds) solve a reduced linear system, whose
+    transpose gives u in one masked LU solve; a row at lo (within eps) or
+    else at hi passes g - A^T u to that bound.  Batched: A (B, m, m), the
+    rest (B, m)."""
+    free = is_eq | ((x > lo + eps) & (x < hi - eps))
+    at_lo = ~free & (x <= lo + eps)
+    at_hi = ~free & ~at_lo
+    m = x.shape[-1]
+    zero = torch.zeros((), dtype=A.dtype, device=A.device)
+    eye = torch.eye(m, dtype=A.dtype, device=A.device)
+    M = torch.where(free[:, :, None] & free[:, None, :], A, eye)
+    u = torch.linalg.solve(M.transpose(-1, -2), torch.where(free, g, zero)[..., None])[..., 0]
+    u = torch.where(free, u, zero)
+    gA = -u[:, :, None] * x[:, None, :]
+    gbound = g - torch.einsum("bji,bj->bi", A, u)
+    return gA, u, torch.where(at_lo, gbound, zero), torch.where(at_hi, gbound, zero)
+
+
+class _SolveLcpImplicit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, A, b, is_eq, lo, hi, iters, method, jacobi_omega, active_eps, jacobi_beta,
+                jacobi_block):
+        x = solve_lcp(A, b, is_eq, lo, hi, iters=iters, method=method,
+                      jacobi_omega=jacobi_omega, jacobi_beta=jacobi_beta,
+                      jacobi_block=jacobi_block)
+        ctx.save_for_backward(A, b, is_eq, lo, hi, x)
+        ctx.active_eps = active_eps
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        A, b, is_eq, lo, hi, x = ctx.saved_tensors
+        gA, gb, glo, ghi = ift_adjoint(A, b, is_eq, lo, hi, x, g, eps=ctx.active_eps)
+        return gA, gb, None, glo, ghi, None, None, None, None, None, None
+
+
+def solve_lcp_implicit(A, b, is_eq, lo, hi, iters: int = 100, method: str = "pgs",
+                       jacobi_omega: float = 1.0, active_eps: float = 1e-8,
+                       jacobi_beta: float = 0.0, jacobi_block: bool = False):
+    """`solve_lcp` (fixed sweeps) forward, `ift_adjoint` backward: one
+    adjoint solve at the solution in place of reverse through every sweep,
+    exact at convergence.  Clamped rows pass their gradient to lo or hi."""
+    return _SolveLcpImplicit.apply(A, b, is_eq, lo, hi, iters, method, jacobi_omega,
+                                   active_eps, jacobi_beta, jacobi_block)
+
+
+class _AdoptLcpSolution(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, A, b, is_eq, lo, hi, x_saved):
+        ctx.save_for_backward(A, b, is_eq, lo, hi, x_saved)
+        return x_saved.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        A, b, is_eq, lo, hi, x = ctx.saved_tensors
+        gA, gb, glo, ghi = ift_adjoint(A, b, is_eq, lo, hi, x, g)
+        return gA, gb, None, glo, ghi, torch.zeros_like(x)
+
+
+def adopt_lcp_solution(A, b, is_eq, lo, hi, x_saved):
+    """A solution computed elsewhere (the fused chain's B6) taken as the
+    solution of (A, b, is_eq, lo, hi): forward returns x_saved's values, no
+    sweep; backward is `ift_adjoint`.  x_saved gets a zero gradient."""
+    return _AdoptLcpSolution.apply(A, b, is_eq, lo, hi, x_saved)

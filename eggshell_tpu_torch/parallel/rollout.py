@@ -25,8 +25,8 @@ import torch
 
 from eggshell_tpu_torch.ops import launch_counters
 from eggshell_tpu_torch.physics.scene import SceneSpec, State
-from eggshell_tpu_torch.physics.stepper import (_fused_step, _is_fused, check_supported,
-                                                step_ode, step_ode_batched)
+from eggshell_tpu_torch.physics.stepper import (_fused_step, _is_fused, _wants_grad, step_ode,
+                                                step_ode_batched)
 from eggshell_tpu_torch.utils.config import FrictionModel, SimConfig, SolverKind
 
 # Captured graphs kept, the least recently used dropped first: each holds
@@ -58,7 +58,12 @@ def capture_refusal(cfg: SimConfig) -> Optional[str]:
       host, and the power estimator's `cholesky_ex` and `cholesky_solve`
       (MAGMA's batched routines) invalidate a capture, and where the plain
       solves (PGS, SOR, JACOBI, and JACOBI_KERNEL under COULOMB_PYRAMID)
-      with solver_tol > 0 read bool(done.all()) on the host every sweep.
+      with solver_tol > 0 read bool(done.all()) on the host every sweep,
+      and where DIRECT's pivot loop reads whether every scenario is done on
+      the host every pivot (`ops.lcp_direct`).
+
+    A rollout that autograd records (a state or control requires grad)
+    never captures either (`_use_graph`).
     """
     if _is_fused(cfg) or cfg.solver == SolverKind.MATRIX_FREE:
         return None
@@ -71,7 +76,9 @@ def capture_refusal(cfg: SimConfig) -> Optional[str]:
                        "capture")
     kernel_solve = (cfg.solver == SolverKind.JACOBI_KERNEL
                     and cfg.friction_model != FrictionModel.COULOMB_PYRAMID)
-    if not kernel_solve and cfg.solver_tol > 0:
+    if cfg.solver == SolverKind.DIRECT:
+        reasons.append("SolverKind.DIRECT: the pivot loop reads `done` on the host")
+    elif not kernel_solve and cfg.solver_tol > 0:
         reasons.append("solver_tol > 0: the plain solve reads bool(done.all()) on the host "
                        "every sweep")
     return "; ".join(reasons) or None
@@ -314,11 +321,20 @@ def _replayed(spec, states: State, cfg, num_steps: int, speed_limit=None, contro
     return g
 
 
-def _use_graph(states: State, cfg: SimConfig, graph: Optional[bool]) -> bool:
+def _use_graph(states: State, cfg: SimConfig, graph: Optional[bool], controls=None) -> bool:
     """Whether to replay a graph: `graph` None decides by the device and
     `capture_refusal` (warning where a card's rollout stays a loop); True
-    raises where the rule refuses; False runs the loop."""
+    raises where the rule refuses; False runs the loop.  Where grad mode is
+    on and a state or `controls` requires grad, the rollout loops, so that
+    autograd records every step (a graph's replays it cannot see), and
+    `graph=True` raises."""
     if graph is False:
+        return False
+    if _wants_grad(controls, *states):
+        if graph:
+            raise ValueError("cannot capture this rollout in a CUDA graph: grad mode is on and "
+                             "a state or control requires grad (the rollout loops so that "
+                             "autograd records every step)")
         return False
     on_card = states.p.device.type == "cuda"
     reason = capture_refusal(cfg) if on_card else "the states are not on a CUDA device"
@@ -363,7 +379,6 @@ def rollout_batched(spec: SceneSpec, states: State, cfg: SimConfig, num_steps: i
     `graph_capturable(cfg)`, else looped with a `RolloutLoopWarning`;
     `graph=True` raises instead of looping, `graph=False` always loops
     (the eager form the graph is measured against)."""
-    check_supported(cfg)
     if num_steps > 0 and _use_graph(states, cfg, graph):
         return _fresh(_replayed(spec, states, cfg, num_steps).state)
     for _ in range(num_steps):
@@ -383,7 +398,6 @@ def rollout_batched_monitored(spec: SceneSpec, states: State, cfg: SimConfig, nu
     (num_steps where the scenario never diverged)}.  On the card the
     monitor runs inside the captured graph; `graph` as in
     `rollout_batched`."""
-    check_supported(cfg)
     speed_limit = float(speed_limit)
     if num_steps > 0 and _use_graph(states, cfg, graph):
         g = _replayed(spec, states, cfg, num_steps, speed_limit)

@@ -27,7 +27,7 @@ import torch
 
 from eggshell_tpu_torch.ops import broadphase, collision
 from eggshell_tpu_torch.ops import quaternion as quat
-from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes, gather_pairs
+from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes_diff, gather_pairs
 from eggshell_tpu_torch.physics.scene import SceneSpec, State
 from eggshell_tpu_torch.utils.config import SimConfig
 from eggshell_tpu_torch.utils.constants import constant
@@ -89,7 +89,7 @@ def _candidates(spec: SceneSpec, states: State, cfg: SimConfig):
     if spec.num_pairs > 0:
         pi, pj, gate = scene_pairs(spec, states, cfg)
         P = pi.shape[-1]
-        out = collide_boxes_lanes(*gather_pairs(states.p, R, spec.half_extents, pi, pj))
+        out = collide_boxes_lanes_diff(*gather_pairs(states.p, R, spec.half_extents, pi, pj))
         C = collision.MAX_CONTACTS_PER_PAIR
         act = out.active.reshape(B, P, C)
         if gate is not None:

@@ -25,9 +25,27 @@ With 0 < cfg.pair_capacity < the scene's pairs, every branch's narrowphase
 takes each scenario's broadphase selection (`ops.broadphase`).
 
 `step_ode` steps one scene: the unfused branch at a batch of one, under
-PGS, JACOBI or SOR (the JAX package's single-scene solver map has no
-JACOBI_KERNEL), or the matrix-free step.  `SolverKind.DIRECT` raises
-`NotImplementedError` naming the ROADMAP item that ports it.
+PGS, JACOBI, SOR or DIRECT (the JAX package's single-scene solver map has
+no JACOBI_KERNEL), or the matrix-free step.  DIRECT is the Schur mixed
+solver over Murty's pivoting (`ops.lcp_direct`).
+
+Gradients.  Every branch is differentiable with respect to the states and
+the control wrenches, on the card as on the CPU:
+
+- the fused chain, where grad mode is on and a state or `ext_forces`
+  requires grad, runs as `_FusedStepDiff`, a `torch.autograd.Function`
+  (the JAX package's `_fused_step_diff`): its forward is the kernel chain
+  unchanged, B6's impulses saved; its backward recomputes the plain twin
+  `_step_xla_twin` under autograd, adopting those impulses with the IFT
+  adjoint (`ops.lcp.adopt_lcp_solution`), so no sweep is run backward;
+- the unfused branch and the matrix-free step are plain torch around the
+  narrowphase, whose kernel is wrapped by `collide_boxes_lanes_diff`; the
+  plain PGS, SOR and Jacobi solves differentiate through their sweeps and
+  DIRECT through `ops.lcp_direct.mixed_constraints_solver_implicit`.
+
+A kernel launched with a tensor that requires grad raises
+(`kernels.grad_refusal`): JACOBI_KERNEL's unfused solve (B6c), which has no
+backward in either package, refuses a gradient rather than stopping it.
 """
 
 from __future__ import annotations
@@ -36,7 +54,7 @@ import math
 
 import torch
 
-from eggshell_tpu_torch.ops import lcp
+from eggshell_tpu_torch.ops import lcp, lcp_direct
 from eggshell_tpu_torch.ops import lcp_matrix_free as mf
 from eggshell_tpu_torch.ops import quaternion as quat
 from eggshell_tpu_torch.ops.amat_kernel import contact_system_matrix, padded_rows
@@ -149,14 +167,6 @@ def _is_fused(cfg: SimConfig) -> bool:
             and not cfg.conditional_cfm)
 
 
-def check_supported(cfg: SimConfig) -> None:
-    """Raise NotImplementedError for every configuration that the JAX
-    package's `step_ode_batched` sends down a branch not ported yet: DIRECT."""
-    if cfg.solver == SolverKind.DIRECT:
-        raise NotImplementedError(
-            "SolverKind.DIRECT is not ported yet (ROADMAP A10: differentiable step and direct solvers)")
-
-
 def _pyramid_mu(cfg: SimConfig) -> float:
     """The Coulomb-pyramid coefficient of the fused chain's solve: friction_mu
     under COULOMB_PYRAMID, else 0 (box friction)."""
@@ -164,10 +174,13 @@ def _pyramid_mu(cfg: SimConfig) -> float:
 
 
 def _solve_lambda(A, rhs, sys: ConstraintSystem, cfg: SimConfig):
-    """The unfused branch's plain solve for PGS, JACOBI and SOR (the JAX
-    package's `_solve_lambda`): `ops.lcp.solve_lcp` with the config's sweep
-    parameters, early exit at cfg.solver_tol > 0, and coupled bounds under
+    """The unfused branch's plain solve (the JAX package's `_solve_lambda`):
+    for DIRECT the mixed pivoting solver with its IFT backward, for PGS,
+    JACOBI and SOR `ops.lcp.solve_lcp` with the config's sweep parameters,
+    early exit at cfg.solver_tol > 0, and coupled bounds under
     COULOMB_PYRAMID."""
+    if cfg.solver == SolverKind.DIRECT:
+        return lcp_direct.mixed_constraints_solver_implicit(A, rhs, sys.is_eq, sys.lo, sys.hi)
     method = {SolverKind.PGS: "pgs", SolverKind.JACOBI: "jacobi", SolverKind.SOR: "sor"}[cfg.solver]
     coulomb = cfg.friction_model == FrictionModel.COULOMB_PYRAMID
     return lcp.solve_lcp(
@@ -269,7 +282,7 @@ def jacobi_phase(K: int) -> str:
 
 
 def _fused_step(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
-                call=_run, out=None) -> State:
+                call=_run, out=None, return_lam: bool = False):
     """Counterpart of the JAX package's `_fused_step_all_kernel`, for any
     B: B2p (packed narrowphase, when the scene has pairs), B3 (compaction,
     depth cap and dedupe), the ball joints as equality lanes, then B1 (body
@@ -284,7 +297,9 @@ def _fused_step(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
     "jacobi_packed" or "jacobi_packed_stream", "integrate": `chip_smoke.py`
     records each kernel's arguments through it, and `profile_step` times
     each phase.  With `out`, a State of buffers, B7 writes the next state
-    into them (the captured step of `parallel.rollout`)."""
+    into them (the captured step of `parallel.rollout`).  With
+    `return_lam`, returns (next state, B6's impulses (B, 3Kx)) in the
+    twin's row order: 3 rows a joint lane, then 3 a contact lane."""
     states = State(*(x.contiguous() for x in states))
     eps2 = cfg.min_constraint_distance ** 2
     pair = pi = pj = None
@@ -316,15 +331,79 @@ def _fused_step(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
     p, q, v, w = call("integrate", integrate_step, (
         Jc, lam, cs.b0, cs.b1, states.p, states.q, states.v, states.w, spec.inv_mass, invIg, F,
         cfg.dt) + (() if out is None else ((out.p, out.q, out.v, out.w),)))
+    if return_lam:
+        return State(p=p, v=v, q=q, w=w), lam[:, :3 * Kx]
     return State(p=p, v=v, q=q, w=w)
+
+
+def _step_xla_twin(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None,
+                   lam_saved=None) -> State:
+    """The fused chain's plain torch twin (the JAX package's
+    `_step_xla_twin`), its backward: contacts through
+    `collide_boxes_lanes_diff`, dense constraints (joints as equality
+    rows), the system matrix with cfm_always, then, with `lam_saved`
+    (B, m), B6's impulses adopted with the IFT adjoint against the bounds
+    they were solved in (+-mu lambda_n under COULOMB_PYRAMID), else
+    `ops.lcp.solve_lcp_implicit` with the fused chain's sweep rule, and the
+    midpoint integration."""
+    _, sys, A, rhs, u, Minv, F = _pre_solve(spec, states, cfg, _batched_ext(ext_forces, states))
+    if lam_saved is not None:
+        lo, hi = sys.lo, sys.hi
+        if cfg.friction_model == FrictionModel.COULOMB_PYRAMID:
+            lo, hi = lcp._bounds(lam_saved, lo, hi, sys.couple, float(cfg.friction_mu))
+        lam = lcp.adopt_lcp_solution(A, rhs, sys.is_eq, lo, hi, lam_saved)
+    else:
+        lam = lcp.solve_lcp_implicit(A, rhs, sys.is_eq, sys.lo, sys.hi, cfg.solver_iters,
+                                     "jacobi", cfg.jacobi_omega, 1e-8, cfg.jacobi_beta,
+                                     bool(cfg.jacobi_block))
+    return _post_solve(states, cfg, sys, lam, u, Minv, F)
+
+
+class _FusedStepDiff(torch.autograd.Function):
+    """The fused step with a backward: forward `_fused_step` (the kernels on
+    the card), B6's impulses saved; backward autograd of `_step_xla_twin`
+    over the saved inputs with those impulses adopted."""
+
+    @staticmethod
+    def forward(ctx, spec, cfg, ext_forces, p, v, q, w):
+        out, lam = _fused_step(spec, State(p=p, v=v, q=q, w=w), cfg, ext_forces,
+                               return_lam=True)
+        ctx.spec, ctx.cfg = spec, cfg
+        ctx.save_for_backward(ext_forces, p, v, q, w, lam)
+        return out.p, out.v, out.q, out.w
+
+    @staticmethod
+    def backward(ctx, gp, gv, gq, gw):
+        *saved, lam = ctx.saved_tensors
+        inputs = [None if x is None else x.detach().requires_grad_(need)
+                  for x, need in zip(saved, ctx.needs_input_grad[2:])]
+        wanted = [x for x in inputs if x is not None and x.requires_grad]
+        with torch.enable_grad():
+            out = _step_xla_twin(ctx.spec, State(*inputs[1:]), ctx.cfg, inputs[0],
+                                 lam_saved=lam)
+        got = iter(torch.autograd.grad(tuple(out), wanted, (gp, gv, gq, gw), allow_unused=True))
+        return (None, None) + tuple(next(got) if x is not None and x.requires_grad else None
+                                    for x in inputs)
+
+
+def _wants_grad(*tensors) -> bool:
+    """Grad mode is on and one of `tensors` (None skipped) requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def step_ode_batched(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=None) -> State:
     """One step of B scenarios of one scene; states (B, n, ...).
     `ext_forces` (n, 6) or (B, n, 6) adds control wrenches [force; torque]
-    per body on top of gravity and the gyroscopic torque."""
-    check_supported(cfg)
+    per body on top of gravity and the gyroscopic torque.  Differentiable
+    with respect to `states` and `ext_forces` on every branch (see the
+    module); on the fused chain a SceneSpec tensor that requires grad
+    raises, as its backward gives the spec no gradient."""
     if _is_fused(cfg):
+        if _wants_grad(*spec):
+            raise ValueError("the fused step differentiates with respect to the states and "
+                             "ext_forces only: a SceneSpec tensor requires grad")
+        if _wants_grad(ext_forces, *states):
+            return State(*_FusedStepDiff.apply(spec, cfg, ext_forces, *states))
         return _fused_step(spec, states, cfg, ext_forces)
     if cfg.solver == SolverKind.MATRIX_FREE:
         return _step_matrix_free(spec, states, cfg, _batched_ext(ext_forces, states))[0]
@@ -347,15 +426,14 @@ def step_ode_batched(spec: SceneSpec, states: State, cfg: SimConfig, ext_forces=
 
 
 def check_single_scene(cfg: SimConfig) -> None:
-    """`check_supported`, and besides a clear error for JACOBI_KERNEL: the
-    JAX package's single-scene solver map has no entry for it (its
-    `step_ode` raises KeyError), so its single-scene path runs PGS, JACOBI,
-    SOR and the matrix-free step only."""
-    check_supported(cfg)
+    """A clear error for JACOBI_KERNEL: the JAX package's single-scene solver
+    map has no entry for it (its `step_ode` raises KeyError), so its
+    single-scene path runs PGS, JACOBI, SOR, DIRECT and the matrix-free step
+    only."""
     if cfg.solver == SolverKind.JACOBI_KERNEL:
         raise ValueError(
             "the single-scene step has no solve for SolverKind.JACOBI_KERNEL, as in the JAX "
-            "package (its step_ode's solver map lacks it): use PGS, JACOBI or SOR, or "
+            "package (its step_ode's solver map lacks it): use PGS, JACOBI, SOR or DIRECT, or "
             "step_ode_batched")
 
 
@@ -364,8 +442,8 @@ def step_ode(spec: SceneSpec, state: State, cfg: SimConfig, ext_force=None):
     (new_state, contact_set).  `ext_force` (n, 6) adds control wrenches
     [force; torque] per body.  The unfused branch at a batch of one, the
     batch axis dropped (the JAX package's batched unfused step is the vmap
-    of the same per-scene math); PGS, JACOBI, SOR and MATRIX_FREE only
-    (`check_single_scene`)."""
+    of the same per-scene math); PGS, JACOBI, SOR, DIRECT and MATRIX_FREE
+    only (`check_single_scene`)."""
     check_single_scene(cfg)
     states = State(*(x[None] for x in state))
     ext = None if ext_force is None else _batched_ext(ext_force, states)

@@ -35,7 +35,14 @@ control slot filled inside the graph; 4 only) and living_room_bp
 (living_room with the broadphase, pair capacity
 `scenes.LIVING_ROOM_PAIR_CAPACITY`).  pile216 and pile512, the large-scene
 cells of `scenes.LARGE` (their batch, the matrix-free step), get 2, 3 and
-4.
+4.  gradient_mpc is bench.py:220-284's gradient cell at its small shape
+(B = 256, H = 20, `bench_gradient`): one gradient call split into the
+forward (H fused steps through `stepper._FusedStepDiff`, B6's impulses
+saved), the whole backward, and, step by step over the forward's
+trajectory, the backward's pieces: the twin's recompute
+(`stepper._step_xla_twin` with the impulses adopted), autograd through it,
+and within that the adjoint solve (`ops.lcp.ift_adjoint`); then 2 and 3
+of the whole gradient call.
 
 Prints one line per result and a JSON line.  It needs a CUDA device; it
 never falls back to the CPU.
@@ -53,7 +60,10 @@ import torch
 from eggshell_tpu_torch.fem import fdtd
 from eggshell_tpu_torch.physics import scenes
 from eggshell_tpu_torch.parallel.rollout import graph_capturable
-from eggshell_tpu_torch.physics.stepper import _fused_step, _is_fused, step_ode_batched
+from eggshell_tpu_torch.ops import lcp
+from eggshell_tpu_torch.physics.scene import State
+from eggshell_tpu_torch.physics.stepper import (_batched_ext, _fused_step, _is_fused, _pre_solve,
+                                                _step_xla_twin, step_ode_batched)
 from eggshell_tpu_torch.utils.config import BENCH, FrictionModel, SimConfig
 from eggshell_tpu_torch.utils.profiling import device_window
 
@@ -75,6 +85,72 @@ CONFIGS = {
         broadphase_margin=scenes.LIVING_ROOM_BP_MARGIN)),
 }
 FDTD_N = 2048
+# bench.py:220-284's gradient cell: (B, H) of its two shapes
+GRAD_SHAPES = {"small_B256_H20": (256, 20), "production_B4096_H50": (4096, 50)}
+
+
+def bench_loss(spec, states, cfg, ext, H: int):
+    """bench.py's gradient loss: sum(p[:, -1, 2]) + sum(ext^2) after H steps
+    of `step_ode_batched` under the control wrenches `ext` (B, n, 6)."""
+    s = states
+    for _ in range(H):
+        s = step_ode_batched(spec, s, cfg, ext)
+    return torch.sum(s.p[:, -1, 2]) + torch.sum(ext * ext)
+
+
+def bench_gradient(spec, states, cfg, ext, H: int):
+    """bench.py's gradient call: `bench_loss` and its gradient with respect
+    to `ext`."""
+    e = ext.detach().requires_grad_()
+    with torch.enable_grad():
+        loss = bench_loss(spec, states, cfg, e, H)
+        (g,) = torch.autograd.grad(loss, e)
+    return loss.detach(), g
+
+
+def _synced_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def gradient_split(spec, states, cfg, H: int) -> dict:
+    """Host ms (synchronised) of one `bench_gradient` call's forward and
+    backward, and of the backward's pieces summed over the forward's H
+    steps: the twin's recompute, autograd through it, and the adjoint solve
+    inside that."""
+    ext = torch.zeros(states.p.shape[:2] + (6,), dtype=states.p.dtype, device=states.p.device)
+    bench_gradient(spec, states, cfg, ext, H)                # warm-up
+    e = ext.clone().requires_grad_()
+    with torch.enable_grad():
+        fwd_ms, loss = _synced_ms(lambda: bench_loss(spec, states, cfg, e, H))
+        bwd_ms, _ = _synced_ms(lambda: torch.autograd.grad(loss, e))
+    out = {"forward_ms": fwd_ms, "backward_ms": bwd_ms, "twin_recompute_ms": 0.0,
+           "twin_autograd_ms": 0.0, "adjoint_ms": 0.0}
+    s = states
+    for _ in range(H):
+        nxt, lam = _fused_step(spec, s, cfg, ext, return_lam=True)
+        inputs = State(*(x.clone().requires_grad_() for x in s))
+        ei = ext.clone().requires_grad_()
+        with torch.enable_grad():
+            ms, twin = _synced_ms(lambda: _step_xla_twin(spec, inputs, cfg, ei, lam_saved=lam))
+            out["twin_recompute_ms"] += ms
+            grads = tuple(torch.ones_like(x) for x in twin)
+            ms, _ = _synced_ms(lambda: torch.autograd.grad(tuple(twin), (ei, *inputs), grads))
+            out["twin_autograd_ms"] += ms
+        _, sys_, A, rhs, *_ = _pre_solve(spec, s, cfg, _batched_ext(ext, s))
+        ms, _ = _synced_ms(lambda: lcp.ift_adjoint(A, rhs, sys_.is_eq, sys_.lo, sys_.hi, lam,
+                                                  torch.ones_like(lam)))
+        out["adjoint_ms"] += ms
+        s = nxt
+    print(f"[gradient split] B={states.p.shape[0]}, H={H}: forward {fwd_ms:.3f} ms, backward "
+          f"{bwd_ms:.3f} ms; over the H steps the twin's recompute "
+          f"{out['twin_recompute_ms']:.3f} ms, autograd through it "
+          f"{out['twin_autograd_ms']:.3f} ms, of which the adjoint solve "
+          f"{out['adjoint_ms']:.3f} ms (host clock, synchronised after each)")
+    return out
 
 
 def fused_phases(spec, st, cfg, reps: int) -> dict:
@@ -188,6 +264,13 @@ def main(argv) -> int:
         result[tag] = profile(tag, lambda: step_ode_batched(spec, st, c))
     result["fused_graph"] = profile_graph("fused", spec, st, cfg)
     for name in argv:
+        if name == "gradient_mpc":
+            Bg, Hg = GRAD_SHAPES["small_B256_H20"]
+            gspec, gst, gcfg = scenes.baseline_batch("box_stack4", Bg, device=dev)
+            ext = torch.zeros(gst.p.shape[:2] + (6,), device=dev)
+            result[name] = {"split": gradient_split(gspec, gst, gcfg, Hg), **profile(
+                name, lambda: bench_gradient(gspec, gst, gcfg, ext, Hg), 2)}
+            continue
         if name == "mpc_living_room":
             mspec, mst, mcfg = scenes.baseline_batch("living_room", B, device=dev)
             gen = torch.Generator(device=dev).manual_seed(0)

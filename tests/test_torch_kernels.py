@@ -1070,3 +1070,62 @@ def test_captured_matrix_free_rollout_is_bit_for_bit_the_loop(dev):
     assert _same_bits(got, eager)
     assert all(bool(torch.isfinite(x).all()) for x in got)
     clear_graphs()
+
+
+def test_narrowphase_backward_is_the_plain_versions_on_the_card(dev):
+    """`collide_boxes_lanes_diff` launches B2 forward and gives autograd of
+    the plain narrowphase backward: on tests/test_diff_kernel.py:147-187's
+    five pairs its gradient within 1e-5 of the plain version's largest
+    magnitude (the kernel's positions and normals, which the backward
+    multiplies by, differ in the last bits; random poses are not used: a
+    clip point on the reference face may be kept by one version only)."""
+    from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes_diff
+
+    rng = np.random.default_rng(3)
+    p1 = rng.uniform(-0.1, 0.1, (5, 3))
+    p2 = p1 + np.asarray([0.25, 0.0, 0.1]) + rng.uniform(-0.02, 0.02, (5, 3))
+    q = rng.normal(size=(5, 4))
+    f = lambda x: torch.as_tensor(np.array(x), dtype=torch.float32, device=dev).contiguous()
+    R2 = quat_to_mat(f(q / np.linalg.norm(q, axis=-1, keepdims=True))).contiguous()
+    pairs = (f(p1), f(np.broadcast_to(np.eye(3), (5, 3, 3))), f(np.full((5, 3), 0.15)), f(p2),
+             R2, f(np.full((5, 3), 0.15)))
+
+    def grads(fn):
+        args = [x.clone() for x in pairs]
+        args[0].requires_grad_()
+        args[4].requires_grad_()
+        out = fn(*args)
+        zero = torch.zeros((), device=dev)
+        (torch.sum(torch.where(out.active, out.depth, zero))
+         + torch.sum(out.position * out.normal)).backward()
+        return args[0].grad, args[4].grad
+
+    before = collide_boxes_lanes.launches
+    got = grads(collide_boxes_lanes_diff)
+    assert collide_boxes_lanes.launches == before + 1
+    want = grads(collide_boxes)
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert scale > 0 and float((g - w).abs().max()) <= 1e-5 * scale
+
+
+def test_a_kernel_refuses_a_tensor_that_requires_grad(dev):
+    """A wrapper launched with a tensor that requires grad raises instead of
+    returning a gradient that stops at the kernel; under no_grad, or inside
+    the fused step's Function, it launches."""
+    args = _pairs(64, dev)
+    p1 = args[0].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        collide_boxes_lanes(p1, *args[1:])
+    with torch.no_grad():
+        collide_boxes_lanes(p1, *args[1:])
+    spec, states, cfg = scenes.baseline_batch("box_stack4", 64, device=dev)
+    e = torch.zeros(states.p.shape[:2] + (6,), device=dev, requires_grad=True)
+    from eggshell_tpu_torch.physics.stepper import step_ode_batched
+
+    out = step_ode_batched(spec, states, cfg, e)
+    torch.sum(out.p[:, -1, 2]).backward()
+    assert torch.isfinite(e.grad).all() and float(e.grad.abs().max()) > 0
+    unfused = BENCH.replace(conditional_cfm=True, cond_estimator="power")
+    with pytest.raises(RuntimeError, match="requires grad"):
+        step_ode_batched(spec, states, unfused, e)

@@ -17,7 +17,8 @@ against the JAX package, and the port's oracle gate.
   and the fused chain with block-Jacobi or COULOMB_PYRAMID (against the
   JAX package's XLA twin of that step, the same configuration with
   SolverKind.JACOBI);
-- DIRECT raises, naming its ROADMAP item.
+- DIRECT, no longer refused: `rollout_batched` and `step_ode_batched`
+  step it (tests/test_torch_direct.py holds it to the JAX package).
 """
 
 import functools
@@ -146,13 +147,14 @@ UNSUPPORTED = {
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_unported_branch_raises(name):
+    """The branches this test once found refused (DIRECT until its port)
+    now step: the rollout and the step give the same finite state."""
     spec, st = ts.box_stack(2, device="cpu", dtype=torch.float64)
     states = State(*[x[None] for x in st])
     cfg = SimConfig(**{**SLICE, **UNSUPPORTED[name]})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rollout_batched(spec, states, cfg, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.step_ode_batched(spec, states, cfg)
+    got = rollout_batched(spec, states, cfg, 1)
+    want = tstep.step_ode_batched(spec, states, cfg)
+    assert all(torch.equal(g, w) and bool(torch.isfinite(g).all()) for g, w in zip(got, want))
 
 
 PYRAMID = dict(friction_model=FrictionModel.COULOMB_PYRAMID, friction_mu=0.2)
