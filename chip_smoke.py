@@ -108,6 +108,27 @@ The 2D FDTD step B8 is held against its plain version at n = 512 and
 (`[fdtd2d_rollout]`), with the example's aperture at n = 160 against the
 plain path on the CPU and a cavity's energy over 2000 steps.
 
+The rest of the single-scene stepper and the FEM tier: `[stabilize]`
+(`init_stabilize` and `post_stabilize` of pendulum_chain6 with a joint
+pulled 0.05 m apart and `init_stabilize` of a box sunk 1 mm into the floor,
+float64 on the card against the CPU float64 plain path: the same iteration
+counts, err^2 at most 1e-9, the states within 1e-8; then the hanging
+chain with its 15 link pairs in float32, B2 launched once a contact
+detection), `[implicit_midpoint]` (box_stack(4) at K = 20 and
+pendulum_chain6, 120 steps under JACOBI and 30 under DIRECT, float32,
+within 2e-3 of the CPU float64 plain path after 30 steps, the stack
+standing or the joints holding, B2 once a step; one PGS step as a launch
+check), `[explicit_euler]` (pendulum_chain6, 100 steps, the joints
+holding), `[step_diagnostics]` (a sunk, moving box_stack(4) under PGS and
+DIRECT, every key against the CPU float64 plain path), `[fem_driven]`
+(bench_fem.py's WR-12 guide at h = 0.4, 0.15 and 0.12, up to 56,295 nodes:
+the BCR on the card in complex64 and complex128 against the host SuperLU,
+|S21| within 1e-3 and the field within 1e-8, solves/s cold and warm),
+`[fem_sweep]` (16 frequencies as one batched BCR, each S21 within 1e-6 of
+its single solve; `fields.solve_sweep` on the host SuperLU) and
+`[fem_modes]` (6 modes of a 16,035-node cavity, shift-invert on the card
+within 1e-2 of the host ARPACK; LOBPCG printed).
+
 Each path's oracle gate holds the unjittered stack to the DIRECT/f64
 trajectory in tests/data/oracle_stack4_f64.npz (bound 1e-3 at every stored
 checkpoint).  Each rollout phase sets every launch counter to 0 just before
@@ -2295,6 +2316,436 @@ def phase_gradient_mpc_update(dev):
     return float(c2), c0
 
 
+# ---------------------------------------------------------------------------
+# The rest of the single-scene stepper and the FEM tier
+
+
+STAB_TOL = 1e-9             # the stabilizers' err^2 stopping rule
+STAB_STATE_BOUND = 1e-8     # card f64 against the CPU f64 plain path
+
+
+def _max_state_diff(a, b) -> float:
+    return max(float((getattr(a, k).double().cpu() - getattr(b, k).double().cpu()).abs().max())
+               for k in "pqvw")
+
+
+def _pulled_chain(dev, dtype, collide=False):
+    """pendulum_chain6 (collide: the hanging chain(6) with the ground and its
+    15 link pairs) with link 2 pulled 0.05 m along y, two joints apart."""
+    from eggshell_tpu_torch.physics import scenes
+
+    spec, st = (scenes.chain(6, collide=True, device=dev, dtype=dtype) if collide
+                else scenes.pendulum_chain(6, device=dev, dtype=dtype))
+    p = st.p.clone()
+    p[2, 1] += 0.05
+    return spec, st._replace(p=p)
+
+
+def _sunk_box(dev, dtype):
+    """box_drop's box with its bottom 1 mm below the floor."""
+    from eggshell_tpu_torch.physics import scenes
+
+    spec, st = scenes.box_drop(device=dev, dtype=dtype)
+    p = st.p.clone()
+    p[:, 2] = spec.half_extents[:, 2] - 1e-3
+    return spec, st._replace(p=p)
+
+
+def phase_stabilize(dev):
+    """`init_stabilize` on pendulum_chain6 with a joint pulled 0.05 m apart
+    and on box_drop's box sunk 1 mm into the floor (ground contacts
+    re-detected every iteration), `post_stabilize` on the chain: float64 on
+    the card against the CPU float64 plain path, the same iteration count,
+    the final err^2 at most 1e-9 and the states within 1e-8.  Then B2's
+    launches: `init_stabilize` of the chain with its 15 link pairs (and the
+    ground) in float32 on the card, one B2 launch for each contact
+    detection (iterations + 1), the CPU float32 plain path's iteration
+    count, err^2 at most 1e-9, the state within AGREE_BOUND of the CPU
+    float64 plain path's.  (B2 takes float32 only; in float32 the
+    Tikhonov 1e-10 falls below the matrix's resolution, and a resting face
+    contact, living_room's, makes J J^T exactly singular.)"""
+    from eggshell_tpu_torch.physics import stepper
+    from eggshell_tpu_torch.utils.config import SimConfig
+
+    tag = "stabilize"
+    cfg = SimConfig(contact_capacity=16)
+    cases = (("init_stabilize, pendulum_chain6, a joint pulled 0.05 m", _pulled_chain,
+              stepper.init_stabilize),
+             ("post_stabilize, pendulum_chain6, a joint pulled 0.05 m", _pulled_chain,
+              stepper.post_stabilize),
+             ("init_stabilize, box_drop sunk 1 mm into the floor", _sunk_box,
+              stepper.init_stabilize))
+    out = {}
+    for what, build, fn in cases:
+        spec, st = build(dev, torch.float64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, iters = fn(spec, st, cfg, return_iterations=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        cspec, cst = build("cpu", torch.float64)
+        want, citers = fn(cspec, cst, cfg, return_iterations=True)
+        e = stepper.position_constraint_error(spec, got, cfg)
+        e2 = float(e @ e)
+        diff = _max_state_diff(got, want)
+        print(f"[{tag}] {what}, f64: {iters} iterations on the card, {citers} on the CPU plain "
+              f"path; err^2 {e2:.3e} (bound {STAB_TOL:.0e}); states within {diff:.3e} (bound "
+              f"{STAB_STATE_BOUND:.0e}); {dt * 1e3 / max(iters, 1):.2f} ms an iteration")
+        check(iters == citers, f"{tag} {what}: {iters} iterations against {citers}")
+        check(e2 <= STAB_TOL, f"{tag} {what}: err^2 {e2}")
+        check(diff <= STAB_STATE_BOUND, f"{tag} {what}: states differ by {diff}")
+        out[what] = iters
+
+    counters = launch_counters()
+    spec, st = _pulled_chain(dev, torch.float32, collide=True)
+    _zero_counters(counters)
+    got, iters = stepper.init_stabilize(spec, st, cfg, return_iterations=True)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    cspec, cst = _pulled_chain("cpu", torch.float32, collide=True)
+    _, citers = stepper.init_stabilize(cspec, cst, cfg, return_iterations=True)
+    want64 = stepper.init_stabilize(*_pulled_chain("cpu", torch.float64, collide=True), cfg)
+    e = stepper.position_constraint_error(spec, got, cfg)
+    e2 = float(e @ e)
+    diff = _max_state_diff(got, want64)
+    print(f"[{tag}] init_stabilize, chain(6) with its {spec.num_pairs} link pairs, f32: {iters} "
+          f"iterations (CPU f32 plain path {citers}); launches {launches} (B2 once a contact "
+          f"detection: {iters + 1}); err^2 {e2:.3e} (bound {STAB_TOL:.0e}); against the CPU f64 "
+          f"plain path {diff:.3e} (bound {AGREE_BOUND:.0e})")
+    check(launches == {"narrowphase": iters + 1}, f"{tag}: launches {launches}, {iters} iterations")
+    check(iters == citers, f"{tag} f32: {iters} iterations against {citers}")
+    check(e2 <= STAB_TOL, f"{tag} f32: err^2 {e2}")
+    check(diff <= AGREE_BOUND, f"{tag} f32: states differ from f64 by {diff}")
+    out["b2_launches"] = launches.get("narrowphase", 0)
+    return out
+
+
+def _single_scene_runs(dev, build, cfg, steps, fn, agree_at=AGREE_STEPS):
+    """`steps` steps of `fn(spec, state, cfg)` -> state (or (state, cs)) of
+    one scene in float32 on the card, B2's launches counted, and the same
+    steps' first `agree_at` by the CPU float64 plain path.  Returns (start,
+    final, state at agree_at, CPU state at agree_at, launches, ms a step)."""
+    from eggshell_tpu_torch.physics.scene import State
+
+    def state_of(out):
+        return out if isinstance(out, State) else out[0]
+
+    counters = launch_counters()
+    spec, st = build(dev, torch.float32)
+    start, at = st, None
+    _zero_counters(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        st = state_of(fn(spec, st, cfg))
+        if i + 1 == agree_at:
+            at = st
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = {k: f.launches for k, f in counters.items() if f.launches}
+    cspec, cst = build("cpu", torch.float64)
+    for _ in range(agree_at):
+        cst = state_of(fn(cspec, cst, cfg))
+    return spec, start, st, at, cst, launches, ms
+
+
+def _one_scene_joints_hold(spec, start, final):
+    from eggshell_tpu_torch.physics.scene import State
+
+    return joints_hold(spec, State(*(x[None] for x in start)), State(*(x[None] for x in final)))
+
+
+def phase_implicit_midpoint(dev):
+    """`step_implicit_midpoint` (4 fixed-point sweeps) on box_stack(4) at the
+    bench's contact capacity (K = 20) and on pendulum_chain6 (K = 4), the
+    bench configuration under JACOBI for 120 steps and under DIRECT for 30,
+    float32 on the card: p and q within AGREE_BOUND of the CPU float64 plain
+    path after AGREE_STEPS steps, the stack standing (or the joints holding)
+    at the end, B2 launched once a step where the scene has box pairs and
+    no other kernel.  Prints ms a step.  One PGS step at K = 8 is a launch
+    check only."""
+    from eggshell_tpu_torch.physics import scenes, stepper
+    from eggshell_tpu_torch.utils.config import SolverKind
+
+    tag = "implicit_midpoint"
+    builds = {"box_stack4": (lambda d, t: scenes.box_stack(4, device=d, dtype=t), 20, stands),
+              "pendulum_chain6": (lambda d, t: scenes.pendulum_chain(6, device=d, dtype=t), 4,
+                                  _one_scene_joints_hold)}
+    out = {}
+    for scene, (build, K, physical) in builds.items():
+        for solver, steps in (("JACOBI", 120), ("DIRECT", AGREE_STEPS)):
+            cfg = bench_cfg().replace(solver=getattr(SolverKind, solver), contact_capacity=K)
+            spec, start, final, at, want, launches, ms = _single_scene_runs(
+                dev, build, cfg, steps, stepper.step_implicit_midpoint)
+            err = {k: float((getattr(at, k).double().cpu() - getattr(want, k)).abs().max())
+                   for k in "pq"}
+            phys = physical(spec, start, final)
+            expect = {"narrowphase": steps} if spec.num_pairs else {}
+            print(f"[{tag}] {scene}, {solver}, {steps} steps, f32: {ms:.2f} ms a step; against "
+                  f"the CPU f64 plain path after {AGREE_STEPS} steps |dp| {err['p']:.3e}, |dq| "
+                  f"{err['q']:.3e} (bound {AGREE_BOUND:.0e}); {phys}; launches {launches}")
+            check(err["p"] <= AGREE_BOUND and err["q"] <= AGREE_BOUND,
+                  f"{tag} {scene} {solver}: {err}")
+            check(launches == expect, f"{tag} {scene} {solver}: launches {launches}")
+            out[f"{scene}_{solver}"] = {"ms": ms, "launches": launches}
+    # PGS, the port's Python row loop (PERF.md section 5): one step at K = 8
+    # as a launch check
+    cfg = bench_cfg().replace(solver=SolverKind.PGS, contact_capacity=8)
+    counters = launch_counters()
+    spec, st = scenes.box_stack(4, device=dev, dtype=torch.float32)
+    _zero_counters(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt, _ = stepper.step_implicit_midpoint(spec, st, cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: f.launches for k, f in counters.items() if f.launches}
+    print(f"[{tag}] box_stack4, PGS, K=8, one step, f32: {ms:.2f} ms; launches {launches}; "
+          f"finite {bool(torch.isfinite(nxt.p).all())}")
+    check(launches == {"narrowphase": 1} and bool(torch.isfinite(nxt.p).all()),
+          f"{tag} PGS: launches {launches}")
+    out["box_stack4_PGS"] = {"ms": ms, "launches": launches}
+    return out
+
+
+def phase_explicit_euler(dev):
+    """`step_explicit_euler` on pendulum_chain6, 100 steps, float32 on the
+    card, CFM off (the equality solve exact): the joints hold; against the
+    CPU float64 plain path after AGREE_STEPS steps within AGREE_BOUND."""
+    from eggshell_tpu_torch.physics import scenes, stepper
+
+    tag = "explicit_euler"
+    cfg = bench_cfg().replace(contact_capacity=4, cfm_always=0.0)
+    spec, start, final, at, want, launches, ms = _single_scene_runs(
+        dev, lambda d, t: scenes.pendulum_chain(6, device=d, dtype=t), cfg, 100,
+        stepper.step_explicit_euler)
+    err = {k: float((getattr(at, k).double().cpu() - getattr(want, k)).abs().max()) for k in "pq"}
+    phys = _one_scene_joints_hold(spec, start, final)
+    print(f"[{tag}] pendulum_chain6, 100 steps, f32: {ms:.2f} ms a step; {phys}; against the "
+          f"CPU f64 plain path after {AGREE_STEPS} steps |dp| {err['p']:.3e}, |dq| "
+          f"{err['q']:.3e} (bound {AGREE_BOUND:.0e}); launches {launches}")
+    check(err["p"] <= AGREE_BOUND and err["q"] <= AGREE_BOUND, f"{tag}: {err}")
+    check(not launches, f"{tag}: launches {launches}")
+    return ms
+
+
+DIAG_BOUND = 2e-3           # each value within DIAG_BOUND * max(1, |f64 value|)
+DIAG_RESIDUAL_BOUND = 1e-2  # |A lambda - b| in f32 with impulses near 500
+
+
+def _diag_stack(dev, dtype):
+    """box_stack(4), box i lowered (i + 1) mm (every interface 1 mm deep),
+    sliding along x at 0.1 i m/s and spinning at 0.2 rad/s about z."""
+    from eggshell_tpu_torch.physics import scenes
+
+    spec, st = scenes.box_stack(4, device=dev, dtype=dtype)
+    n = st.p.shape[0]
+    k = torch.arange(1, n + 1, dtype=dtype, device=dev)
+    p, v, w = st.p.clone(), st.v.clone(), st.w.clone()
+    p[:, 2] -= 1e-3 * k
+    v[:, 0] = 0.1 * (k - 1)
+    w[:, 2] = 0.2
+    return spec, st._replace(p=p, v=v, w=w)
+
+
+def phase_step_diagnostics(dev):
+    """`step_diagnostics` on a sunk, moving box_stack(4) under PGS and
+    DIRECT (the bench configuration otherwise, K = 20), float32 on the
+    card, every key against the CPU float64 plain path: counts and flags
+    equal, DIRECT's pivots equal, every other value within DIAG_BOUND of its
+    scale (the residual within DIAG_RESIDUAL_BOUND)."""
+    from eggshell_tpu_torch.physics import stepper
+    from eggshell_tpu_torch.utils.config import SolverKind
+
+    tag = "step_diagnostics"
+    out = {}
+    for solver in ("PGS", "DIRECT"):
+        cfg = bench_cfg().replace(solver=getattr(SolverKind, solver))
+        spec, st = _diag_stack(dev, torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = stepper.step_diagnostics(spec, st, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = stepper.step_diagnostics(*_diag_stack("cpu", torch.float64), cfg)
+        check(sorted(got) == sorted(want), f"{tag} {solver}: keys {sorted(got)}")
+        worst = 0.0
+        for k, w in want.items():
+            g = got[k].cpu()
+            if w.dtype in (torch.bool, torch.int32, torch.int64):
+                check(bool(g == w), f"{tag} {solver} {k}: {g} against {w}")
+                continue
+            d = abs(float(g) - float(w))
+            bound = (DIAG_RESIDUAL_BOUND if k == "solver_residual"
+                     else DIAG_BOUND * max(1.0, abs(float(w))))
+            check(d <= bound, f"{tag} {solver} {k}: {float(g)} against {float(w)}")
+            worst = max(worst, d / bound)
+        print(f"[{tag}] {solver}, sunk box_stack4, f32 against the CPU f64 plain path: "
+              + ", ".join(f"{k} {float(got[k]):.6g} ({float(want[k]):.6g})" for k in want)
+              + f"; largest difference {worst:.3f} of its bound; {ms:.2f} ms a call")
+        out[solver] = ms
+    return out
+
+
+FEM_W, FEM_H = 250.0, 3.0988          # bench_fem.py:34-48's WR-12 guide, mm
+FEM_SIZES = (0.4, 0.15, 0.12)
+FEM_S21_BOUND = 1e-3                  # bench_fem.py's parity gate, complex64
+FEM_FIELD_BOUND = 1e-8                # tests/test_block_tridiag.py's gate, complex128
+FEM_SWEEP_BOUND = 1e-6
+FEM_MODES_BOUND = 1e-2                # bench_fem.py:288's gate
+
+
+def fem_guide(h):
+    from eggshell_tpu_torch.fem.mesher import mesh_structured
+    from eggshell_tpu_torch.fem.shape import Rectangle
+
+    W, H = FEM_W, FEM_H
+    cd = Rectangle(-W / 2, -H / 2, W / 2, H / 2)
+    cd.Port((-W / 2, -H / 2), (-W / 2, H / 2), 1)
+    cd.Port((W / 2, -H / 2), (W / 2, H / 2), 2)
+    return mesh_structured(cd, (-W / 2, -H / 2), (W, 0), (0, H), h)
+
+
+def fem_cfg(frequency=75e9):
+    from eggshell_tpu_torch.fem.helmholtz import FemConfig
+
+    return FemConfig(type="EZ", frequency=frequency, unit=1e-3, excited_port=1)
+
+
+def _timed(fn, reps=3):
+    """(first call's seconds, mean seconds of `reps` more, last result),
+    synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return cold, (time.perf_counter() - t0) / reps, out
+
+
+def phase_fem_driven(dev):
+    """bench_fem.py's driven solve (the WR-12 guide, EZ, 75 GHz, ports 1
+    and 2) through `mesh_structured` at h = 0.4, 0.15 and 0.12: the BCR on
+    the card in complex64 and complex128 against the JAX package's host
+    solve, SciPy's SuperLU, in complex128: |S21| within 1e-3 in complex64
+    and the field within 1e-8 of its scale in complex128.  Prints solves/s,
+    cold (the first call) and warm (3 more), and the plan's host seconds."""
+    from eggshell_tpu_torch.fem.helmholtz import make_driven_fn, mesh_tensors
+
+    tag = "fem_driven"
+    cfg = fem_cfg()
+    out = {}
+    with torch.no_grad():
+        for h in FEM_SIZES:
+            mesh = fem_guide(h)
+            fs, _ = make_driven_fn(mesh, cfg, solver="sparse")
+            hargs = mesh_tensors(mesh, torch.complex128, "cpu")
+            t0 = time.perf_counter()
+            u_ref, s_ref = fs(*hargs, cfg.k0)
+            t_host = time.perf_counter() - t0
+            s21_ref = abs(complex(s_ref[1, 0]))
+            entry = {"nodes": mesh.num_points, "superlu_host_ms": t_host * 1e3}
+            for dtype, name in ((torch.complex64, "c64"), (torch.complex128, "c128")):
+                t0 = time.perf_counter()
+                fn, plan = make_driven_fn(mesh, cfg, solver="bcr", dtype=dtype)
+                t_plan = time.perf_counter() - t0
+                args = mesh_tensors(mesh, dtype, dev)
+                cold, warm, (u, s) = _timed(lambda: fn(*args, cfg.k0))
+                s21 = abs(complex(s[1, 0]))
+                ferr = float((u.cpu().to(torch.complex128) - u_ref).abs().max()
+                             / u_ref.abs().max())
+                bs = plan.bcr_structure
+                print(f"[{tag}] h={h}, {mesh.num_points} nodes, bcr {name} on the card (blocks "
+                      f"{bs.num_blocks} x {bs.block_size}): cold {cold * 1e3:.2f} ms, warm "
+                      f"{warm * 1e3:.2f} ms, {1 / warm:.2f} solves/s warm; plan {t_plan:.2f} s "
+                      f"on the host; |S21| {s21:.7f} against host SuperLU c128 {s21_ref:.7f} "
+                      f"({t_host * 1e3:.1f} ms); field {ferr:.3e} of its scale")
+                if name == "c64":
+                    check(abs(s21 - s21_ref) <= FEM_S21_BOUND,
+                          f"{tag} h={h} c64: |S21| {s21} against {s21_ref}")
+                else:
+                    check(ferr <= FEM_FIELD_BOUND, f"{tag} h={h} c128: field {ferr}")
+                entry[name] = {"cold_ms": cold * 1e3, "warm_ms": warm * 1e3, "s21": s21,
+                               "field_err": ferr}
+            out[h] = entry
+    return out
+
+
+def phase_fem_sweep(dev):
+    """bench_fem.py:165-250's sweep: F = 16 frequencies from 70 to 80 GHz on
+    the guide at h = 0.4, complex128.  `make_driven_fn(solver="bcr")`'s
+    function takes the 16 k0 as one batch (one batched BCR on the card);
+    each S21 within 1e-6 of its single-frequency solve.  `fields.solve_sweep`
+    runs as the JAX package runs it (above 1200 nodes its plan takes the
+    host SuperLU, one frequency after another), its S21 within 1e-6 too."""
+    from eggshell_tpu_torch.fem import fields
+    from eggshell_tpu_torch.fem.helmholtz import C0, make_driven_fn, mesh_tensors
+
+    tag = "fem_sweep"
+    cfg = fem_cfg()
+    mesh = fem_guide(0.4)
+    freqs = np.linspace(70e9, 80e9, 16)
+    with torch.no_grad():
+        fn, _ = make_driven_fn(mesh, cfg, solver="bcr")
+        args = mesh_tensors(mesh, torch.complex128, dev)
+        k0s = torch.tensor(2 * np.pi * freqs / C0 * cfg.unit, dtype=torch.float64, device=dev)
+        cold, warm, (u, s) = _timed(lambda: fn(*args, k0s))
+        single = torch.stack([fn(*args, k)[1][1, 0] for k in k0s])
+        err = float((s[:, 1, 0] - single).abs().max())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, sp = fields.solve_sweep(mesh, cfg, freqs, device=dev)
+        t_sweep = time.perf_counter() - t0
+    err_sweep = float(np.abs(sp[2] - s[:, 1, 0].cpu().numpy()).max())
+    print(f"[{tag}] {mesh.num_points} nodes, F=16, c128: batched bcr on the card cold "
+          f"{cold * 1e3:.2f} ms, warm {warm * 1e3:.2f} ms ({16 / warm:.1f} frequency solves/s); "
+          f"S21 against each single-frequency solve {err:.3e} (bound {FEM_SWEEP_BOUND:.0e}); "
+          f"fields.solve_sweep (host SuperLU, one frequency after another) {t_sweep * 1e3:.1f} "
+          f"ms ({16 / t_sweep:.1f}/s), its S21 within {err_sweep:.3e}; |S21| from "
+          f"{float(s[:, 1, 0].abs().min()):.6f} to {float(s[:, 1, 0].abs().max()):.6f}")
+    check(err <= FEM_SWEEP_BOUND, f"{tag}: batched S21 differs by {err}")
+    check(err_sweep <= FEM_SWEEP_BOUND, f"{tag}: solve_sweep's S21 differs by {err_sweep}")
+    return {"warm_ms": warm * 1e3, "cold_ms": cold * 1e3, "sweep_host_ms": t_sweep * 1e3}
+
+
+def phase_fem_modes(dev):
+    """bench_fem.py's eigenmodes: Rectangle(0, 0, 2, 1) through `mesh_shape`
+    at 0.012, 6 modes: "shift_invert" (the BCR as its factorization) on the
+    card against the JAX package's host solve, SciPy's ARPACK: the largest
+    relative eigenvalue error below 1e-2; "lobpcg" printed, not gated (the
+    reference measured its failure on modes 5 and 6, bench_fem.py:255-262).
+    Prints cold and warm ms."""
+    from eggshell_tpu_torch.fem.helmholtz import solve_modes
+    from eggshell_tpu_torch.fem.mesher import mesh_shape
+    from eggshell_tpu_torch.fem.shape import Rectangle
+
+    tag = "fem_modes"
+    t0 = time.perf_counter()
+    mesh = mesh_shape(Rectangle(0.0, 0.0, 2.0, 1.0), 0.012)
+    t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref, _ = solve_modes(mesh, num_modes=6, device=dev)
+    t_arpack = time.perf_counter() - t0
+    out = {"nodes": mesh.num_points, "arpack_ms": t_arpack * 1e3}
+    for method in ("shift_invert", "lobpcg"):
+        cold, warm, (vals, _) = _timed(lambda: solve_modes(mesh, num_modes=6, method=method,
+                                                           device=dev), reps=1)
+        rel = float(np.max(np.abs((vals - ref) / ref)))
+        print(f"[{tag}] {mesh.num_points} nodes (mesh {t_mesh:.1f} s), 6 modes: {method} on the "
+              f"card cold {cold * 1e3:.1f} ms, warm {warm * 1e3:.1f} ms; max relative error "
+              f"against host ARPACK ({t_arpack * 1e3:.1f} ms) {rel:.3e}"
+              + (f" (bound {FEM_MODES_BOUND:.0e})" if method == "shift_invert" else
+                 " (not gated)") + f"; eigenvalues {np.round(vals, 4).tolist()}")
+        if method == "shift_invert":
+            check(rel < FEM_MODES_BOUND, f"{tag}: shift_invert error {rel}")
+        out[method] = {"cold_ms": cold * 1e3, "warm_ms": warm * 1e3, "max_rel_err": rel}
+    return out
+
+
 FUSED_PATH = ("narrowphase_packed", "compact", "prep", "jassembly", "amat", "jacobi_packed",
               "integrate")
 UNFUSED_PATH = ("narrowphase", "jacobi")
@@ -2462,6 +2913,13 @@ def main() -> int:
     phase_direct(dev)
     phase_oracle(dev, direct_cfg(), "oracle_direct")
     phase_gradient_mpc_update(dev)
+    phase_stabilize(dev)
+    phase_implicit_midpoint(dev)
+    phase_explicit_euler(dev)
+    phase_step_diagnostics(dev)
+    phase_fem_driven(dev)
+    phase_fem_sweep(dev)
+    phase_fem_modes(dev)
     piles = {name: phase_pile(dev, name) for name in ("pile216", "pile512")}
     fdtd_launches, _ = phase_fdtd2d_rollout(dev)
     res["narrowphase"].update({"launches_pile": piles["pile512"]["launches"]["narrowphase"],

@@ -1,5 +1,5 @@
 """Scenes, states and 2D FDTD fields of the JAX package, as numpy arrays,
-to the port's tensors.
+to the port's tensors, and its FEM meshes to the port's `Mesh`.
 
 The caller turns the JAX NamedTuples into dicts of numpy arrays
 (``{k: np.asarray(v) for k, v in spec._asdict().items()}``), so this
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from eggshell_tpu_torch.fem.fdtd import Field2D
+from eggshell_tpu_torch.fem.mesher import Mesh
 from eggshell_tpu_torch.physics.scene import SceneSpec, State
 
 
@@ -41,3 +42,13 @@ def state_from_numpy(fields: Mapping, *, device, dtype) -> State:
 
 def field2d_from_numpy(fields: Mapping, *, device, dtype) -> Field2D:
     return Field2D(**{k: _tensor(fields[k], device, dtype) for k in Field2D._fields})
+
+
+def mesh_from_numpy(fields: Mapping) -> Mesh:
+    """A JAX-package `Mesh` given as its dataclass fields of numpy arrays
+    (``dataclasses.asdict(mesh)``) as the port's `Mesh`; meshes stay numpy
+    on the host, so each field is copied as it is."""
+    import dataclasses
+
+    return Mesh(**{f.name: None if fields.get(f.name) is None else np.array(fields[f.name])
+                   for f in dataclasses.fields(Mesh)})

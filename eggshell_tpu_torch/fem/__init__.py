@@ -1,6 +1,23 @@
-"""The FEM / FDTD tier, counterpart of `eggshell_tpu.fem`.
+"""The FEM / FDTD tier, counterpart of `eggshell_tpu.fem`, with the same
+exports.
 
-Ported so far: the 2D FDTD core (`fem.fdtd`), with its fused step as a
-hand-written CUDA kernel.  The 3D Yee scheme and the FEM engine are still
-to port (ROADMAP A14).
+- shape, mesher, ports, metal, antenna: the JAX package's numpy geometry
+  stack (CSG shapes, the distmesh-style and structured meshers, port
+  modes, conductor and antenna helpers), copied; meshes stay numpy on the
+  host.
+- sparse:       COO matvecs, the host SuperLU solve (a
+                `torch.autograd.Function`), BiCGStab, LOBPCG and
+                shift-invert eigensolvers on the device.
+- block_tridiag: the block-cyclic-reduction direct solve on batched
+                `torch.linalg`, native complex.
+- helmholtz:    P1 assembly, driven solves with S-parameters, eigenmodes.
+- fields:       probes, gradients, Poynting flux, sweeps, export.
+- fdtd:         the 2D FDTD core with its fused step as a hand-written
+                CUDA kernel.  The 3D Yee scheme is still to port
+                (ROADMAP A14).
 """
+
+from eggshell_tpu_torch.fem.mesher import Mesh, mesh_shape  # noqa: F401
+from eggshell_tpu_torch.fem.shape import (  # noqa: F401
+    Circle, Polygon, Polyline, Rectangle, Shape,
+)

@@ -34,7 +34,9 @@ def _safe_normalize(v: torch.Tensor):
     return unit, n.squeeze(-1)
 
 
-def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+def quat_identity(dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """The identity rotation (1, 0, 0, 0), on the card unless `device`
+    says otherwise, as the scene builders make theirs."""
     return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
 
 

@@ -27,7 +27,11 @@ takes each scenario's broadphase selection (`ops.broadphase`).
 `step_ode` steps one scene: the unfused branch at a batch of one, under
 PGS, JACOBI, SOR or DIRECT (the JAX package's single-scene solver map has
 no JACOBI_KERNEL), or the matrix-free step.  DIRECT is the Schur mixed
-solver over Murty's pivoting (`ops.lcp_direct`).
+solver over Murty's pivoting (`ops.lcp_direct`).  The rest of the
+single-scene stepper runs the same machinery at a batch of one:
+`step_implicit_midpoint`, `step_explicit_euler` (joints only),
+`init_stabilize` and `post_stabilize` (a host loop that reads err^2 once
+an iteration), `position_constraint_error` and `step_diagnostics`.
 
 Gradients.  Every branch is differentiable with respect to the states and
 the control wrenches, on the card as on the CPU:
@@ -68,9 +72,10 @@ from eggshell_tpu_torch.ops.prep_kernel import prep_bodies
 from eggshell_tpu_torch.physics import scene as scn
 from eggshell_tpu_torch.physics.constraints import (ConstraintSystem, build_compact_constraints,
                                                     build_constraints)
-from eggshell_tpu_torch.physics.contacts import (ContactSet, depth_cap, drop_joint_contacts,
-                                                 joint_anchors, joint_points,
-                                                 make_contacts_batched, scene_pairs)
+from eggshell_tpu_torch.physics.contacts import (ContactSet, count_dropped_contacts, depth_cap,
+                                                 drop_joint_contacts, joint_anchors,
+                                                 joint_points, make_contacts_batched,
+                                                 scene_pairs)
 from eggshell_tpu_torch.physics.scene import SceneSpec, State
 from eggshell_tpu_torch.utils.config import FrictionModel, SimConfig, SolverKind
 
@@ -454,3 +459,230 @@ def step_ode(spec: SceneSpec, state: State, cfg: SimConfig, ext_force=None):
     lam = _solve_lambda(A, rhs, sys, cfg)
     nxt = _post_solve(states, cfg, sys, lam, u, Minv, F)
     return State(*(x[0] for x in nxt)), ContactSet(*(x[0] for x in cs))
+
+
+# ---------------------------------------------------------------------------
+# The rest of the single-scene stepper: implicit midpoint, explicit Euler,
+# the stabilizers and the diagnostics.  Each takes one scene (no batch axis)
+# with the JAX package's signature and runs the unfused machinery above at a
+# batch of one, as `step_ode` does.
+
+
+def _one(x):
+    """A State or ContactSet of one scene as a batch of one."""
+    return type(x)(*(t[None] for t in x))
+
+
+def _first(x):
+    return type(x)(*(t[0] for t in x))
+
+
+def step_implicit_midpoint(spec: SceneSpec, state: State, cfg: SimConfig, ext_force=None,
+                           fixed_point_iters: int = 4):
+    """Implicit-midpoint step of one scene: u_{n+1} = u_n + dt f(x_mid, u_mid),
+    x_mid the start state advanced dt/2 with u_mid = (u_n + u_{n+1})/2, by
+    `fixed_point_iters` sweeps; each sweep rebuilds the constraints, the
+    mass blocks, the forces and the system matrix at the midpoint state and
+    re-solves the LCP (PGS, JACOBI, SOR or DIRECT, `check_single_scene`).
+    Contacts are detected once, at the start state.  Positions advance
+    with u_mid.  Returns (new_state, contact_set).  Differentiable as
+    `step_ode` is: the contacts through `collide_boxes_lanes_diff`, the
+    solves through their sweeps or DIRECT's implicit backward."""
+    check_single_scene(cfg)
+    dt = cfg.dt
+    states = _one(state)
+    ext = None if ext_force is None else _batched_ext(ext_force, states)
+    cs = make_contacts_batched(spec, states, cfg)
+    u0 = scn.pack_velocity(states)
+    u_mid = u0
+    for _ in range(fixed_point_iters):
+        mid = State(p=states.p + 0.5 * dt * u_mid[..., :3],
+                    v=u_mid[..., :3],
+                    q=quat.integrate_quat(states.q, u_mid[..., 3:], 0.5 * dt),
+                    w=u_mid[..., 3:])
+        sys = build_constraints(spec, mid, cs, cfg)
+        Minv = scn.inv_mass_blocks(spec, mid)
+        F = scn.external_forces(spec, mid, cfg.gravity)
+        if ext is not None:
+            F = F + ext
+        MinvF = torch.einsum("bnij,bnj->bni", Minv, F)
+        rhs = -cfg.erp / dt / dt * sys.err - torch.einsum("bmnk,bnk->bm", sys.J,
+                                                          u_mid / dt + MinvF)
+        A = system_matrix(spec, mid, sys, cfg)
+        lam = _solve_lambda(A, rhs, sys, cfg)
+        JTlam = torch.einsum("bmnk,bm->bnk", sys.J, lam)
+        vdot = torch.einsum("bnij,bnj->bni", Minv, F + JTlam)
+        u_mid = 0.5 * (u0 + (u0 + dt * vdot))
+    u_new = 2.0 * u_mid - u0
+    nxt = State(p=states.p + dt * u_mid[..., :3], v=u_new[..., :3],
+                q=quat.integrate_quat(states.q, u_mid[..., 3:], dt), w=u_new[..., 3:])
+    return _first(nxt), _first(cs)
+
+
+def _joint_jdotv(spec: SceneSpec, state: State) -> torch.Tensor:
+    """J-dot v of the ball joints, (..., 3 Jn): w0 x (w0 x R0 c0) minus
+    w1 x (w1 x R1 c1) (nothing for a joint to the world)."""
+    lead = state.p.shape[:-2]
+    if spec.num_joints == 0:
+        return state.p.new_zeros(lead + (0,))
+    R = state.R()
+    jb1 = spec.joint_b1
+    anchored = jb1 < 0
+    sb1 = torch.where(anchored, 0, jb1)
+    r0c0 = torch.einsum("...jik,jk->...ji", R[..., spec.joint_b0, :, :], spec.joint_c0)
+    r1c1 = torch.einsum("...jik,jk->...ji", R[..., sb1, :, :], spec.joint_c1)
+    w0 = state.w[..., spec.joint_b0, :]
+    zero = torch.zeros((), dtype=state.w.dtype, device=state.w.device)
+    w1 = torch.where(anchored[:, None], zero, state.w[..., sb1, :])
+    term0 = torch.linalg.cross(w0, torch.linalg.cross(w0, r0c0, dim=-1), dim=-1)
+    term1 = torch.where(anchored[:, None], zero,
+                        -torch.linalg.cross(w1, torch.linalg.cross(w1, r1c1, dim=-1), dim=-1))
+    return (term0 + term1).reshape(lead + (-1,))
+
+
+def _empty_contacts(states: State, K: int) -> ContactSet:
+    B = states.p.shape[0]
+    dtype, device = states.p.dtype, states.p.device
+    idle = torch.full((B, K), -1, dtype=torch.int64, device=device)
+    return ContactSet(b0=idle, b1=idle.clone(), position=torch.zeros((B, K, 3), dtype=dtype,
+                                                                    device=device),
+                      normal=torch.zeros((B, K, 3), dtype=dtype, device=device),
+                      depth=torch.zeros((B, K), dtype=dtype, device=device),
+                      active=torch.zeros((B, K), dtype=torch.bool, device=device))
+
+
+def step_explicit_euler(spec: SceneSpec, state: State, cfg: SimConfig) -> State:
+    """Equality-only explicit Euler of one scene: the joints only, every
+    contact lane idle; the equality system A lambda = -J M^-1 F - Jdot v
+    solved densely (`torch.linalg.solve`), then u_new = u + dt v_dot and
+    the positions advanced with the OLD velocity."""
+    dt = cfg.dt
+    states = _one(state)
+    K = cfg.contact_capacity
+    sys = build_constraints(spec, states, _empty_contacts(states, K), cfg)
+    u = scn.pack_velocity(states)
+    Minv = scn.inv_mass_blocks(spec, states)
+    F = scn.external_forces(spec, states, cfg.gravity)
+    MinvF = torch.einsum("bnij,bnj->bni", Minv, F)
+    jdotv = torch.cat([_joint_jdotv(spec, states), u.new_zeros((1, 3 * K))], dim=-1)
+    rhs = -torch.einsum("bmnk,bnk->bm", sys.J, MinvF) - jdotv
+    A = system_matrix(spec, states, sys, cfg)
+    lam = torch.linalg.solve(A, rhs[..., None])[..., 0]
+    vdot = torch.einsum("bnij,bnj->bni", Minv, F + torch.einsum("bmnk,bm->bnk", sys.J, lam))
+    u_new = u + dt * vdot
+    nxt = State(p=states.p + dt * u[..., :3], v=u_new[..., :3],
+                q=quat.integrate_quat(states.q, u[..., 3:], dt), w=u_new[..., 3:])
+    return _first(nxt)
+
+
+def position_constraint_error(spec: SceneSpec, state: State, cfg: SimConfig,
+                              cs: ContactSet = None) -> torch.Tensor:
+    """Stacked joint and contact position errors of one scene, (m,); the
+    contacts detected at `state` unless `cs` (K lanes) is given."""
+    states = _one(state)
+    csb = make_contacts_batched(spec, states, cfg) if cs is None else _one(cs)
+    return build_constraints(spec, states, csb, cfg).err[0]
+
+
+def _velocity_relaxation(spec: SceneSpec, state: State, sys: ConstraintSystem, scale):
+    """vc = -scale J^T (J J^T + T)^-1 err, (..., n, 6), with the Tikhonov
+    term T = 1e-10 on active rows and 1 on idle ones (redundant contacts
+    make J J^T singular); static bodies get no correction."""
+    lead = sys.err.shape[:-1]
+    Jf = sys.J.reshape(lead + (sys.num_rows, -1))
+    one = torch.ones((), dtype=Jf.dtype, device=Jf.device)
+    JJt = Jf @ Jf.transpose(-1, -2) + torch.diag_embed(
+        torch.where(sys.row_active, 1e-10 * one, one))
+    lam = torch.linalg.solve(JJt, sys.err[..., None])
+    vc = (-scale * (Jf.transpose(-1, -2) @ lam))[..., 0].reshape(lead + (spec.num_bodies, 6))
+    return torch.where((spec.inv_mass > 0)[:, None], vc, torch.zeros((), dtype=vc.dtype,
+                                                                      device=vc.device))
+
+
+def _advance_positions(state: State, vc: torch.Tensor, dt) -> State:
+    """Positions and orientations advanced dt with the correction field vc."""
+    return state._replace(p=state.p + dt * vc[..., :3],
+                          q=quat.integrate_quat(state.q, vc[..., 3:], dt))
+
+
+STABILIZE_TOL = 1e-9
+
+
+def _stabilize(spec, state, cfg, max_steps, dt, correct_velocity, return_iterations):
+    """The stabilizers' loop: while err^2 > STABILIZE_TOL and fewer than
+    `max_steps` iterations, relax the positions (scale 0.2) by dt, and the
+    velocities too with `correct_velocity`.  The JAX package's
+    `while_loop` condition is read on the host, one sync an iteration.  The
+    contacts are detected once a state: the error of a state and its
+    relaxation share them (the JAX package detects the same contacts twice)."""
+    st = _one(state)
+    i = 0
+    while True:
+        sys = build_constraints(spec, st, make_contacts_batched(spec, st, cfg), cfg)
+        e = sys.err[0]
+        if not (float(e @ e) > STABILIZE_TOL and i < max_steps):
+            break
+        vc = _velocity_relaxation(spec, st, sys, 0.2)
+        st = _advance_positions(st, vc, dt)
+        if correct_velocity:
+            st = scn.unpack_velocity(st, scn.pack_velocity(st) + vc)
+        i += 1
+    return (_first(st), i) if return_iterations else _first(st)
+
+
+def init_stabilize(spec: SceneSpec, state: State, cfg: SimConfig, max_steps: int = 100,
+                   return_iterations: bool = False):
+    """Pre-run position relaxation of one scene: up to `max_steps` steps of
+    dt = 500 cfg.dt, contacts re-detected each iteration, until
+    err^2 <= 1e-9.  With `return_iterations`, (state, iterations)."""
+    return _stabilize(spec, state, cfg, max_steps, cfg.dt * 500, False, return_iterations)
+
+
+def post_stabilize(spec: SceneSpec, state: State, cfg: SimConfig, max_steps: int = 500,
+                   return_iterations: bool = False):
+    """Post-step stabilization of one scene: the relaxation applied to the
+    positions (dt = 100 cfg.dt) and added to the velocities, contacts
+    re-detected each iteration, until err^2 <= 1e-9.  With
+    `return_iterations`, (state, iterations)."""
+    return _stabilize(spec, state, cfg, max_steps, cfg.dt * 100, True, return_iterations)
+
+
+def step_diagnostics(spec: SceneSpec, state: State, cfg: SimConfig, ext_force=None) -> dict:
+    """One step's metrics of one scene without advancing it: contact count,
+    dropped contacts, max penetration, constraint-error norm, the solve's
+    complementarity residual (`ops.lcp.residual_error`), kinetic energy
+    and max impulse; under DIRECT also `mixed_constraints_solver`'s
+    converged, iterations, goodness and fallback_used.  Every value a
+    0-dim tensor."""
+    check_single_scene(cfg)
+    states = _one(state)
+    ext = None if ext_force is None else _batched_ext(ext_force, states)
+    cs, sys, A, rhs, u, Minv, F = _pre_solve(spec, states, cfg, ext)
+    info = None
+    if cfg.solver == SolverKind.DIRECT:
+        lam, _, info = lcp_direct.mixed_constraints_solver(A, rhs, sys.is_eq, sys.lo, sys.hi,
+                                                           return_info=True)
+    else:
+        lam = _solve_lambda(A, rhs, sys, cfg)
+    residual = lcp.residual_error(A, rhs, lam, sys.is_eq, sys.lo, sys.hi)[0]
+    im = spec.inv_mass
+    mass = torch.where(im > 0, 1.0 / torch.where(im > 0, im, torch.ones_like(im)),
+                       torch.zeros_like(im))
+    R = state.R()
+    Ig = R @ spec.inertia_body @ R.transpose(-1, -2)
+    ke = 0.5 * torch.sum(mass[:, None] * state.v ** 2) + 0.5 * torch.sum(
+        state.w * torch.einsum("nij,nj->ni", Ig, state.w))
+    zero = torch.zeros((), dtype=cs.depth.dtype, device=cs.depth.device)
+    out = {
+        "num_contacts": cs.active[0].sum(),
+        "dropped_contacts": count_dropped_contacts(spec, states, cfg)[0],
+        "max_penetration": torch.amax(torch.where(cs.active[0], cs.depth[0], zero)),
+        "constraint_error_norm": torch.linalg.vector_norm(sys.err[0]),
+        "solver_residual": residual,
+        "kinetic_energy": ke,
+        "max_impulse": torch.amax(lam[0].abs()),
+    }
+    if info is not None:
+        out.update(solver_converged=info.converged[0], solver_iterations=info.iterations[0],
+                   solver_goodness=info.goodness[0], solver_fallback_used=info.fallback_used[0])
+    return out

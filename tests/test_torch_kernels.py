@@ -1129,3 +1129,58 @@ def test_a_kernel_refuses_a_tensor_that_requires_grad(dev):
     unfused = BENCH.replace(conditional_cfm=True, cond_estimator="power")
     with pytest.raises(RuntimeError, match="requires grad"):
         step_ode_batched(spec, states, unfused, e)
+
+
+def test_stabilizer_counts_b2_once_a_detection(dev):
+    """init_stabilize on the hanging chain with its link pairs, float32 on the
+    card: B2 launches once for each contact detection (iterations + 1) and
+    the iteration count is the CPU float32 plain path's."""
+    from eggshell_tpu_torch.physics import stepper
+
+    def pulled(device):
+        spec, st = scenes.chain(6, collide=True, device=device, dtype=torch.float32)
+        p = st.p.clone()
+        p[2, 1] += 0.05
+        return spec, st._replace(p=p)
+
+    cfg = SimConfig(contact_capacity=16)
+    before = collide_boxes_lanes.launches
+    got, iters = stepper.init_stabilize(*pulled(dev), cfg, return_iterations=True)
+    assert collide_boxes_lanes.launches - before == iters + 1
+    _, want = stepper.init_stabilize(*pulled("cpu"), cfg, return_iterations=True)
+    assert iters == want
+
+
+def test_implicit_midpoint_launches_b2_once_a_step(dev):
+    from eggshell_tpu_torch.physics import stepper
+
+    cfg = BENCH.replace(solver=SolverKind.JACOBI)
+    spec, st = scenes.box_stack(4, device=dev, dtype=torch.float32)
+    cspec, cst = scenes.box_stack(4, device="cpu", dtype=torch.float64)
+    before = collide_boxes_lanes.launches
+    for _ in range(3):
+        st, _ = stepper.step_implicit_midpoint(spec, st, cfg)
+        cst, _ = stepper.step_implicit_midpoint(cspec, cst, cfg)
+    assert collide_boxes_lanes.launches - before == 3
+    assert float((st.p.double().cpu() - cst.p).abs().max()) <= 2e-3
+
+
+def test_fem_solves_on_the_card_match_the_host_solve(dev):
+    """A small guide: the BCR and BiCGStab on the card against the host
+    SuperLU, complex128, and the SuperLU's solution back on the card."""
+    from eggshell_tpu_torch.fem.helmholtz import FemConfig, make_driven_fn, mesh_tensors
+    from eggshell_tpu_torch.fem.mesher import mesh_structured
+    from eggshell_tpu_torch.fem.shape import Rectangle
+
+    cd = Rectangle(0.0, 0.0, 20.0, 3.0)
+    cd.Port((0.0, 0.0), (0.0, 3.0), 1)
+    cd.Port((20.0, 0.0), (20.0, 3.0), 2)
+    mesh = mesh_structured(cd, (0.0, 0.0), (20.0, 0.0), (0.0, 3.0), 0.3)
+    cfg = FemConfig(type="EZ", frequency=75e9, unit=1e-3)
+    ref, _ = make_driven_fn(mesh, cfg, solver="sparse")
+    u_ref, _ = ref(*mesh_tensors(mesh, device="cpu"), cfg.k0)
+    for solver, tol in (("bcr", 1e-10), ("bicgstab", 1e-6), ("sparse", 1e-12)):
+        fn, _ = make_driven_fn(mesh, cfg, solver=solver)
+        u, s = fn(*mesh_tensors(mesh, device=dev), cfg.k0)
+        assert u.device.type == "cuda" and s.device.type == "cuda"
+        assert float((u.cpu() - u_ref).abs().max()) <= tol * float(u_ref.abs().max()), solver

@@ -104,8 +104,18 @@ def test_quaternion_helper_matches_jax(quat_data, name):
         _close(want, got)
 
 
+def test_quat_identity_defaults_to_the_card():
+    """The identity is made on the card unless the caller asks for the CPU,
+    as the scene builders do; on the CPU it is (1, 0, 0, 0)."""
+    import inspect
+
+    assert inspect.signature(tq.quat_identity).parameters["device"].default == "cuda"
+    q = tq.quat_identity(torch.float32, device="cpu")
+    assert q.device.type == "cpu" and q.tolist() == [1.0, 0.0, 0.0, 0.0]
+
+
 def test_quaternion_identity_and_random_rotations():
-    np.testing.assert_array_equal(tq.quat_identity(torch.float64).numpy(),
+    np.testing.assert_array_equal(tq.quat_identity(torch.float64, device="cpu").numpy(),
                                   np.asarray(jq.quat_identity(jnp.float64)))
     gen = torch.Generator().manual_seed(0)
     q = tq.random_quat(gen, (100,), torch.float64)

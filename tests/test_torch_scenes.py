@@ -88,9 +88,21 @@ def test_import_loads_no_jax():
             "eggshell_tpu_torch.ops.amat_kernel, eggshell_tpu_torch.ops.integrate_kernel, "
             "eggshell_tpu_torch.ops.compact_kernel, eggshell_tpu_torch.ops.collision_kernel, "
             "eggshell_tpu_torch.fem.fdtd, eggshell_tpu_torch.ops.lcp, "
-            "eggshell_tpu_torch.profile_step; "
+            "eggshell_tpu_torch.profile_step, eggshell_tpu_torch.physics, "
+            "eggshell_tpu_torch.physics.stepper, eggshell_tpu_torch.mpc.sampling, "
+            "eggshell_tpu_torch.mpc.gradient, eggshell_tpu_torch.ops.lcp_direct, "
+            "eggshell_tpu_torch.ops.geometry2d, eggshell_tpu_torch.fem, "
+            "eggshell_tpu_torch.fem.shape, eggshell_tpu_torch.fem.mesher, "
+            "eggshell_tpu_torch.fem.ports, eggshell_tpu_torch.fem.metal, "
+            "eggshell_tpu_torch.fem.antenna, eggshell_tpu_torch.fem.sparse, "
+            "eggshell_tpu_torch.fem.block_tridiag, eggshell_tpu_torch.fem.helmholtz, "
+            "eggshell_tpu_torch.fem.fields, eggshell_tpu_torch.utils.mat_file, "
+            "eggshell_tpu_torch.utils.dxf; "
+            # contourpy and matplotlib are absent where the port runs on the
+            # card: only shape.extract_polygons and shape_to_dxf may load them
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-            "'eggshell_tpu')); print(bad); sys.exit(1 if bad else 0)")
+            "'eggshell_tpu', 'contourpy', 'matplotlib')); print(bad); "
+            "sys.exit(1 if bad else 0)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=root)
