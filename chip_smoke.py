@@ -2746,6 +2746,398 @@ def phase_fem_modes(dev):
     return out
 
 
+# bench_fem.py:351-373's 3D cell (n = 128, 50 steps, CPML depth 8 on every
+# wall, dx = 1, float32) and a scale row at n = 256
+FDTD3D_ROWS = ((128, 50), (256, 20))
+# the bound's bytes: 6 field and 12 psi arrays, each read and written once
+# a step, float32
+FDTD3D_BYTES_PER_CELL = 36 * 4
+FDTD3D_CPML_BOUND = 1e-4       # tests/test_fdtd.py:156-188's gate
+FDTD3D_AGREE_BOUND = 1e-4      # card f32 against CPU f64, of the field's scale
+
+
+def _fdtd3d_field(n, dev, dtype=torch.float32, seed=SEED):
+    from eggshell_tpu_torch.fem.fdtd import Field3D
+
+    g = torch.Generator("cpu").manual_seed(seed)
+    return Field3D(*(torch.randn((n, n, n), generator=g, dtype=torch.float64).to(dev, dtype)
+                     for _ in range(6)))
+
+
+def _gauss_source(dt):
+    t0, tau = 20 * dt, 6 * dt
+    return lambda t: torch.exp(-((t - t0) ** 2) / (2 * tau ** 2))
+
+
+def _fdtd3d_agreement(dev):
+    """n = 32, CPML depth 6 on every wall, PEC voxels (a slab with an
+    aperture and 2 % random voxels), an eps grid in [1, 4], a soft source
+    on Ez and a probe on Hy, 100 steps: card f32 against the CPU f64 plain
+    path.  Returns (max |d| over fields, psi and trace, the f64 field's max
+    |value|)."""
+    from eggshell_tpu_torch.fem.fdtd import courant_dt, init_3d, make_cpml_3d, simulate_3d
+
+    n, steps = 32, 100
+    dx = 1.0 / (n - 1)
+    dt = courant_dt(dx, 3, 0.9)
+    rng = np.random.default_rng(SEED)
+    eps = rng.uniform(1.0, 4.0, (n, n, n))
+    pec = rng.uniform(size=(n, n, n)) < 0.02
+    pec[2 * n // 3, :, :] = True
+    pec[2 * n // 3, 12:20, 12:20] = False
+    runs = []
+    for where, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float64)):
+        cpml, psi = make_cpml_3d((n,) * 3, dt, dx, depth=6, dtype=dtype, device=where)
+        runs.append(simulate_3d(
+            init_3d(n, dtype, device=where), steps, dt, dx,
+            torch.tensor(eps, dtype=dtype, device=where), torch.tensor(pec, device=where), cpml,
+            psi, source_ijk=(n // 3, n // 2, n // 2), source_fn=_gauss_source(dt),
+            probe_ijk=(n // 2, n // 2 + 3, n // 2), probe_component="hy"))
+    card, cpu = runs
+    err = max(float((a.double().cpu() - b).abs().max())
+              for a, b in zip((*card[0], *card[1], card[2]), (*cpu[0], *cpu[1], cpu[2])))
+    return err, max(float(a.abs().max()) for a in cpu[0])
+
+
+def phase_fdtd3d(dev):
+    """The 3D FDTD (`fem.fdtd.step_3d`, plain torch: the JAX package's step
+    is plain XLA, no Pallas kernel) on FDTD3D_ROWS: `simulate_3d` timed on
+    the synchronised host clock after a warm-up (cell-steps/s, ms a step),
+    every launch counter 0 just before and after (the step launches no
+    hand-written kernel); one step's device ms, device operations and busy
+    share from a torch.profiler window of 10 steps (L2 not flushed); the
+    bound, 144 bytes a cell a step over 3.35 TB/s, and the times over it.
+    Gates: tests/test_fdtd.py:156-188's CPML case (n = 48, 400 steps,
+    depth 10): the magnetic energy with CPML over that with PEC walls below
+    1e-4; and `_fdtd3d_agreement` within 1e-4 of the field's scale."""
+    from eggshell_tpu_torch.fem.fdtd import (PML_ALL, courant_dt, init_3d, make_cpml_3d,
+                                             simulate_3d, step_3d)
+    from eggshell_tpu_torch.utils.profiling import device_window
+
+    tag = "fdtd3d"
+    counters = launch_counters()
+    out = {}
+    for n, steps in FDTD3D_ROWS:
+        dt = courant_dt(1.0, 3)
+        f = _fdtd3d_field(n, dev)
+        cpml, psi = make_cpml_3d((n,) * 3, dt, 1.0, pml=PML_ALL, depth=8, device=dev)
+        simulate_3d(f, 2, dt, 1.0, cpml=cpml, psi=psi)
+        _zero_counters(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin, psi_out, _ = simulate_3d(f, steps, dt, 1.0, cpml=cpml, psi=psi)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        check(not launches, f"{tag} n={n}: kernel launches {launches}")
+        check(all(bool(torch.isfinite(a).all()) for a in (*fin, *psi_out)),
+              f"{tag} n={n}: not finite")
+        w = device_window(lambda: step_3d(f, dt, 1.0, cpml=cpml, psi=psi), 10)
+        step_ms = wall / steps * 1e3
+        b = bound(n ** 3 * FDTD3D_BYTES_PER_CELL, 0.0)
+        out[n] = {"cell_steps_per_s": n ** 3 * steps / wall, "ms_a_step": step_ms,
+                  "device_ms": w["device_ms"], "device_ops": w["launches"], "busy": w["busy"],
+                  "bound_ms": b["bound_ms"]}
+        print(f"[{tag}] n={n}, CPML depth 8 on every wall, f32, {steps} steps: {wall:.4f} s, "
+              f"{n ** 3 * steps / wall:.1f} cell-steps/s, {step_ms:.4f} ms a step (host clock); "
+              f"a step {w['device_ms']:.4f} ms of device time in {w['launches']:.1f} device "
+              f"operations, busy {100 * w['busy']:.1f} % (profiler window); device time over "
+              f"the unprofiled step {100 * w['device_ms'] / step_ms:.1f} %; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bytes']} bytes at 3.35 TB/s): device "
+              f"{w['device_ms'] / b['bound_ms']:.2f}x, host clock {step_ms / b['bound_ms']:.2f}x "
+              f"the bound; no kernel launched")
+        del f, cpml, psi, fin, psi_out
+        torch.cuda.empty_cache()
+
+    n, steps = 48, 400
+    dx = 1.0 / (n - 1)
+    dt = courant_dt(dx, 3, 0.9)
+    mid = (n // 2,) * 3
+    pec_walls, _ = simulate_3d(init_3d(n, device=dev), steps, dt, dx, source_ijk=mid,
+                               source_fn=_gauss_source(dt))
+    cpml, psi = make_cpml_3d((n,) * 3, dt, dx, pml=PML_ALL, depth=10, device=dev)
+    absorbed, _, _ = simulate_3d(init_3d(n, device=dev), steps, dt, dx, cpml=cpml, psi=psi,
+                                 source_ijk=mid, source_fn=_gauss_source(dt))
+
+    def h_energy(f):
+        return sum(float(torch.sum(a.double() ** 2)) for a in (f.hx, f.hy, f.hz))
+
+    ratio = h_energy(absorbed) / h_energy(pec_walls)
+    err, scale = _fdtd3d_agreement(dev)
+    print(f"[{tag}] tests/test_fdtd.py's CPML case (n=48, 400 steps, depth 10) on the card: "
+          f"magnetic energy CPML / PEC walls {ratio:.3e} (bound {FDTD3D_CPML_BOUND:.0e}); n=32 "
+          f"with CPML, PEC voxels, an eps grid, a soft source and a probe, 100 steps, card f32 "
+          f"against CPU f64 plain path: max |d| {err:.3e} of the field's scale {scale:.3e} "
+          f"({err / scale:.3e}, bound {FDTD3D_AGREE_BOUND:.0e})")
+    check(ratio < FDTD3D_CPML_BOUND, f"{tag}: CPML energy ratio {ratio}")
+    check(err <= FDTD3D_AGREE_BOUND * scale, f"{tag}: card against CPU f64 {err} of {scale}")
+    out["cpml_ratio"], out["agreement"] = ratio, err / scale
+    return out
+
+
+def phase_sharded(dev):
+    """`parallel.mesh` on a world of one rank (NCCL on a `HashStore`, made
+    here and destroyed at the end): `sharded_rollout` of the bench
+    configuration (box_stack4, B = 4096, H = 50) against `rollout_batched`,
+    and `sharded_mppi_update` on the `[mpc_living_room]` problem against
+    `mppi_update_batched` from the same generator state, each in turns
+    local, sharded, sharded, local; each call with every launch counter 0
+    just before, the counts read just after: every fused kernel H times, and
+    the sharded call's counts the local call's.  Each must give the local
+    bits (at world 1 the sharded entries compute the local sums in their
+    order).  Then `sharded_mean_cost` of the update's costs, and
+    `dryrun_multichip(1)`.  One card shows no traffic between cards."""
+    import torch.distributed as dist
+
+    from eggshell_tpu_torch.mpc.sampling import mppi_update_batched
+    from eggshell_tpu_torch.parallel import mesh as pmesh
+    from eggshell_tpu_torch.parallel.rollout import rollout_batched
+    from eggshell_tpu_torch.physics import scenes
+
+    tag = "sharded"
+    counters = launch_counters()
+
+    def nonzero(launches):
+        return {k: v for k, v in launches.items() if v}
+
+    mesh = pmesh.make_mesh(device="cuda")
+    check(mesh.size() == 1 and dist.get_backend() == "nccl", f"{tag}: mesh {mesh}")
+    try:
+        spec, states, cfg = scenes.baseline_batch("box_stack4", B_SLICE, device=dev)
+        shard = pmesh.shard_batch(mesh, states)
+
+        def local_rollout():
+            return rollout_batched(spec, states, cfg, H_SLICE)
+
+        def sharded_rollout():
+            return pmesh.gather(mesh, pmesh.sharded_rollout(spec, shard, cfg, H_SLICE, mesh))
+
+        spec_m, st, cfg_m, cost = mpc_problem(dev)
+        mean = torch.zeros((MPC_H, 6), device=dev)
+
+        def update(fn, *extra):
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            return fn(spec_m, st, cfg_m, mean, gen, cost, *extra, controlled_body=MPC_BODY,
+                      num_samples=MPC_S, noise_sigma=MPC_SIGMA, temperature=MPC_T,
+                      noise_mode="constant")
+
+        def local_update():
+            return update(mppi_update_batched)
+
+        def sharded_update():
+            return update(pmesh.sharded_mppi_update, mesh)
+
+        res = {}
+        for what, calls, per_step in (("rollout", (local_rollout, sharded_rollout), H_SLICE),
+                                      ("mppi", (local_update, sharded_update), MPC_H)):
+            want = {name: per_step if name in FUSED_PATH else 0 for name in counters}
+            for call in calls:
+                call()
+            times, outs, launches = {c: [] for c in calls}, {}, {}
+            for call in (calls[0], calls[1], calls[1], calls[0]):
+                _zero_counters(counters)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                o = call()
+                torch.cuda.synchronize()
+                times[call].append(time.perf_counter() - t0)
+                launches[call] = {name: fn.launches for name, fn in counters.items()}
+                outs[call] = o
+            same = all(torch.equal(a, b) for a, b in zip(outs[calls[0]], outs[calls[1]]))
+            rate = {c: len(times[c]) / sum(times[c]) for c in calls}
+            res[what] = (rate, same, launches[calls[1]], outs[calls[1]])
+            unit = "rollouts/s" if what == "rollout" else "MPC solves/s"
+            scale = B_SLICE if what == "rollout" else 1
+            print(f"[{tag}] {what}: local {', '.join(f'{scale / t:.2f}' for t in times[calls[0]])}"
+                  f", sharded {', '.join(f'{scale / t:.2f}' for t in times[calls[1]])} {unit} "
+                  f"(mean {scale * rate[calls[0]]:.2f} and {scale * rate[calls[1]]:.2f}; sharded "
+                  f"/ local {rate[calls[1]] / rate[calls[0]]:.3f}); the local bits: {same}; "
+                  f"launches, local {nonzero(launches[calls[0]])}, sharded "
+                  f"{nonzero(launches[calls[1]])}")
+            check(same, f"{tag} {what}: sharded differs from local")
+            for call in calls:
+                check(launches[call] == want, f"{tag} {what} launches {launches[call]}, "
+                                              f"expected {want}")
+        costs = res["mppi"][3][1]
+        mc = float(pmesh.sharded_mean_cost(costs, mesh))
+        rel = abs(mc - float(costs.double().mean())) / abs(float(costs.double().mean()))
+        dry = pmesh.dryrun_multichip(1)
+        print(f"[{tag}] sharded_mean_cost of the update's {MPC_S} costs {mc:.6f}, relative to "
+              f"the f64 mean {rel:.3e} (bound 1e-6); dryrun_multichip(1) {dry}")
+        check(rel <= 1e-6, f"{tag}: sharded_mean_cost {rel}")
+    finally:
+        dist.destroy_process_group()
+    return {"rollout_launches": res["rollout"][2], "mppi_launches": res["mppi"][2]}
+
+
+OPT_S21_BOUND = 1e-3           # bench_fem.py's parity gate, complex64
+OPT_HEIGHTS = (2.8, 3.4)       # the guide's height (mm) as the model's parameter
+
+
+def phase_optimize(dev):
+    """`opt` on tests/test_toolkit.py:26-87's problems with float64 tensors
+    on the card, held to that file's tolerances: Levenberg-Marquardt
+    (Rosenbrock residuals, the curve fit; its iterations and host reads,
+    the first call timed apart),
+    Nelder-Mead, `random_search` (4,096 samples, one vmap on the card) and
+    `OptimizerFactory`.  Then a `models.Model` whose builder meshes
+    bench_fem.py:34-48's WR-12 guide (h = 0.4) at the height its one
+    `Parameter` gives (2.8 to 3.4 mm) and whose solver is the BCR driven
+    solve on the card in complex64, its output |S21|: `sweep` of 8 heights,
+    `optimize("random_search", num_samples=16)`, every output within 1e-3 of
+    the host SuperLU solve of the same mesh, a repeated `run` answered from
+    the cache, evaluations/s.  No hand-written kernel may launch.  Then
+    `native.solve_box_lcp_batch` (host, its g++ build timed apart) on
+    tests/test_native_lcp.py's certification and batch problems, every
+    solution certified."""
+    from eggshell_tpu_torch import native, opt
+    from eggshell_tpu_torch.fem.helmholtz import make_driven_fn, mesh_tensors
+    from eggshell_tpu_torch.fem.mesher import mesh_structured
+    from eggshell_tpu_torch.fem.shape import Rectangle
+    from eggshell_tpu_torch.models import Model, Parameter
+    from eggshell_tpu_torch.oracle.lcp_oracle import check_lcp_solution
+
+    tag = "optimize"
+    counters = launch_counters()
+    _zero_counters(counters)
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.float64, device=dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    tt = torch.linspace(0, 1, 20, dtype=torch.float64, device=dev)
+    problems = {
+        "rosenbrock": (lambda x: torch.stack([1.0 - x[0], 10.0 * (x[1] - x[0] ** 2)]),
+                       [-1.2, 1.0], 100, [1.0, 1.0]),
+        "curve_fit": (lambda p: p[0] * torch.exp(p[1] * tt) - 2.0 * torch.exp(-1.5 * tt),
+                      [1.0, 0.0], 50, [2.0, -1.5]),
+    }
+    for name, (fn, x0, iters, want) in problems.items():
+        _, first_ms = timed(lambda: opt.levenberg_marquardt(fn, t(x0), opt.LMOptions(iters)))
+        res, ms = timed(lambda: opt.levenberg_marquardt(fn, t(x0), opt.LMOptions(iters)))
+        err = float((res.x - t(want)).abs().max())
+        reads = res.iterations + (res.iterations < iters)
+        print(f"[{tag}] levenberg_marquardt {name} on {res.x.device}: {res.iterations} "
+              f"iterations, {reads} host reads, {ms:.2f} ms (the first call {first_ms:.2f} ms: "
+              f"the process's first float64 solve sets up the solver library); |x - x*| "
+              f"{err:.3e} (bound 1e-6)")
+        check(err <= 1e-6, f"{tag} LM {name}: {err}")
+
+    def quad(x):
+        return (x[0] - 3.0) ** 2 + 2.0 * (x[1] + 1.0) ** 2
+
+    res, ms = timed(lambda: opt.nelder_mead(quad, t([0.0, 0.0]), max_iterations=400))
+    err = float((res.x - t([3.0, -1.0])).abs().max())
+    print(f"[{tag}] nelder_mead: {int(res.iterations)} of 400 iterations, no host read, "
+          f"{ms:.2f} ms; |x - x*| {err:.3e} (bound 1e-3)")
+    check(err <= 1e-3, f"{tag} nelder_mead: {err}")
+
+    def bowl(x):
+        return torch.sum((x - 0.5) ** 2)
+
+    gen = torch.Generator(dev).manual_seed(SEED)
+    res, ms = timed(lambda: opt.random_search(bowl, t([-1.0, -1.0]), t([1.0, 1.0]), gen,
+                                              num_samples=4096))
+    print(f"[{tag}] random_search, 4096 samples in one vmap on the card: f {float(res.fun):.3e} "
+          f"(bound 1e-2), {ms:.2f} ms")
+    check(float(res.fun) < 1e-2, f"{tag} random_search: {float(res.fun)}")
+
+    def target(x):
+        return torch.sum((x - 2.0) ** 2)
+
+    o = opt.OptimizerFactory.create("nelder_mead", target, max_iterations=300, device=dev)
+    o.initialize(np.zeros(2))
+    err = float(np.abs(o.best()[0] - 2.0).max())
+    o = opt.OptimizerFactory.create("random_search", target, device=dev,
+                                    bounds=(np.zeros(2), np.full(2, 4.0)))
+    o.initialize(np.zeros(2))
+    print(f"[{tag}] OptimizerFactory nelder_mead |x - x*| {err:.3e} (bound 1e-3), "
+          f"random_search f {o.best()[1]:.3e} (bound 0.1)")
+    check(err <= 1e-3 and o.best()[1] < 0.1, f"{tag} OptimizerFactory: {err}, {o.best()}")
+
+    cfg = fem_cfg()
+    builds, solved = [], []
+
+    def builder(params):
+        W, H = FEM_W, params["height"]
+        builds.append(H)
+        cd = Rectangle(-W / 2, -H / 2, W / 2, H / 2)
+        cd.Port((-W / 2, -H / 2), (-W / 2, H / 2), 1)
+        cd.Port((W / 2, -H / 2), (W / 2, H / 2), 2)
+        return mesh_structured(cd, (-W / 2, -H / 2), (W, 0), (0, H), 0.4)
+
+    def solver(mesh):
+        with torch.no_grad():
+            fn, _ = make_driven_fn(mesh, cfg, solver="bcr", dtype=torch.complex64)
+            _, s = fn(*mesh_tensors(mesh, torch.complex64, dev), cfg.k0)
+        solved.append({"mesh": mesh, "s21": abs(complex(s[1, 0]))})
+        return solved[-1]
+
+    model = Model(builder, [Parameter("height", *OPT_HEIGHTS, default=FEM_H)], solver=solver,
+                  output=lambda sol: sol["s21"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    swept = model.sweep("height", np.linspace(*OPT_HEIGHTS, 8).tolist())
+    best, fval = model.optimize("random_search", num_samples=16)
+    seconds = time.perf_counter() - t0
+    evaluations = len(builds)
+    model.run(best)
+    model.run({"height": FEM_H})
+    model.run({"height": FEM_H})
+    cached = len(builds) == evaluations + 1
+    worst = 0.0
+    for sol in solved:
+        fs, _ = make_driven_fn(sol["mesh"], cfg, solver="sparse")
+        with torch.no_grad():
+            _, s_ref = fs(*mesh_tensors(sol["mesh"], torch.complex128, "cpu"), cfg.k0)
+        worst = max(worst, abs(sol["s21"] - abs(complex(s_ref[1, 0]))))
+    nodes = sorted({sol["mesh"].num_points for sol in solved})
+    print(f"[{tag}] Model over the WR-12 guide's height {OPT_HEIGHTS} mm (h=0.4, {nodes[0]} to "
+          f"{nodes[-1]} nodes), BCR c64 on the card: sweep of 8 |S21| "
+          f"{np.round(swept, 6).tolist()}; random_search of 16: best height "
+          f"{best['height']:.4f} mm, |S21| {fval:.6f}; {evaluations} evaluations (mesh, plan and "
+          f"solve each) in {seconds:.2f} s, {evaluations / seconds:.2f} evaluations/s; a repeated "
+          f"run from the cache: {cached}; every |S21| against host SuperLU c128 of its mesh: max "
+          f"|d| {worst:.3e} (bound {OPT_S21_BOUND:.0e})")
+    check(cached, f"{tag}: a repeated run was rebuilt")
+    check(worst <= OPT_S21_BOUND, f"{tag}: |S21| {worst} from the host SuperLU")
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    check(not launches, f"{tag}: kernel launches {launches}")
+
+    t0 = time.perf_counter()
+    native.build()
+    print(f"[{tag}] native library ({native.library_path().name}) built or found in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    cert = []
+    for _ in range(100):
+        m = rng.uniform(-1, 1, (50, 50))
+        cert.append((m.T @ m + 5.0 * np.eye(50), rng.uniform(-1, 1, 50),
+                     np.full(50, -rng.uniform(0.1, 1.0)), np.full(50, rng.uniform(0.1, 1.0))))
+    rng = np.random.default_rng(2)
+    mats = [rng.uniform(-1, 1, (20, 20)) for _ in range(32)]
+    batch = (np.stack([m.T @ m + 2.0 * np.eye(20) for m in mats]), rng.uniform(-1, 1, (32, 20)),
+             np.full((32, 20), -1.0), np.full((32, 20), 1.0))
+    for name, (A, b, lo, hi) in (("certification", tuple(np.stack(c) for c in zip(*cert))),
+                                 ("batch", batch)):
+        t0 = time.perf_counter()
+        x, w, ok = native.solve_box_lcp_batch(A, b, lo, hi)
+        ms = (time.perf_counter() - t0) * 1e3
+        good = sum(bool(ok[k]) and check_lcp_solution(A[k], b[k], x[k], w[k],
+                                                      np.zeros(A.shape[1], bool), lo[k], hi[k],
+                                                      1e-7) for k in range(A.shape[0]))
+        print(f"[{tag}] native.solve_box_lcp_batch, {name}: {A.shape[0]} problems of n = "
+              f"{A.shape[1]} in {ms:.2f} ms on the host, {good} certified (KKT within 1e-7)")
+        check(good == A.shape[0], f"{tag} native {name}: {good} of {A.shape[0]} certified")
+    return {"evaluations_per_s": evaluations / seconds, "s21_err": worst}
+
+
 FUSED_PATH = ("narrowphase_packed", "compact", "prep", "jassembly", "amat", "jacobi_packed",
               "integrate")
 UNFUSED_PATH = ("narrowphase", "jacobi")
@@ -2920,6 +3312,9 @@ def main() -> int:
     phase_fem_driven(dev)
     phase_fem_sweep(dev)
     phase_fem_modes(dev)
+    phase_fdtd3d(dev)
+    phase_sharded(dev)
+    phase_optimize(dev)
     piles = {name: phase_pile(dev, name) for name in ("pile216", "pile512")}
     fdtd_launches, _ = phase_fdtd2d_rollout(dev)
     res["narrowphase"].update({"launches_pile": piles["pile512"]["launches"]["narrowphase"],

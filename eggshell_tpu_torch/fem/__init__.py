@@ -13,8 +13,8 @@ exports.
 - helmholtz:    P1 assembly, driven solves with S-parameters, eigenmodes.
 - fields:       probes, gradients, Poynting flux, sweeps, export.
 - fdtd:         the 2D FDTD core with its fused step as a hand-written
-                CUDA kernel.  The 3D Yee scheme is still to port
-                (ROADMAP A14).
+                CUDA kernel, and the 3D Yee scheme with CPML walls in
+                plain torch; no FDTD name is exported here.
 """
 
 from eggshell_tpu_torch.fem.mesher import Mesh, mesh_shape  # noqa: F401

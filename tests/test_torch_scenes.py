@@ -97,7 +97,9 @@ def test_import_loads_no_jax():
             "eggshell_tpu_torch.fem.antenna, eggshell_tpu_torch.fem.sparse, "
             "eggshell_tpu_torch.fem.block_tridiag, eggshell_tpu_torch.fem.helmholtz, "
             "eggshell_tpu_torch.fem.fields, eggshell_tpu_torch.utils.mat_file, "
-            "eggshell_tpu_torch.utils.dxf; "
+            "eggshell_tpu_torch.utils.dxf, eggshell_tpu_torch.parallel.mesh, "
+            "eggshell_tpu_torch.opt, eggshell_tpu_torch.models, eggshell_tpu_torch.native, "
+            "eggshell_tpu_torch.utils.hashing; "
             # contourpy and matplotlib are absent where the port runs on the
             # card: only shape.extract_polygons and shape_to_dxf may load them
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
