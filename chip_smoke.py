@@ -129,6 +129,26 @@ its single solve; `fields.solve_sweep` on the host SuperLU) and
 `[fem_modes]` (6 modes of a 16,035-node cavity, shift-invert on the card
 within 1e-2 of the host ARPACK; LOBPCG printed).
 
+The last slice: `[c3_float64]` (`init_stabilize` of box_stack(3) in
+float64 on the card, as built and sunk 1 mm, its box pairs through the
+plain narrowphase with B2 unlaunched, within 1e-10 of the CPU float64
+plain path; contact_kernel=True in float64 raising; float32 launching B2
+once a contact detection, a launch count only), `[utils_tail]` (`utils.trace.scope` around a
+fused bench step, its label in a torch.profiler window; a checkpoint round
+trip of a card State, the same bits back on the card), `[examples_physics]`
+(fdtd_aperture, chain_swing, box_drop, push_mpc and living_room_mpc of
+`eggshell_tpu_torch.examples` through their entries with render=False at
+their scripts' widths, float32, each cut in depth where its default does
+not fit (`EX_*`; push_mpc one MPPI update at its horizon 40), printing
+the cut, its seconds a step and its launches, checking the outcome
+asserts of tests/test_examples_physics.py that its depth allows, and
+holding B2 to its plain version on living_room_mpc's settled room, one
+scene and S = 256), `[examples_rama]` (the 11 FEM models at their
+scripts' mesh sizes with their outcome checks and seconds) and `[viewer]`
+(`viz.InteractiveViewer.step_once` on box_stack(3) in float32, B2 once a
+step and held to its plain version on every frame's state, the state
+within 1e-5 of the CPU float64 viewer's).
+
 Each path's oracle gate holds the unjittered stack to the DIRECT/f64
 trajectory in tests/data/oracle_stack4_f64.npz (bound 1e-3 at every stored
 checkpoint).  Each rollout phase sets every launch counter to 0 just before
@@ -152,6 +172,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -306,7 +327,7 @@ def narrowphase_pairs(n: int, rng):
     return (c1, R1, h1, c2, R2, h2), kind
 
 
-def compare_contacts(what: str, got, want, generic=None) -> float:
+def compare_contacts(what: str, got, want, generic=None, tag="narrowphase") -> float:
     """Hold the kernel's contacts against the plain version's: code
     agreement, active-lane agreement where codes agree, and the max |d|
     of positions and depths on lanes active in both (bound 1e-4)."""
@@ -318,7 +339,7 @@ def compare_contacts(what: str, got, want, generic=None) -> float:
     err_pos = 0.0 if none else float((got.position - want.position).abs().amax(-1)[both].max())
     err_dep = 0.0 if none else float((got.depth - want.depth).abs()[both].max())
     err = max(err_pos, err_dep)
-    line = f"[narrowphase] {what}: code agreement {agree:.6f}"
+    line = f"[{tag}] {what}: code agreement {agree:.6f}"
     if generic is not None:
         agree_generic = float(same[generic].float().mean())
         line += f" (generic poses {agree_generic:.6f})"
@@ -327,12 +348,27 @@ def compare_contacts(what: str, got, want, generic=None) -> float:
     print(f"{line}, active-lane agreement where codes agree {act_agree:.6f}, "
           f"max |dpos| {err_pos:.3e}, max |ddepth| {err_dep:.3e} on lanes active in both "
           f"(bound 1e-4){'; no lane is active in both' if none else ''}")
-    check(agree >= 0.99, f"narrowphase code agreement {agree}")
-    check(act_agree >= 0.99, f"narrowphase active-lane agreement {act_agree}")
-    check(err <= 1e-4, f"narrowphase max abs error {err}")
+    check(agree >= 0.99, f"{tag} {what}: narrowphase code agreement {agree}")
+    check(act_agree >= 0.99, f"{tag} {what}: narrowphase active-lane agreement {act_agree}")
+    check(err <= 1e-4, f"{tag} {what}: narrowphase max abs error {err}")
     check(bool(torch.isfinite(got.position).all() & torch.isfinite(got.depth).all()),
-          "narrowphase output not finite")
+          f"{tag} {what}: narrowphase output not finite")
     return err
+
+
+def b2_on_states(tag: str, what: str, spec, p, q) -> float:
+    """B2 (`collide_boxes_lanes`) against the plain `collide_boxes` on the
+    box pairs of `spec` at positions p (B, n, 3) and orientations q
+    (B, n, 4) on the card, gathered as the unfused contacts gather them
+    (`gather_pairs`), with `compare_contacts`' bounds.  Returns the max
+    abs error."""
+    from eggshell_tpu_torch.ops.collision import collide_boxes
+    from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes, gather_pairs
+    from eggshell_tpu_torch.ops.quaternion import quat_to_mat
+
+    args = gather_pairs(p, quat_to_mat(q), spec.half_extents, spec.pair_i, spec.pair_j)
+    return compare_contacts(f"B2 against the plain narrowphase, {what}, N={args[0].shape[0]}",
+                            collide_boxes_lanes(*args), collide_boxes(*args), tag=tag)
 
 
 def phase_narrowphase(dev, main_args):
@@ -3138,6 +3174,426 @@ def phase_optimize(dev):
     return {"evaluations_per_s": evaluations / seconds, "s21_err": worst}
 
 
+# ---------------------------------------------------------------------------
+# The last slice: the float64 box-pair routing (C3), the utils tail, the
+# ported examples and the viewer.
+
+C3_BOUND = 1e-10            # card f64 against the CPU f64 plain path
+
+
+def _sunk_stack(dev, dtype, sink):
+    """box_stack(3), every box moved `sink` m down (the bottom one into the
+    floor)."""
+    from eggshell_tpu_torch.physics import scenes
+
+    spec, st = scenes.box_stack(3, device=dev, dtype=dtype)
+    return spec, st._replace(p=st.p - torch.tensor([0.0, 0.0, sink], dtype=dtype, device=dev))
+
+
+def phase_c3_float64(dev):
+    """ROADMAP C3: `init_stabilize` of box_stack(3) (its two box pairs and
+    the ground) in float64 on the card, as built and sunk 1 mm into the
+    floor: the box pairs take the plain narrowphase, B2's counter stays
+    unmoved, the CPU float64 plain path's iteration count, the state within
+    1e-10; contact_kernel=True in float64 raises ValueError.  Then float32
+    as built (sunk, float32 J J^T is singular: `[stabilize]`): B2 once a
+    contact detection, a launch count only (as built the stack needs no
+    iteration, so the state is the input's)."""
+    from eggshell_tpu_torch.physics import stepper
+    from eggshell_tpu_torch.utils.config import SimConfig
+
+    tag = "c3_float64"
+    cfg = SimConfig(contact_capacity=24)
+    counters = launch_counters()
+    for sink in (0.0, 1e-3):
+        _zero_counters(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, iters = stepper.init_stabilize(*_sunk_stack(dev, torch.float64, sink), cfg,
+                                            return_iterations=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        want, citers = stepper.init_stabilize(*_sunk_stack("cpu", torch.float64, sink), cfg,
+                                              return_iterations=True)
+        diff = _max_state_diff(got, want)
+        print(f"[{tag}] init_stabilize, box_stack(3) sunk {sink * 1e3:g} mm, f64 on the card: "
+              f"{iters} iterations ({citers} on the CPU plain path), {dt:.3f} s; states within "
+              f"{diff:.3e} (bound {C3_BOUND:.0e}); kernel launches {launches} (none allowed)")
+        check(not launches, f"{tag} sunk {sink}: launches {launches}")
+        check(iters == citers, f"{tag} sunk {sink}: {iters} iterations against {citers}")
+        check(diff <= C3_BOUND, f"{tag} sunk {sink}: states differ by {diff}")
+    try:
+        stepper.init_stabilize(*_sunk_stack(dev, torch.float64, 0.0),
+                               cfg.replace(contact_kernel=True))
+        check(False, f"{tag}: contact_kernel=True in float64 did not raise")
+    except ValueError as e:
+        print(f"[{tag}] contact_kernel=True in float64 raises ValueError: {str(e)[:80]}...")
+    _zero_counters(counters)
+    spec, st = _sunk_stack(dev, torch.float32, 0.0)
+    _, iters = stepper.init_stabilize(spec, st, cfg, return_iterations=True)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    print(f"[{tag}] init_stabilize, box_stack(3) as built, f32: {iters} iterations; launches "
+          f"{launches} (B2 once a contact detection: {iters + 1}); a launch count only (B2 is "
+          f"held to its plain version in [viewer] and [examples_physics])")
+    check(launches == {"narrowphase": iters + 1}, f"{tag} f32: launches {launches}")
+    return launches.get("narrowphase", 0)
+
+
+def phase_utils_tail(dev):
+    """`utils.trace.scope` around one fused bench step (B = 4096) inside a
+    torch.profiler window: the label is one of the profile's events, and
+    the host Trace counts it.  Then a
+    checkpoint round trip (`utils.checkpoint`) of a card State of the bench
+    batch: restored with the card state as target, every field on the card
+    with the same bits."""
+    from eggshell_tpu_torch.physics.scene import State
+    from eggshell_tpu_torch.physics.scenes import baseline_batch
+    from eggshell_tpu_torch.physics.stepper import step_ode_batched
+    from eggshell_tpu_torch.utils import checkpoint, trace
+
+    tag = "utils_tail"
+    spec, states, cfg = baseline_batch("box_stack4", B_SLICE, device=dev)
+    step_ode_batched(spec, states, cfg)                     # warm
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    _zero_counters(counters)
+    trace.trace_start()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with trace.scope("eggshell.fused_step"):
+            nxt = step_ode_batched(spec, states, cfg)
+        torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    ev = {e.key: e for e in prof.key_averages()}
+    check("eggshell.fused_step" in ev, f"{tag}: label not in the profile ({sorted(ev)[:6]})")
+    label = ev["eggshell.fused_step"]
+    host = trace.timings()["eggshell.fused_step"]
+    print(f"[{tag}] scope('eggshell.fused_step') around one fused step, B={B_SLICE}: in the "
+          f"profile, {label.count} event; Trace count {host[2]}, host total "
+          f"{host[1] / 1e3:.4f} ms; launches {launches}")
+    check(host[2] == 1 and label.count == 1, f"{tag}: counts {host[2]}, {label.count}")
+    check(set(launches) == set(FUSED_PATH) and set(launches.values()) == {1},
+          f"{tag}: launches {launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(path, {"state": nxt, "step": 1})
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = checkpoint.restore_checkpoint(path, {"state": nxt, "step": 0})
+        t_load = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    same = all(torch.equal(a, b) for a, b in zip(back["state"], nxt))
+    on_card = all(x.device == dev for x in back["state"])
+    print(f"[{tag}] checkpoint of the card State ({size} bytes): save {t_save * 1e3:.1f} ms, "
+          f"restore to the card {t_load * 1e3:.1f} ms; a State again {type(back['state']) is State}"
+          f", on the card {on_card}, the same bits {same}, step {back['step']}")
+    check(same and on_card and type(back["state"]) is State and back["step"] == 1,
+          f"{tag}: checkpoint round trip")
+
+
+# The examples' own widths; the depth each runs here where its default
+# does not fit the phase's two minutes of the card, and the default.
+EX_CHAIN_STEPS = (4, 1500)
+EX_BOX_STEPS = (10, 1200)
+EX_PUSH = dict(num_samples=128, horizon=40)   # one MPPI update of the default 60 x 2
+EX_LIVING_STEPS = (12, 30)                    # tests/test_examples_physics.py:30
+EX_LIVING_SAMPLES = 256
+
+
+def _run_counted(counters, fn):
+    """(result, seconds, launches) of fn() with the counters from 0."""
+    _zero_counters(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {k: f.launches for k, f in counters.items()
+                                           if f.launches}
+
+
+def phase_examples_physics(dev):
+    """The five physics and FDTD examples of `eggshell_tpu_torch.examples`
+    through their entries with render=False, at their scripts' widths,
+    float32: fdtd_aperture at n = 160 (260 steps of B8, default depth),
+    chain_swing's chain(10) under PGS (60 sweeps), box_drop (PGS, K = 16),
+    push_mpc (its SamplingMPC, 128 samples, horizon 40, PGS 40 sweeps, 10
+    substeps: one MPPI update, a control step being 2) and living_room_mpc
+    (`settle`, then `control` at 256 samples, H = 25, 10 substeps, JACOBI).
+    Each prints its widths, its depth against its default, the seconds a
+    step and its launches; the outcome asserts of
+    tests/test_examples_physics.py:25-80 that the depth allows are checked.
+    B2 is held to its plain version on living_room_mpc's settled room, one
+    scene and S = 256.  Returns (launches by example, B2's max abs error)."""
+    from eggshell_tpu_torch.examples import (box_drop, chain_swing, fdtd_aperture,
+                                             living_room_mpc, push_mpc)
+    from eggshell_tpu_torch.parallel.mesh import make_mesh
+
+    tag = "examples_physics"
+    counters = launch_counters()
+
+    (leak, ez), sec, launches = _run_counted(
+        counters, lambda: fdtd_aperture.main(render=False, n=160, device=dev))
+    steps = int(160 * 260 / 160)
+    n = ez.shape[0]
+    beam = np.abs(ez[n // 2 - 8: n // 2 + 8, n // 2 + 4:]).max()
+    shadow = max(np.abs(ez[: n // 6, n // 2 + 4:]).max(), np.abs(ez[-n // 6:, n // 2 + 4:]).max())
+    print(f"[{tag}] fdtd_aperture n=160, {steps} steps (the default): {sec:.3f} s, "
+          f"{sec / steps * 1e3:.4f} ms a step; launches {launches}; leak {leak:.4f} (> 1e-3), "
+          f"shadow/beam {shadow / beam:.4f} (< 0.5)")
+    check(launches == {"fdtd2d": steps}, f"{tag} fdtd_aperture: launches {launches}")
+    check(np.isfinite(ez).all() and leak > 1e-3 and shadow < 0.5 * beam,
+          f"{tag} fdtd_aperture: leak {leak}, shadow {shadow}, beam {beam}")
+    out = {"fdtd_aperture": launches}
+
+    cut, full = EX_CHAIN_STEPS
+    (final, traj), sec, launches = _run_counted(
+        counters, lambda: chain_swing.main(steps=cut, render=False, device=dev))
+    p = traj.p.double().cpu().numpy()
+    gap = float(np.linalg.norm(p[:, 1:] - p[:, :-1], axis=-1).max())
+    print(f"[{tag}] chain_swing chain(10), joints only (no ground, no box pairs: no B2), PGS 60 "
+          f"sweeps, 222 rows: {cut} of {full} steps, {sec:.2f} s, {sec / cut:.4f} s a step "
+          f"(the default depth would take {sec / cut * full:.0f} s); launches {launches}; "
+          f"max link gap {gap:.4f} (< 0.75); the swing check (moved > 0.05 m) needs ~100 "
+          f"steps and is not made at this depth")
+    check(np.isfinite(p).all() and gap < 0.75, f"{tag} chain_swing: gap {gap}")
+    check(not launches, f"{tag} chain_swing: launches {launches}")
+
+    cut, full = EX_BOX_STEPS
+    (spec, cfg, final, traj), sec, launches = _run_counted(
+        counters, lambda: box_drop.simulate(cut, device=dev))
+    z = traj.p[:, 0, 2].double().cpu().numpy()
+    print(f"[{tag}] box_drop (PGS 60 sweeps, K=16, no box pairs): {cut} of {full} steps, "
+          f"{sec:.2f} s, {sec / cut:.4f} s a step (the default depth would take "
+          f"{sec / cut * full:.0f} s); launches {launches}; z {z[0]:.4f} -> {z[-1]:.4f} "
+          f"(falling; it lands at ~0.32 s, after the cut)")
+    check(np.isfinite(z).all() and z[-1] < z[0] < 0.5 and not launches,
+          f"{tag} box_drop: z {z[0]} -> {z[-1]}, launches {launches}")
+
+    mpc, st = push_mpc.controller(device=dev, **EX_PUSH)
+    start_cost = float(mpc.cost_fn(st))
+    mean = torch.zeros((mpc.horizon, 6), dtype=torch.float32, device=dev)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    (mc, best), sec, launches = _run_counted(
+        counters, lambda: mpc._replace(iterations=1).plan(st, mean, generator))
+    batched = mpc.horizon * mpc.substeps
+    per_batched = sec / batched
+    full_batched = 60 * mpc.iterations * batched
+    best = float(best)
+    print(f"[{tag}] push_mpc {mpc.num_samples} samples, horizon {mpc.horizon}, "
+          f"{mpc.substeps} substeps, PGS 40 sweeps: 1 of the default run's 60 x "
+          f"{mpc.iterations} MPPI updates, {batched} batched steps in {sec:.2f} s, "
+          f"{per_batched:.4f} s a batched step (a control step {per_batched * 2 * batched:.0f} "
+          f"s; the default run {per_batched * full_batched / 3600:.1f} h); launches {launches}; "
+          f"lowest sample cost {best:.5f} against the box left at rest {start_cost:.5f}; the "
+          f"x > 0.15 check needs ~30 control steps and is not made")
+    check(bool(torch.isfinite(mc).all()) and tuple(mc.shape) == (mpc.horizon, 6)
+          and best < start_cost and not launches,
+          f"{tag} push_mpc: best {best} against {start_cost}, launches {launches}")
+
+    cut, full = EX_LIVING_STEPS
+    settle = living_room_mpc.SETTLE_STEPS
+    mesh = make_mesh(device="cuda")
+
+    def living_room():
+        spec, cfg, settled = living_room_mpc.settle(dev)
+        return spec, settled, living_room_mpc.control(spec, cfg, settled, mesh,
+                                                      EX_LIVING_SAMPLES, cut)
+
+    (spec, settled, (c0, c1)), sec, launches = _run_counted(counters, living_room)
+    print(f"[{tag}] living_room_mpc {EX_LIVING_SAMPLES} samples, H=25, 10 substeps, JACOBI: "
+          f"the {settle}-step settle and {cut} of {full} control steps in {sec:.2f} s "
+          f"({sec / (settle + cut * 260):.5f} s a step of either kind averaged; the default "
+          f"depth ~{sec / cut * full:.0f} s); launches {launches}; cost {c0:.4f} -> {c1:.4f} "
+          f"(bound 0.7 of the start, tests/test_examples_physics.py:33)")
+    check(np.isfinite([c0, c1]).all() and c1 < 0.7 * c0, f"{tag} living_room_mpc: {c0} -> {c1}")
+    check(set(launches) == {"narrowphase"}, f"{tag} living_room_mpc: launches {launches}")
+    # B2 on the settled room (one scene, as the settle and the executed
+    # steps give it) and on the MPPI rollouts' shape: the settled room
+    # repeated S times, the lamp moved up to 2 cm in x and y in each
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    S = EX_LIVING_SAMPLES
+    p = settled.p.expand(S, -1, -1).clone()
+    p[:, living_room_mpc.LAMP, :2] += (torch.rand(S, 2, generator=g, dtype=p.dtype) * 0.04
+                                      - 0.02).to(dev)
+    err = max(b2_on_states(tag, "living_room_mpc's settled room", spec, settled.p[None],
+                           settled.q[None]),
+              b2_on_states(tag, f"the settled room x {S}, the lamp moved", spec, p,
+                           settled.q.expand(S, -1, -1)))
+    out["living_room_mpc"] = launches
+    return out, err
+
+
+def phase_examples_rama(dev):
+    """The 11 FEM example models at their scripts' own mesh sizes on the
+    card (complex128): the outcome asserts of
+    tests/test_examples_rama.py:25-89 (bend, polarizer, mode cutoffs,
+    width transitions) and, for the seven that file leaves out, the
+    checks of tests/test_torch_examples_rama.py; each model's seconds."""
+    from eggshell_tpu_torch.examples import (alma_coupler, capacitor_es, cavity_modes,
+                                             horn_antenna, photonic_nanojet, schrodinger_barrier,
+                                             waveguide_bend, waveguide_modes, waveguide_s11,
+                                             waveguide_transition, wire_polarizer)
+
+    tag = "examples_rama"
+    out = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+        return res
+
+    def bend():
+        (_, (rs, ts)), (_, (rg, tg)) = (waveguide_bend.solve(R, device=dev) for R in (70.0, 220.0))
+        ok = (abs(rs) > 3 * abs(rg) and abs(rg) < 0.01
+              and all(abs(abs(r) ** 2 + abs(t) ** 2 - 1) < 0.03 for r, t in ((rs, ts), (rg, tg))))
+        return ok, f"|S11| {abs(rs):.4f} at R=70, {abs(rg):.4f} at R=220"
+
+    def polarizer():
+        mesh = wire_polarizer.build()
+        (_, (r_ez, t_ez)), (_, (r_xy, t_xy)) = (wire_polarizer.solve(p, mesh=mesh, device=dev)
+                                                for p in ("EZ", "EXY"))
+        ok = abs(t_ez) < 0.25 and abs(r_ez) > 0.95 and abs(t_xy) > 0.95 and abs(r_xy) < 0.25
+        return ok, (f"{mesh.num_points} nodes; EZ |S11| {abs(r_ez):.4f} |S21| {abs(t_ez):.4f}; "
+                    f"EXY |S11| {abs(r_xy):.4f} |S21| {abs(t_xy):.4f}")
+
+    def modes():
+        a, K = 122.0, 0.5
+        (_, te), (_, tm) = waveguide_modes.rectangular(a, K, device=dev)
+        (_, cte), (_, ctm) = waveguide_modes.circular(61.0, device=dev)
+        want = [(te[0], np.pi / a), (tm[0], np.pi * np.hypot(1 / a, 1 / (K * a))),
+                (te[1], 2 * np.pi / a), (te[2], 2 * np.pi / a), (cte[0], 1.84118 / 61.0),
+                (ctm[0], 2.40483 / 61.0)]
+        err = max(abs(g / w - 1) for g, w in want)
+        return err < 0.01, f"six cutoffs within {err:.2e} of analytic (bound 1e-2)"
+
+    def transition():
+        s = {k: waveguide_transition.solve(*k, device=dev)[1]
+             for k in ((122.0, 122.0, 50.0), (122.0, 70.0, 50.0), (122.0, 200.0, 5.0),
+                       (122.0, 200.0, 300.0))}
+        (r0, t0), (rc, tc), (ra, ta), (rt, tt) = s.values()
+        ok = (abs(r0) < 0.02 and abs(t0) > 0.99 and abs(rc) > 0.98 and abs(tc) < 0.05
+              and abs(ra) > 3 * abs(rt)
+              and all(abs(abs(r) ** 2 + abs(t) ** 2 - 1) < 0.01 for r, t in ((ra, ta), (rt, tt))))
+        return ok, (f"|S11| straight {abs(r0):.4f}, cutoff {abs(rc):.4f}, abrupt {abs(ra):.4f}, "
+                    f"taper {abs(rt):.4f}")
+
+    def s11():
+        _, ks, fem, ana, _ = waveguide_s11.sweep(device=dev)
+        err = float(np.abs(np.asarray(fem) - np.asarray(ana)).max())
+        return err < 0.05, f"11 frequencies, max |S11| error {err:.4f} against analytic"
+
+    def cavity():
+        _, vals, _ = cavity_modes.modes(device=dev)
+        return (bool(np.all(np.diff(vals) > 0)) and abs(vals[0] / 9.6397 - 1) < 0.02,
+                f"eigenvalues {np.round(vals, 3).tolist()} (lambda_1 9.6397)")
+
+    def schrodinger():
+        _, res = schrodinger_barrier.levels(device=dev)
+        gaps = [float(v[1] - v[0]) for _, v, _ in res]
+        return (gaps[0] > gaps[1] > gaps[2] > 0 and gaps[2] < 0.05 * gaps[0],
+                f"E1 - E0 {[round(g, 3) for g in gaps]}")
+
+    def capacitor():
+        _, phi, E = capacitor_es.solve(device=dev)
+        return (bool(np.isfinite(phi).all()) and E[1] < 0 and abs(E[1]) > abs(E[0]),
+                f"mid-gap E {np.round(E, 4).tolist()} (ideal |Ey| {capacitor_es.IDEAL_EY:.3f})")
+
+    def nanojet():
+        _, _, xs, amps = photonic_nanojet.solve(device=dev)
+        i = int(np.nanargmax(amps))
+        return (photonic_nanojet.BACK_FACE < xs[i] < 6.5,
+                f"peak |Ez| {amps[i]:.4f} at x = {xs[i]:.2f} um")
+
+    def horn():
+        mesh, cfg, sol = horn_antenna.solve(device=dev)
+        _, _, peak, d, bw, pc = horn_antenna.pattern(mesh, cfg, sol)
+        s = abs(sol.s_params[1])
+        return (s < 0.15 and abs(peak) <= 5 and d > 3 and 20 < bw < 50,
+                f"{mesh.num_points} nodes; |S11| {s:.3f}, peak {peak:+.1f} deg, directivity "
+                f"{d:.2f}, beamwidth {bw:.1f} deg, phase center {pc}")
+
+    def alma():
+        mesh, sol = alma_coupler.solve(device=dev)
+        db = {p: float(10 * np.log10(abs(sol.s_params[p]) ** 2)) for p in (1, 2, 3, 4)}
+        power = sum(abs(sol.s_params[p]) ** 2 for p in (1, 2, 3, 4))
+        return (-4.5 < db[3] < -2 and -4.5 < db[4] < -2 and db[1] < -20 and db[2] < -20
+                and abs(power - 1) < 0.02,
+                f"{mesh.num_points} nodes; dB {[round(v, 2) for v in db.values()]}, power "
+                f"{power:.4f}")
+
+    models = (("waveguide_bend", bend), ("wire_polarizer", polarizer),
+              ("waveguide_modes", modes), ("waveguide_transition", transition),
+              ("waveguide_s11", s11), ("cavity_modes", cavity),
+              ("schrodinger_barrier", schrodinger), ("capacitor_es", capacitor),
+              ("photonic_nanojet", nanojet), ("horn_antenna", horn), ("alma_coupler", alma))
+    with torch.no_grad():
+        for name, fn in models:
+            ok, text = timed(name, fn)
+            print(f"[{tag}] {name}: {text}; {out[name]:.2f} s")
+            check(ok, f"{tag} {name}: {text}")
+    print(f"[{tag}] the 11 models in {sum(out.values()):.1f} s")
+    return out
+
+
+VIEWER_FRAMES, VIEWER_STEPS_PER_FRAME = 4, 5
+# The viewer's f32 state on the card against the CPU f64 viewer's after its
+# 20 steps of 1 ms; the bodies move about 2e-3 m in that window.
+VIEWER_BOUND = 1e-5
+
+
+def phase_viewer(dev):
+    """`viz.InteractiveViewer.step_once` for VIEWER_FRAMES frames of
+    VIEWER_STEPS_PER_FRAME steps on box_stack(3) (ground and two box pairs)
+    in float32 on the card, PGS 30 sweeps at K = 16
+    (tests/test_viz_models.py:98-100): B2 once a step, nothing else; the
+    state against the CPU float64 viewer's within VIEWER_BOUND; B2 held
+    to its plain version on each frame's state; ms a frame.  No drawing
+    (run_headless renders a GIF through matplotlib).  Returns (B2's
+    launches, its max abs error)."""
+    from eggshell_tpu_torch.physics import scenes
+    from eggshell_tpu_torch.utils.config import SimConfig, SolverKind
+    from eggshell_tpu_torch.viz import InteractiveViewer
+
+    tag = "viewer"
+    cfg = SimConfig(solver=SolverKind.PGS, solver_iters=30, conditional_cfm=False,
+                    cfm_always=0.01, contact_capacity=16)
+    v = InteractiveViewer(*scenes.box_stack(3, jitter=0.01, device=dev, dtype=torch.float32), cfg,
+                          steps_per_frame=VIEWER_STEPS_PER_FRAME)
+    ref = InteractiveViewer(*scenes.box_stack(3, jitter=0.01, device="cpu", dtype=torch.float64),
+                            cfg, steps_per_frame=VIEWER_STEPS_PER_FRAME)
+    counters = launch_counters()
+    seen = []
+
+    def frames():
+        for _ in range(VIEWER_FRAMES):
+            v.step_once()
+            seen.append(v.state)
+
+    _, sec, launches = _run_counted(counters, frames)
+    for _ in range(VIEWER_FRAMES):
+        ref.step_once()
+    steps = VIEWER_FRAMES * VIEWER_STEPS_PER_FRAME
+    diff = max(float((getattr(v.state, k).double().cpu() - getattr(ref.state, k)).abs().max())
+               for k in "pq")
+    moved = float((ref.state.p - ref.initial_state.p).abs().max())
+    print(f"[{tag}] InteractiveViewer on box_stack(3), f32, {VIEWER_FRAMES} frames of "
+          f"{VIEWER_STEPS_PER_FRAME} steps: {sec / VIEWER_FRAMES * 1e3:.1f} ms a frame, "
+          f"{sec / steps * 1e3:.1f} ms a step; launches {launches} (B2 once a step: {steps}); "
+          f"p, q against the CPU f64 viewer {diff:.3e} (bound {VIEWER_BOUND:.0e}; the bodies "
+          f"moved up to {moved:.3e} m)")
+    check(launches == {"narrowphase": steps}, f"{tag}: launches {launches}")
+    check(v.sim_steps == steps and diff <= VIEWER_BOUND, f"{tag}: {v.sim_steps} steps, {diff}")
+    err = max(b2_on_states(tag, f"frame {i + 1}'s state", v.spec, st.p[None], st.q[None])
+              for i, st in enumerate(seen))
+    return launches.get("narrowphase", 0), err
+
+
 FUSED_PATH = ("narrowphase_packed", "compact", "prep", "jassembly", "amat", "jacobi_packed",
               "integrate")
 UNFUSED_PATH = ("narrowphase", "jacobi")
@@ -3315,13 +3771,24 @@ def main() -> int:
     phase_fdtd3d(dev)
     phase_sharded(dev)
     phase_optimize(dev)
+    c3 = phase_c3_float64(dev)
+    phase_utils_tail(dev)
+    examples, examples_b2_err = phase_examples_physics(dev)
+    phase_examples_rama(dev)
+    viewer, viewer_b2_err = phase_viewer(dev)
     piles = {name: phase_pile(dev, name) for name in ("pile216", "pile512")}
     fdtd_launches, _ = phase_fdtd2d_rollout(dev)
     res["narrowphase"].update({"launches_pile": piles["pile512"]["launches"]["narrowphase"],
                                **{f"{k}_pile": pile_b2["pile512"][k]
                                   for k in ("ms", "plain_ms", "bound_ms")}})
     res["narrowphase"]["max_abs_err"] = max(res["narrowphase"]["max_abs_err"],
-                                            *(r["max_abs_err"] for r in pile_b2.values()))
+                                            *(r["max_abs_err"] for r in pile_b2.values()),
+                                            examples_b2_err, viewer_b2_err)
+    res["narrowphase"]["launches_examples"] = {
+        "living_room_mpc": examples["living_room_mpc"]["narrowphase"],
+        "viewer": viewer, "c3_float64_f32_case": c3}
+    res["fdtd2d"]["launches_examples"] = {
+        "fdtd_aperture": examples["fdtd_aperture"]["fdtd2d"]}
     for name in ("narrowphase_packed", "compact"):
         res[name].update({"launches_bp": bp_launches[name],
                           **{k: bp[name][k] for k in ("ms_bp", "plain_ms_bp", "bound_ms_bp")}})
@@ -3391,7 +3858,8 @@ def main() -> int:
          **{k: res[name][k] for k in ("resident_ms", "ms_extra", "plain_ms_extra",
                                       "bound_ms_extra", "shapes", "launches_pile", "ms_pile",
                                       "plain_ms_pile", "bound_ms_pile", "launches_bp", "ms_bp",
-                                      "plain_ms_bp", "bound_ms_bp") if k in res[name]}}
+                                      "plain_ms_bp", "bound_ms_bp", "launches_examples")
+            if k in res[name]}}
         for name, source, replaces, path, launches in rows
     ]}))
     print(json.dumps({"ok": True, "device": {

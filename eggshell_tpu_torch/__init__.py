@@ -21,6 +21,8 @@ package's, so one configuration drives both.
 
 import torch
 
+__version__ = "0.1.0"
+
 from eggshell_tpu_torch.utils.config import FrictionModel, SimConfig, SolverKind  # noqa: F401
 
 # The system matrix and the constraint products must stay in full float32

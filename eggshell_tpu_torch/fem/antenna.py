@@ -65,12 +65,8 @@ def _abc_edge_data(mesh: Mesh, field: np.ndarray):
     return mids, nrm, lens, u_mid, dudn
 
 
-def antenna_pattern(
-    mesh: Mesh, field, k0: float, angles: np.ndarray,
-    origin: Tuple[float, float] = (0.0, 0.0),
-) -> np.ndarray:
-    """Complex far-field F(angles) from the ABC boundary."""
-    mids, nrm, lens, u_mid, dudn = _abc_edge_data(mesh, field)
+def _pattern(edge_data, k0: float, angles: np.ndarray, origin) -> np.ndarray:
+    mids, nrm, lens, u_mid, dudn = edge_data
     mids = mids - np.asarray(origin)[None, :]
     rhat = np.stack([np.cos(angles), np.sin(angles)], axis=1)  # (A, 2)
     phase = np.exp(1j * k0 * (rhat @ mids.T))                  # (A, E)
@@ -85,6 +81,14 @@ def antenna_pattern(
     return (integrand * phase) @ lens
 
 
+def antenna_pattern(
+    mesh: Mesh, field, k0: float, angles: np.ndarray,
+    origin: Tuple[float, float] = (0.0, 0.0),
+) -> np.ndarray:
+    """Complex far-field F(angles) from the ABC boundary."""
+    return _pattern(_abc_edge_data(mesh, field), k0, angles, origin)
+
+
 def directivity(pattern: np.ndarray) -> float:
     """max/mean of |F|^2 (ref _Directivity)."""
     p2 = np.abs(pattern) ** 2
@@ -97,11 +101,12 @@ def phase_center(
 ) -> Tuple[float, float]:
     """Origin shift minimising the phase spread of the pattern over the
     given angles (ref phase-center adjustment, rama/solver.h:208-224)."""
+    edge_data = _abc_edge_data(mesh, field)    # independent of the origin
     best = (0.0, 0.0)
     best_spread = np.inf
     for ox in np.linspace(-search_radius, search_radius, grid):
         for oy in np.linspace(-search_radius, search_radius, grid):
-            pat = antenna_pattern(mesh, field, k0, angles, origin=(ox, oy))
+            pat = _pattern(edge_data, k0, angles, (ox, oy))
             w = np.abs(pat)
             if w.max() <= 0:
                 continue

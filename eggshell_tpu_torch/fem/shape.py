@@ -539,17 +539,99 @@ def _simplify_collinear(poly: Array, tol: float) -> Array:
     return closed[:-1][keep[:-1]]
 
 
+# Marching squares on a cell whose corners above the level are given by
+# the bits BL 1, BR 2, TR 4, TL 8: the directed segments between the edge
+# crossings B (bottom), R (right), T (top) and L (left), the side above
+# the level on the left.  Saddles (5, 10) take the middle value's side:
+# (segments when the middle is above, segments when it is below).
+_SEGMENTS = {1: (("B", "L"),), 2: (("R", "B"),), 3: (("R", "L"),), 4: (("T", "R"),),
+             6: (("T", "B"),), 7: (("T", "L"),), 8: (("L", "T"),), 9: (("B", "T"),),
+             11: (("R", "T"),), 12: (("L", "R"),), 13: (("B", "R"),), 14: (("L", "B"),)}
+_SADDLES = {5: ((("B", "R"), ("T", "L")), (("B", "L"), ("T", "R"))),
+            10: ((("L", "B"), ("R", "T")), (("R", "B"), ("L", "T")))}
+
+
+def zero_level_rings(X: Array, Y: Array, Z: Array) -> List[Array]:
+    """The closed rings of Z's zero level set on the grid (X, Y) (a
+    meshgrid, rows along y), by marching squares with linear
+    interpolation along the cell edges: each ring (n, 2) without its
+    closing point, the side where Z > 0 on its left (outer boundaries of
+    the region Z <= 0 clockwise, holes counter-clockwise), the rings, their
+    starting points and their rounding as contourpy's serial generator
+    gives them (the JAX package's `extract_polygons` calls it).  A
+    crossing lies on one edge of two cells, so every ring closes where
+    Z > 0 all along the grid's rim."""
+    ny, nx = Z.shape
+    above = Z > 0
+    nh = ny * (nx - 1)                       # crossing ids: horizontal edges, then vertical
+
+    def h_id(j, i):
+        return j * (nx - 1) + i
+
+    def v_id(j, i):
+        return nh + j * nx + i
+
+    case = (above[:-1, :-1] * 1 + above[:-1, 1:] * 2 + above[1:, 1:] * 4
+            + above[1:, :-1] * 8)
+    middle = (Z[:-1, :-1] + Z[:-1, 1:] + Z[1:, 1:] + Z[1:, :-1]) > 0
+    edge = {"B": lambda j, i: h_id(j, i), "T": lambda j, i: h_id(j + 1, i),
+            "L": lambda j, i: v_id(j, i), "R": lambda j, i: v_id(j, i + 1)}
+    nxt = np.full(nh + ny * nx, -1, np.int64)
+    starts = []                              # (cell, start crossing) of every segment
+
+    def emit(mask, segments):
+        j, i = np.nonzero(mask)
+        for a, b in segments:
+            nxt[edge[a](j, i)] = edge[b](j, i)
+            starts.append(np.stack([j * (nx - 1) + i, edge[a](j, i)], 1))
+
+    for c, segments in _SEGMENTS.items():
+        emit(case == c, segments)
+    for c, (when_above, when_below) in _SADDLES.items():
+        emit((case == c) & middle, when_above)
+        emit((case == c) & ~middle, when_below)
+
+    def point(k):
+        if k < nh:
+            j, i = divmod(k, nx - 1)
+            j1, i1 = j, i + 1
+        else:
+            j, i = divmod(k - nh, nx)
+            j1, i1 = j + 1, i
+        if not above[j, i]:                  # contourpy's rounding: from the corner above
+            j, i, j1, i1 = j1, i1, j, i
+        f = Z[j1, i1] / (Z[j1, i1] - Z[j, i])
+        return (X[j, i] * f + X[j1, i1] * (1.0 - f), Y[j, i] * f + Y[j1, i1] * (1.0 - f))
+
+    # a ring starts at the first segment of the first cell, row by row,
+    # that no ring has taken yet, as contourpy's traversal starts
+    order = np.concatenate(starts) if starts else np.zeros((0, 2), np.int64)
+    order = order[np.argsort(order[:, 0], kind="stable"), 1]
+    rings, taken = [], np.zeros(len(nxt), bool)
+    for start in order.tolist():
+        if taken[start]:
+            continue
+        ring, k = [], start
+        while not taken[k]:
+            taken[k] = True
+            ring.append(point(k))
+            k = int(nxt[k])
+        if k == start:
+            rings.append(np.asarray(ring, float))
+    return rings
+
+
 def extract_polygons(shape: Shape, resolution: int = 256,
                      simplify_tol: float = None) -> List[Array]:
     """Trace the zero level set of the shape's SDF into closed polygons
-    (contourpy marching squares over the padded bbox), then collapse
-    collinear vertices so straight sides come back as single edges.
+    (marching squares over the padded bbox, `zero_level_rings`, where the
+    JAX package calls contourpy, which the card's machine lacks), then
+    collapse collinear vertices so straight sides come back as single
+    edges.
 
     The reference's Shape IS a polygon set (Clipper paths,
     rama/shape.h); this is the export/Select-facing equivalent view of
     the SDF-CSG representation."""
-    from contourpy import contour_generator
-
     assert shape.bbox is not None, "shape must carry a bounding box"
     xmin, ymin, xmax, ymax = shape.bbox
     pad = 0.05 * max(xmax - xmin, ymax - ymin) + 1e-9
@@ -557,8 +639,6 @@ def extract_polygons(shape: Shape, resolution: int = 256,
     ys = np.linspace(ymin - pad, ymax + pad, resolution)
     X, Y = np.meshgrid(xs, ys)
     Z = shape.distance(np.stack([X.ravel(), Y.ravel()], 1)).reshape(X.shape)
-    gen = contour_generator(x=X, y=Y, z=Z)
-    lines = gen.lines(0.0)
     if simplify_tol is None:
         # half a grid cell: marching squares chamfers sharp corners at
         # sub-cell scale; this tolerance absorbs the chamfer so straight
@@ -566,10 +646,7 @@ def extract_polygons(shape: Shape, resolution: int = 256,
         # cell of the samples
         simplify_tol = 0.5 * max(xs[1] - xs[0], ys[1] - ys[0])
     polys = []
-    for line in lines:
-        line = np.asarray(line)
-        if len(line) >= 4 and np.allclose(line[0], line[-1]):
-            line = line[:-1]
+    for line in zero_level_rings(X, Y, Z):
         if len(line) < 3:
             continue
         poly = _simplify_collinear(line, simplify_tol)

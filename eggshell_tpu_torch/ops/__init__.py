@@ -1,6 +1,8 @@
 """The port's operations: the kernel wrappers (`*_kernel.py`), each beside
 its plain version, and the torch operations around them."""
 
+from eggshell_tpu_torch.ops import quaternion  # noqa: F401
+
 
 def launch_counters() -> dict:
     """Every kernel wrapper of the port by name; each counts its kernel's

@@ -68,6 +68,28 @@ def scene_pairs(spec: SceneSpec, states: State, cfg: SimConfig):
     return spec.pair_i, spec.pair_j, None
 
 
+def box_pair_narrowphase(dtype, device, contact_kernel):
+    """The narrowphase the unfused contacts run on their box pairs: the
+    kernel wrapper `collide_boxes_lanes_diff` or the plain
+    `ops.collision.collide_boxes`, as the JAX package's `contact_kernel`
+    and XLA path choose.  On the card: float32 with `contact_kernel` None
+    or True takes B2; float64, or `contact_kernel=False`, the plain
+    version; float64 with `contact_kernel=True` raises ValueError, since
+    B2 takes float32 only.  Off the card the wrapper runs its plain
+    version itself.  (The fused chain takes B2p in float32 always.)"""
+    if torch.device(device).type != "cuda":
+        return collide_boxes_lanes_diff
+    if contact_kernel is False:
+        return collision.collide_boxes
+    if dtype != torch.float32:
+        if contact_kernel:
+            raise ValueError(f"contact_kernel=True asks for the narrowphase kernel B2, which takes "
+                             f"float32 only, on {dtype} tensors: pass float32 tensors, or "
+                             f"contact_kernel=None or False for the plain narrowphase")
+        return collision.collide_boxes
+    return collide_boxes_lanes_diff
+
+
 def _candidates(spec: SceneSpec, states: State, cfg: SimConfig):
     """All candidate contacts of every scenario in reference order:
     (b0, b1, pos, nrm, dep, act) with a candidate axis of n*8 + P*12 (P the
@@ -89,7 +111,8 @@ def _candidates(spec: SceneSpec, states: State, cfg: SimConfig):
     if spec.num_pairs > 0:
         pi, pj, gate = scene_pairs(spec, states, cfg)
         P = pi.shape[-1]
-        out = collide_boxes_lanes_diff(*gather_pairs(states.p, R, spec.half_extents, pi, pj))
+        narrowphase = box_pair_narrowphase(states.p.dtype, device, cfg.contact_kernel)
+        out = narrowphase(*gather_pairs(states.p, R, spec.half_extents, pi, pj))
         C = collision.MAX_CONTACTS_PER_PAIR
         act = out.active.reshape(B, P, C)
         if gate is not None:

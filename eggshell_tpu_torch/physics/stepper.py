@@ -43,7 +43,8 @@ the control wrenches, on the card as on the CPU:
   `_step_xla_twin` under autograd, adopting those impulses with the IFT
   adjoint (`ops.lcp.adopt_lcp_solution`), so no sweep is run backward;
 - the unfused branch and the matrix-free step are plain torch around the
-  narrowphase, whose kernel is wrapped by `collide_boxes_lanes_diff`; the
+  narrowphase, whose kernel is wrapped by `collide_boxes_lanes_diff` (in
+  float32; float64 takes the plain one, `contacts.box_pair_narrowphase`); the
   plain PGS, SOR and Jacobi solves differentiate through their sweeps and
   DIRECT through `ops.lcp_direct.mixed_constraints_solver_implicit`.
 

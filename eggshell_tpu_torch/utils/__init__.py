@@ -1,0 +1,1 @@
+from eggshell_tpu_torch.utils.config import SimConfig  # noqa: F401

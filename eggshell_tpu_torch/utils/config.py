@@ -64,8 +64,9 @@ class SimConfig:
     broadphase_kind: str = "mask"
     sap_window: int = 64
     # The JAX package's narrowphase switch.  Its two sides compute the same
-    # contacts; the port always calls the narrowphase kernel's wrapper,
-    # which runs the plain version on CPU tensors.
+    # contacts.  The port's unfused contacts read it on the card
+    # (`physics.contacts.box_pair_narrowphase`: False takes the plain
+    # narrowphase, True refuses float64); the fused chain ignores it.
     contact_kernel: Optional[bool] = None
 
     def replace(self, **kw) -> "SimConfig":

@@ -8,6 +8,8 @@ tensors) against the JAX package's:
   hole and `mesh_structured`, and `convert.mesh_from_numpy` of a JAX mesh;
 - `ports.order_edge_chain`, `port_eps_profile`, `port_weight_profiles` and
   `transverse_modes`, `metal`, `antenna` and `utils.dxf` results equal;
+- `shape.extract_polygons` (the port's marching squares, where the JAX
+  package calls contourpy), `Select` and `shape_to_dxf` equal exactly;
 - `ops.geometry2d` within 1e-12 (float64).
 """
 
@@ -164,6 +166,46 @@ def test_dxf_equal(tmp_path):
         w.add_polyline(pts, fit_arcs=True)
         path = tmp_path / f"{mod.__name__}.dxf"
         w.save(str(path))
+        texts.append(path.read_text())
+    assert texts[0] == texts[1]
+
+
+_OUTLINES = {
+    "rectangle": lambda S: S.Rectangle(0, 0, 2, 1),
+    "square_ring": lambda S: S.Rectangle(0, 0, 3, 3) - S.Rectangle(1, 1, 2, 2),
+    "circle_with_hole": lambda S: S.Circle(0, 0, 2) - S.Circle(0.3, 0, 0.5),
+    "two_islands": lambda S: S.Rectangle(0, 0, 1, 1) + S.Rectangle(2, 0, 3, 1),
+    "polygon": lambda S: S.Polygon([(0, 0), (3, 0.5), (2, 2), (0.5, 1.5)]),
+    "wire_grid": lambda S: (S.Rectangle(0, 0, 10, 5) - S.Circle(5, 0.86, 0.1)
+                            - S.Circle(5, 1.72, 0.1)),
+}
+
+
+@pytest.mark.parametrize("resolution", [32, 256, 512])
+@pytest.mark.parametrize("name", sorted(_OUTLINES))
+def test_extract_polygons_equal(name, resolution):
+    want = jshape.extract_polygons(_OUTLINES[name](jshape), resolution)
+    got = tshape.extract_polygons(_OUTLINES[name](tshape), resolution)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+def test_select_and_shape_to_dxf_equal(tmp_path):
+    """The WR-10 coupler's Select-addressed ports (examples/alma_coupler.py)
+    and a ring's DXF export."""
+    def coupler(S):
+        cd = S.Rectangle(0, 0, 8, 1.27) + S.Rectangle(0, 1.875, 8, 3.145)
+        cd = cd + S.Rectangle(2.0, 0.1, 2.332, 3.045)
+        return cd
+
+    for x, y in ((0, 0.635), (0, 2.51), (8, 0.635), (8, 2.51), (2.1, 1.5)):
+        a, b = coupler(jshape).Select(x, y), coupler(tshape).Select(x, y)
+        assert (a.p1, a.p2) == (b.p1, b.p2)
+    texts = []
+    for S in (jshape, tshape):
+        path = tmp_path / f"{S.__name__}.dxf"
+        assert S.shape_to_dxf(_OUTLINES["square_ring"](S), str(path)) == 2
         texts.append(path.read_text())
     assert texts[0] == texts[1]
 

@@ -1151,6 +1151,31 @@ def test_stabilizer_counts_b2_once_a_detection(dev):
     assert iters == want
 
 
+def test_stabilizer_float64_box_pairs_take_the_plain_narrowphase(dev):
+    """box_stack(3) sunk 1 mm into the floor, float64 on the card: its box
+    pairs take the plain narrowphase (B2 is float32 only), B2 unlaunched;
+    the state within 1e-10 of the CPU's after the same iterations.
+    contact_kernel=True on float64 raises."""
+    from eggshell_tpu_torch.physics import stepper
+
+    def sunk(device):
+        spec, st = scenes.box_stack(3, device=device, dtype=torch.float64)
+        return spec, st._replace(p=st.p - torch.tensor([0.0, 0.0, 1e-3], dtype=torch.float64,
+                                                       device=device))
+
+    cfg = SimConfig(contact_capacity=24)
+    before = collide_boxes_lanes.launches
+    got, iters = stepper.init_stabilize(*sunk(dev), cfg, return_iterations=True)
+    assert collide_boxes_lanes.launches == before
+    want, citers = stepper.init_stabilize(*sunk("cpu"), cfg, return_iterations=True)
+    assert iters == citers
+    for k in ("p", "v", "q", "w"):
+        np.testing.assert_allclose(getattr(got, k).cpu().numpy(), getattr(want, k).numpy(),
+                                   rtol=0, atol=1e-10, err_msg=k)
+    with pytest.raises(ValueError, match="float32"):
+        stepper.init_stabilize(*sunk(dev), cfg.replace(contact_kernel=True))
+
+
 def test_implicit_midpoint_launches_b2_once_a_step(dev):
     from eggshell_tpu_torch.physics import stepper
 

@@ -101,7 +101,7 @@ def test_import_loads_no_jax():
             "eggshell_tpu_torch.opt, eggshell_tpu_torch.models, eggshell_tpu_torch.native, "
             "eggshell_tpu_torch.utils.hashing; "
             # contourpy and matplotlib are absent where the port runs on the
-            # card: only shape.extract_polygons and shape_to_dxf may load them
+            # card: no module loads them (viz imports matplotlib in a drawing)
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'eggshell_tpu', 'contourpy', 'matplotlib')); print(bad); "
             "sys.exit(1 if bad else 0)")
