@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels from `eggshell_tpu_torch/csrc/`, prints the
 registers, stack and spills ptxas reported for the Jacobi kernels (B6,
-B6b, and B6c's and B6c''s resident, cluster and global-rows forms), the
+B6b's cluster, streamed and global-rows forms, and B6c's and B6c''s
+resident, cluster, streamed and global-rows forms), the
 narrowphase's two entries B2 and B2p, B4, B5, B7, B3 and B3g (`[ptxas]`;
 none may spill), and holds each kernel against its
 plain PyTorch version on the card, on seeded random inputs and on the
@@ -46,7 +47,10 @@ unfused paths stay the loop:
   the ground-only compaction where a scene has no pairs, the resident B6
   at every scene's row count (mp 32 to 96); box_stack8 at
   contact_capacity 64 (mp = 192, `[scene_box_stack8_k64]`) takes the
-  cluster B6b;
+  cluster B6b, and at contact_capacity 296 (mp = 888,
+  `[scene_box_stack8_k296]`, B = B_WIDE) B6b on a cluster of 9 to 16
+  blocks, its first-step solve held to the plain version and to the
+  global-rows form's bits;
 - the fused chain with Coulomb-pyramid friction and with block-Jacobi on
   `box_stack(4)` (phases `[slice_pyramid]`, `[slice_block]`; the B6 forms
   are held alone in `[jacobi_packed_pyramid]`, `[jacobi_packed_block]`),
@@ -94,10 +98,17 @@ The block-Jacobi solve B6c' has no stepping path: `[jacobi_block]` calls
 its entry `solve_lcp_jacobi(block=True)` on the unfused slice's first LCP.
 `[jacobi_cluster]` and `[jacobi_block_cluster]` hold B6c and B6c' in their
 cluster form (the unfused slice's first LCP at contact_capacity 80,
-m = 240, and a seeded m = 480 system), and `[jacobi_global]` and
-`[jacobi_block_global]` in their global-rows form past what a cluster
-holds (m = 672); `[jacobi_packed_rows]` does the same for B6b past the
-mp = 664 a cluster holds (mp = 672 and 888).  B4, B5
+m = 240, a seeded m = 480 system, and past the portable 8 blocks, a
+cluster of 9 to 16, a seeded m = 672 system and the unfused slice's first
+LCP at contact_capacity 224, m = 672, B = B_WIDE), `[jacobi_streamed]`
+and `[jacobi_block_streamed]` in their streamed form past what 16 blocks
+hold (m = 1,200), and `[jacobi_global]` and `[jacobi_block_global]` in
+their global-rows form past the streamed form's reach (m = 6,627, B = 1;
+also forced at m = 672, the route the parent took there), each bit for
+bit the global-rows form's; `[jacobi_packed_rows]` does the same for B6b
+(a cluster of 9 to 16 at mp = 672 and 888, streamed at 1,200, global
+rows at 6,648 and forced at 888), each timed against its one-read bound
+and the floor of 16 reads of A.  B4, B5
 and B7 (`[jassembly]`, `[amat]`, `[integrate]`) and B3 (`[compact]`) are
 also timed at K = 32 on box_stack8's first step, `[amat]` also checks B5's
 slab route (K = 64) and Jc-chunk route (K = 400) on seeded inputs, and
@@ -494,12 +505,12 @@ def phase_jacobi(dev, main_lcp, joints_lcp):
     return res
 
 
-def unfused_first_lcp(dev, scene="box_stack4", cfg=None):
-    """B6c's inputs at the first step of B_SLICE scenarios of `scene` on the
+def unfused_first_lcp(dev, scene="box_stack4", cfg=None, batch=B_SLICE):
+    """B6c's inputs at the first step of `batch` scenarios of `scene` on the
     unfused branch (the slice's configuration, or `cfg`)."""
     from eggshell_tpu_torch.physics import scenes, stepper
 
-    spec, states, _ = scenes.baseline_batch(scene, B_SLICE, device=dev)
+    spec, states, _ = scenes.baseline_batch(scene, batch, device=dev)
     _, sys_, A, rhs, _, _, _ = stepper._pre_solve(spec, states, slice_cfg() if cfg is None else cfg)
     return tuple(x.contiguous() for x in (A, rhs, sys_.is_eq, sys_.lo, sys_.hi))
 
@@ -514,8 +525,8 @@ def main_path_inputs(dev):
     return nargs, unfused_first_lcp(dev)
 
 
-def fused_inputs(dev, name="box_stack4", cfg=None):
-    """Each fused-chain kernel's arguments at the first step of B_SLICE
+def fused_inputs(dev, name="box_stack4", cfg=None, batch=B_SLICE):
+    """Each fused-chain kernel's arguments at the first step of `batch`
     scenarios of the BASELINE scene `name` (bench configuration, the
     scene's capacity and jitter, or `cfg`), recorded from one call of the
     stepper's `_fused_step`, keyed by phase name."""
@@ -528,7 +539,7 @@ def fused_inputs(dev, name="box_stack4", cfg=None):
         args[phase] = a
         return fn(*a)
 
-    spec, st, scene_cfg = scenes.baseline_batch(name, B_SLICE, device=dev)
+    spec, st, scene_cfg = scenes.baseline_batch(name, batch, device=dev)
     _fused_step(spec, st, scene_cfg if cfg is None else cfg, call=record)
     torch.cuda.synchronize()
     return args
@@ -1100,30 +1111,70 @@ def one_call_launches(tag, counter_name, fn):
     return out, launches[counter_name]
 
 
+# Past the portable cluster's 664 rows (ROADMAP B item 8): the unfused
+# slice at contact_capacity 224 (m = 672) and box_stack8 on the fused chain
+# at contact_capacity 296 (mp = 888), at B_WIDE scenarios (A 1.8 and 3.2 GB;
+# B_SLICE would add two 7-13 GB systems and their rollouts to a script
+# near half its time limit); the kernels timed at B = 64 (B6c, B6c',
+# m = 672 and 1,200; B6b mp = 1,200) and 256 (B6b, mp = 888); the
+# global-rows forms, the plans' route past 6,560 rows, at B = 1.
+B_WIDE = 1024
+UNFUSED_WIDE_CAPACITY = 224
+WIDE_ROWS_CAPACITY = 296
+PAST_STREAMED = 6627
+PACKED_PAST_STREAMED = 6648
+
+
+def floor_ms(args) -> float:
+    """iters reads of A over the HBM rate: the floor of a route that reads
+    A every sweep (the streamed and global-rows routes)."""
+    return 16 * args[0].numel() * 4 / PEAK_BYTES_PER_S * 1e3
+
+
 def phase_jacobi_cluster(dev):
-    """B6c and B6c' past the resident form's 128 rows, where
-    `jacobi_launch_plan` splits a scenario's rows over a thread-block
-    cluster: at m = 240 (the unfused slice's first LCP at contact_capacity
-    80, B=4096, one tensor copy) and m = 480 (a seeded SPD system, B=512,
-    one bulk copy a row), each against its plain version (relative bounds
-    1e-4 and 1e-5 of max |x|, as `[jacobi]` and `[jacobi_block]`), then one
-    call of each at m = 240 counted and timed.  Past what a cluster of 8
-    holds, the global-rows form: m = 672 (seeded, B=64) against the plain
-    version, one call counted and timed."""
-    from eggshell_tpu_torch.ops.pgs_kernel import (jacobi_launch_plan, solve_lcp_jacobi,
+    """B6c and B6c' past the resident form's 128 rows, each against its
+    plain version (relative bounds 1e-4 and 1e-5 of max |x|, as `[jacobi]`
+    and `[jacobi_block]`) and bit for bit against the global-rows form forced
+    by its plan: the cluster form (`jacobi_launch_plan` splits a scenario's
+    rows over a thread-block cluster) at m = 240 (the unfused slice's first
+    LCP at contact_capacity 80, B=4096, one tensor copy), m = 480 (seeded,
+    B=512, one bulk copy a row), m = 672 (seeded, B=64, and the unfused
+    slice's first LCP at contact_capacity 224, B=B_WIDE: past the portable 8
+    blocks, a cluster of 9 to 16); the streamed form at m = 1,200 (seeded,
+    B=64) and 4,200 (B=2, two tensor copies a stage); the global-rows form
+    at m = 6,627 (seeded, B=1), past the streamed form's reach.  One call
+    of each form counted and timed: the cluster at m = 240 and 672, the
+    streamed at 1,200; global rows counted at 6,627 and timed at 672,
+    forced by its plan (the route the parent took there); each against the
+    one-read bound and the floor of iters reads."""
+    from eggshell_tpu_torch.ops.pgs_kernel import (jacobi_global_plan, jacobi_launch_plan,
+                                                   launch_jacobi_plan, solve_lcp_jacobi,
                                                    solve_lcp_jacobi_plain)
 
     iters, omega, beta = 16, 0.3, 0.45
     wide = wide_unfused_lcp(dev)
-    past = random_spd_lcp(dev, B=64, m=672)
+    k224 = unfused_first_lcp(dev, cfg=slice_cfg().replace(contact_capacity=UNFUSED_WIDE_CAPACITY),
+                             batch=B_WIDE)
+    m672 = random_spd_lcp(dev, B=64, m=672)
+    m1200 = random_spd_lcp(dev, B=64, m=1200)
+    past = random_spd_lcp(dev, B=1, m=PAST_STREAMED)
     cases = [(f"first-step inputs of the unfused slice at contact_capacity 80, "
               f"{tuple(wide[0].shape)}", wide, "cluster"),
              ("seeded random SPD (512, 480, 480)", random_spd_lcp(dev, B=512, m=480), "cluster"),
-             ("seeded random SPD (64, 672, 672)", past, "global rows")]
+             ("seeded random SPD (64, 672, 672)", m672, "cluster"),
+             (f"first-step inputs of the unfused slice at contact_capacity "
+              f"{UNFUSED_WIDE_CAPACITY}, {tuple(k224[0].shape)}", k224, "cluster"),
+             ("seeded random SPD (64, 1200, 1200)", m1200, "streamed"),
+             ("seeded random SPD (2, 4200, 4200), two tensor copies a stage",
+              random_spd_lcp(dev, B=2, m=4200), "streamed"),
+             (f"seeded random SPD (1, {PAST_STREAMED}, {PAST_STREAMED})", past, "global rows")]
+    tags = {"cluster": "cluster", "streamed": "streamed", "global rows": "global"}
     res = {}
     for block, bound_rel in ((False, 1e-4), (True, 1e-5)):
         name = "jacobi_block" if block else "jacobi"
-        err = {"cluster": 0.0, "global rows": 0.0}
+        fn = "eggshell_jacobi_block_f32" if block else "eggshell_jacobi_f32"
+        params = (iters, omega) if block else (iters, omega, beta)
+        err = {route: 0.0 for route in tags}
         for what, args, route in cases:
             m = args[1].shape[1]
             check(jacobi_launch_plan(m, block).route == route,
@@ -1131,68 +1182,153 @@ def phase_jacobi_cluster(dev):
             got = solve_lcp_jacobi(*args, iters, omega, beta, block=block)
             want = (solve_lcp_jacobi_plain(*args, iters, omega, block=True) if block
                     else solve_lcp_jacobi_plain(*args, iters, omega, beta))
+            rows = launch_jacobi_plan(fn, jacobi_global_plan(m, block), *args, *params)
             e = float((got - want).abs().max())
             rel = e / float(want.abs().max())
+            same = torch.equal(got, rows)
             err[route] = max(err[route], e)
-            tag = f"{name}_{'cluster' if route == 'cluster' else 'global'}"
+            tag = f"{name}_{tags[route]}"
             print(f"[{tag}] {what}, iters 16, {plan_text(m, block)}: max |dx| {e:.3e}, "
-                  f"relative {rel:.3e} (bound {bound_rel:.0e}); bit for bit "
-                  f"{torch.equal(got, want)}")
+                  f"relative {rel:.3e} (bound {bound_rel:.0e}); bit for bit the plain "
+                  f"version's {torch.equal(got, want)}, the global-rows form's {same}")
             check(bool(torch.isfinite(got).all()), f"{tag} output not finite on {what}")
             check(rel <= bound_rel, f"{tag} relative error {rel} on {what}")
+            check(same, f"{tag} differs from the global-rows form on {what}")
         per_row = 16.0 if block else 10.0
-        for route, args, kname in (
-                ("cluster", wide, f"{'block_' if block else ''}jacobi_cluster_kernel"),
-                ("global rows", past, f"{'block_' if block else ''}jacobi_global_kernel")):
-            tag = f"{name}_{'cluster' if route == 'cluster' else 'global'}"
-            call = lambda: solve_lcp_jacobi(*args, iters, omega, beta, block=block)
-            out, launches = one_call_launches(tag, name, call)
+        kname = f"{'block_' if block else ''}jacobi"
+
+        def timed(tag, args, kernel, call=None):
+            call = call or (lambda: solve_lcp_jacobi(*args, iters, omega, beta, block=block))
             plain = ((lambda: solve_lcp_jacobi_plain(*args, iters, omega, block=True)) if block
                      else (lambda: solve_lcp_jacobi_plain(*args, iters, omega, beta)))
-            t = timings(kname, call, plain)
+            t = timings(kernel, call, plain)
             Bm, mm = args[1].shape
-            b = bound(moved_bytes(args, out), Bm * iters * (2.0 * mm * mm + per_row * mm))
+            b = bound(moved_bytes(args, call()), Bm * iters * (2.0 * mm * mm + per_row * mm))
+            fl = floor_ms(args)
             print(f"[{tag}] m={mm}, B={Bm}: {timing_text(t)}, bound {b['bound_ms']:.4f} ms "
-                  f"({b['bound_by']}: {b['bytes']} bytes), {ratio_text(t, b)}")
-            res[tag] = {"max_abs_err": err[route], **t, **b, "launches": launches}
+                  f"({b['bound_by']}: {b['bytes']} bytes), {ratio_text(t, b)}; floor of 16 "
+                  f"reads of A {fl:.4f} ms, {t['ms'] / fl:.2f}x it")
+            return {**t, **b, "floor_ms": fl}
+
+        for route, args in (("cluster", wide), ("cluster", m672), ("streamed", m1200),
+                            ("global rows", past)):
+            tag = f"{name}_{tags[route]}"
+            m = args[1].shape[1]
+            out, launches = one_call_launches(
+                tag, name, lambda: solve_lcp_jacobi(*args, iters, omega, beta, block=block))
+            if route == "global rows":
+                # timed at m = 672, B = 64, forced by its plan (the route the
+                # parent took there): at m = 6,627 one block runs a call
+                t = timed(tag, m672, f"{kname}_global_kernel",
+                          lambda: launch_jacobi_plan(fn, jacobi_global_plan(672, block), *m672,
+                                                     *params))
+            else:
+                t = timed(tag, args, f"{kname}_{tags[route]}_kernel")
+            if m == 672:   # the wide cluster's shape: beside the m = 240 numbers
+                res[tag].update({"launches_672": launches, **{f"{k}_672": t[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "floor_ms")}})
+                continue
+            res[tag] = {"max_abs_err": err[route], **t, "launches": launches}
     return res
 
 
 def phase_jacobi_packed_rows(dev):
-    """B6b past the cluster's mp = 664, where `packed_launch_plan` reads
-    A's rows from device memory every sweep: seeded SPD systems at mp = 672
-    and 888 (B=256) against the plain version (relative bound 1e-4, as
-    `[jacobi_packed_stream]`), then one call at mp = 888 counted and timed."""
-    from eggshell_tpu_torch.ops.pgs_kernel import (packed_launch_plan,
-                                                   solve_lcp_jacobi_packed_plain,
+    """B6b past the portable cluster's mp = 664, each against its plain
+    version (relative bound 1e-4, as `[jacobi_packed_stream]`) and bit for
+    bit against the global-rows form forced by its plan: a cluster of 9 to
+    16 blocks at mp = 672 and 888 (seeded, B=256; 888 with a shorter last
+    block), the streamed form at mp = 1,200 (seeded, B=64) and 4,200 (B=2,
+    two tensor copies a stage: more rows a block than a box holds), and the
+    global-rows form at mp = 6,648 (seeded, B=1), past the streamed form's
+    reach.  One call of each counted and timed (the cluster at mp = 888,
+    B = 256, the streamed at 1,200, B = 64; global rows counted at 6,648
+    and timed, forced, at 888: the route the parent took there), each
+    against the one-read bound and the floor of iters reads."""
+    from eggshell_tpu_torch.ops.pgs_kernel import (launch_packed_plan, packed_launch_plan,
+                                                   rows_plan, solve_lcp_jacobi_packed_plain,
                                                    solve_lcp_jacobi_packed_stream)
 
-    cases = [(f"seeded random SPD (256, {mp}, {mp})", random_lcp(dev, 256, mp // 3, SEED + mp))
-             for mp in (672, 888)]
-    err = 0.0
-    for what, args in cases:
-        plan = packed_launch_plan(args[1].shape[1])
-        check(plan.cluster is None and plan.rows is not None,
-              f"jacobi_packed_rows: the plan at mp = {args[1].shape[1]} has a cluster")
+    cases = [(f"seeded random SPD ({B}, {mp}, {mp})", random_lcp(dev, B, mp // 3, SEED + mp), route)
+             for B, mp, route in ((256, 672, "cluster"), (256, 888, "cluster"),
+                                  (64, 1200, "streamed"), (1, PACKED_PAST_STREAMED, "rows"),
+                                  (2, 4200, "streamed"))]
+    err = {}
+    for what, args, route in cases:
+        mp = args[1].shape[1]
+        plan = packed_launch_plan(mp)
+        chosen = plan.cluster or plan.streamed or plan.rows
+        check(getattr(plan, route) is not None,
+              f"jacobi_packed_rows: the plan at mp = {mp} is {chosen}, expected {route}")
         got = solve_lcp_jacobi_packed_stream(*args)
         want = solve_lcp_jacobi_packed_plain(*args)
+        rows = launch_packed_plan(rows_plan(mp, 3), *args)
         e = float((got - want).abs().max())
         rel = e / max(1.0, float(want.abs().max()))
-        err = max(err, e)
-        print(f"[jacobi_packed_rows] {what}: global rows ({plan.rows.threads} threads, "
-              f"{plan.rows.shared_bytes} bytes of shared memory): max |dx| {e:.3e}, relative to "
-              f"scale {rel:.3e} (bound 1e-4)")
+        err[route] = max(err.get(route, 0.0), e)
+        same = torch.equal(got, rows)
+        print(f"[jacobi_packed_rows] {what}: {chosen}: max |dx| {e:.3e}, relative to scale "
+              f"{rel:.3e} (bound 1e-4); bit for bit the global-rows form's {same}")
         check(bool(torch.isfinite(got).all()), f"jacobi_packed_rows output not finite on {what}")
         check(rel <= 1e-4, f"jacobi_packed_rows relative error {rel} on {what}")
-    args = cases[-1][1]
-    out, launches = one_call_launches("jacobi_packed_rows", "jacobi_packed_stream",
-                                      lambda: solve_lcp_jacobi_packed_stream(*args))
-    t = timings("jacobi_packed_rows_kernel", lambda: solve_lcp_jacobi_packed_stream(*args),
+        check(same, f"jacobi_packed_rows differs from the global-rows form on {what}")
+
+    def timed(what, args, kernel, call=None):
+        call = call or (lambda: solve_lcp_jacobi_packed_stream(*args))
+        t = timings(kernel, call, lambda: solve_lcp_jacobi_packed_plain(*args))
+        b = bound(moved_bytes(args, call()), _fused_flops("jacobi_packed", args))
+        fl = floor_ms(args)
+        print(f"[jacobi_packed_rows] {what}, mp={args[1].shape[1]}, B={args[1].shape[0]}: "
+              f"{timing_text(t)}, bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} "
+              f"bytes), {ratio_text(t, b)}; floor of 16 reads of A {fl:.4f} ms, "
+              f"{t['ms'] / fl:.2f}x it")
+        return {**t, **b, "floor_ms": fl}
+
+    res = {}
+    for (what, args, route), key in zip(
+            cases[1:4], ("jacobi_packed_stream", "jacobi_packed_streamed", "jacobi_packed_rows")):
+        out, launches = one_call_launches(f"jacobi_packed_rows/{route}", "jacobi_packed_stream",
+                                          lambda: solve_lcp_jacobi_packed_stream(*args))
+        if route == "rows":
+            # timed at mp = 888, B = 256, forced by its plan (the route the
+            # parent took there): at mp = 6,648 one block runs a call
+            wide = cases[1][1]
+            t = timed("global rows forced at the cluster's shape", wide,
+                      "jacobi_packed_rows_kernel",
+                      lambda: launch_packed_plan(rows_plan(888, 3), *wide))
+        else:
+            t = timed(route, args, f"{key}_kernel")
+        res[key] = {"max_abs_err": err[route], **t, "launches": launches}
+    return res
+
+
+def phase_wide_rows_first_step(dev, first):
+    """B6b on box_stack8's first step at contact_capacity 296 (mp = 888,
+    B = B_WIDE, the inputs `[scene_box_stack8_k296]` starts from) against
+    its plain version (1e-4) and bit for bit against the global-rows form
+    forced by its plan, timed."""
+    from eggshell_tpu_torch.ops.pgs_kernel import (launch_packed_plan, packed_launch_plan,
+                                                   rows_plan, solve_lcp_jacobi_packed_plain,
+                                                   solve_lcp_jacobi_packed_stream)
+
+    args = first[:10]
+    mp = args[1].shape[1]
+    got = solve_lcp_jacobi_packed_stream(*args)
+    want = solve_lcp_jacobi_packed_plain(*args)
+    rows = launch_packed_plan(rows_plan(mp, 3), *args)
+    e = float((got - want).abs().max())
+    rel = e / max(1.0, float(want.abs().max()))
+    same = torch.equal(got, rows)
+    t = timings("jacobi_packed_stream_kernel", lambda: solve_lcp_jacobi_packed_stream(*args),
                 lambda: solve_lcp_jacobi_packed_plain(*args))
-    b = bound(moved_bytes(args, out), _fused_flops("jacobi_packed", args))
-    print(f"[jacobi_packed_rows] mp={args[1].shape[1]}, B=256: {timing_text(t)}, bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes), {ratio_text(t, b)}")
-    return {"max_abs_err": err, **t, **b, "launches": launches}
+    b = bound(moved_bytes(args, got), _fused_flops("jacobi_packed", args))
+    print(f"[scene_box_stack8_k296] first-step inputs, A {tuple(args[0].shape)}, "
+          f"{packed_launch_plan(mp).cluster}: max |dx| {e:.3e}, relative to scale {rel:.3e} "
+          f"(bound 1e-4); bit for bit the global-rows form's {same}; {timing_text(t)}, "
+          f"{ratio_text(t, b)}")
+    check(bool(torch.isfinite(got).all()), "scene_box_stack8_k296 B6b output not finite")
+    check(rel <= 1e-4, f"scene_box_stack8_k296 B6b relative error {rel}")
+    check(same, "scene_box_stack8_k296 B6b differs from the global-rows form")
+    return e
 
 
 def fdtd_grids(dev, n, seed):
@@ -3621,19 +3757,21 @@ def wide_cfg():
 # Kernels `[ptxas]` reports: 43 templates, those of the Jacobi kernels (B6's
 # four forms and B6b at 5 row lengths each, the resident and cluster forms
 # of B6c and B6c' at 4) and the narrowphase's two entries (on the lanes a
-# pair, built at one), and beside them B4, B5, the global-rows forms of
-# B6c, B6c' and B6b, B7, B3 and B3g.
+# pair, built at one), and beside them B4, B5, the global-rows and
+# streamed forms of B6c, B6c' and B6b, B7, B3 and B3g.
 PTXAS_TEMPLATES = 43
 PTXAS_PLAIN = ("jassembly_kernel", "amat_kernel", "jacobi_global_kernel",
-               "block_jacobi_global_kernel", "jacobi_packed_rows_kernel", "integrate_kernel",
-               "compact_kernel", "compact_ground_kernel")
+               "block_jacobi_global_kernel", "jacobi_packed_rows_kernel",
+               "jacobi_streamed_kernel", "block_jacobi_streamed_kernel",
+               "jacobi_packed_streamed_kernel", "integrate_kernel", "compact_kernel",
+               "compact_ground_kernel")
 
 
 def phase_ptxas():
     """Registers, stack and spills of the Jacobi kernels (B6's four forms,
     B6b, B6c's and B6c''s resident and cluster forms, at each row length),
-    of B2 and B2p, of B4 and B5, of the global-rows forms, and of B7, B3
-    and B3g, as ptxas reported them at the build; none may spill."""
+    of B2 and B2p, of B4 and B5, of the global-rows and streamed forms, and
+    of B7, B3 and B3g, as ptxas reported them at the build; none may spill."""
     from eggshell_tpu_torch import kernels
 
     found = 0
@@ -3730,7 +3868,17 @@ def main() -> int:
         dev, "jacobi_packed_pyramid", "jacobi_packed_pyramid_kernel", False,
         pyramid_cfg().friction_mu, ("slice_pyramid", first_forms["slice_pyramid"]))
     res.update(phase_jacobi_cluster(dev))
-    res["jacobi_packed_rows"] = phase_jacobi_packed_rows(dev)
+    wide_rows = phase_jacobi_packed_rows(dev)
+    res["jacobi_packed_stream"].update({f"{k}_888": wide_rows["jacobi_packed_stream"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "floor_ms", "launches", "max_abs_err")})
+    res["jacobi_packed_streamed"] = wide_rows["jacobi_packed_streamed"]
+    res["jacobi_packed_rows"] = wide_rows["jacobi_packed_rows"]
+    # box_stack8 at contact_capacity 296 (mp = 888): B6b on a cluster of
+    # 9 to 16 blocks, B_WIDE scenarios; its first step here, its rollout below
+    k296 = bench_cfg().replace(contact_capacity=WIDE_ROWS_CAPACITY)
+    first_k296 = fused_inputs(dev, "box_stack8", k296, batch=B_WIDE)["jacobi_packed_stream"]
+    res["jacobi_packed_stream"]["max_abs_err_k296"] = phase_wide_rows_first_step(dev, first_k296)
+    del first_k296
     res["fdtd2d"] = phase_fdtd2d(dev)
     phase_narrowphase_vjp(dev)
 
@@ -3748,6 +3896,12 @@ def main() -> int:
     bp_launches, bp_capacity = phase_living_room_bp(dev, living_room["final"])
     wide_launches, _ = phase_rollout(dev, "scene_box_stack8_k64", "box_stack8", WIDE_PATH, stands,
                                      cfg=wide_cfg())
+    from eggshell_tpu_torch.physics import scenes
+
+    k296_launches, _ = phase_rollout(dev, "scene_box_stack8_k296", "box_stack8", WIDE_PATH,
+                                     stands, cfg=k296,
+                                     batch=scenes.baseline_batch("box_stack8", B_WIDE, device=dev))
+    res["jacobi_packed_stream"]["launches_k296"] = k296_launches["jacobi_packed_stream"]
     form_launches = {}
     for tag, path in (("slice_pyramid", PYRAMID_PATH), ("slice_block", BLOCK_PATH)):
         form_launches[tag], _ = phase_rollout(dev, tag, "box_stack4", path, stands,
@@ -3836,16 +3990,29 @@ def main() -> int:
               "eggshell_tpu/ops/pgs_kernel.py:86",
               "solve_lcp_jacobi(block=True) at m=240, one call",
               res["jacobi_block_cluster"]["launches"]),
+             ("jacobi_streamed", "eggshell_tpu_torch/csrc/jacobi.cu",
+              "eggshell_tpu/ops/pgs_kernel.py:47", "solve_lcp_jacobi at m=1200, one call",
+              res["jacobi_streamed"]["launches"]),
+             ("jacobi_block_streamed", "eggshell_tpu_torch/csrc/jacobi.cu",
+              "eggshell_tpu/ops/pgs_kernel.py:86",
+              "solve_lcp_jacobi(block=True) at m=1200, one call",
+              res["jacobi_block_streamed"]["launches"]),
              ("jacobi_global", "eggshell_tpu_torch/csrc/jacobi.cu",
-              "eggshell_tpu/ops/pgs_kernel.py:47", "solve_lcp_jacobi at m=672, one call",
+              "eggshell_tpu/ops/pgs_kernel.py:47",
+              f"solve_lcp_jacobi at m={PAST_STREAMED}, one call (timed forced at m=672, B=64)",
               res["jacobi_global"]["launches"]),
              ("jacobi_block_global", "eggshell_tpu_torch/csrc/jacobi.cu",
               "eggshell_tpu/ops/pgs_kernel.py:86",
-              "solve_lcp_jacobi(block=True) at m=672, one call",
-              res["jacobi_block_global"]["launches"]),
+              f"solve_lcp_jacobi(block=True) at m={PAST_STREAMED}, one call (timed forced at "
+              "m=672, B=64)", res["jacobi_block_global"]["launches"]),
+             ("jacobi_packed_streamed", "eggshell_tpu_torch/csrc/jacobi_packed_stream.cu",
+              "eggshell_tpu/ops/pgs_kernel.py:355",
+              "solve_lcp_jacobi_packed_stream at mp=1200, one call",
+              res["jacobi_packed_streamed"]["launches"]),
              ("jacobi_packed_rows", "eggshell_tpu_torch/csrc/jacobi_packed_stream.cu",
               "eggshell_tpu/ops/pgs_kernel.py:355",
-              "solve_lcp_jacobi_packed_stream at mp=888, one call",
+              f"solve_lcp_jacobi_packed_stream at mp={PACKED_PAST_STREAMED}, one call (timed "
+              "forced at mp=888, B=256)",
               res["jacobi_packed_rows"]["launches"])]
     print(card_line())
     print(json.dumps({"kernels": [
@@ -3858,8 +4025,10 @@ def main() -> int:
          **{k: res[name][k] for k in ("resident_ms", "ms_extra", "plain_ms_extra",
                                       "bound_ms_extra", "shapes", "launches_pile", "ms_pile",
                                       "plain_ms_pile", "bound_ms_pile", "launches_bp", "ms_bp",
-                                      "plain_ms_bp", "bound_ms_bp", "launches_examples")
-            if k in res[name]}}
+                                      "plain_ms_bp", "bound_ms_bp", "launches_examples",
+                                      "floor_ms", "launches_k296", "max_abs_err_k296")
+            if k in res[name]},
+         **{k: v for k, v in res[name].items() if re.search(r"_(672|888)$", k)}}
         for name, source, replaces, path, launches in rows
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,7 @@
 // each scenario multiplies its own A by one vector, with no reuse across a
 // tile, and TF32 would change the numerics.
 //
-// Three forms, one launch plan (`ops/pgs_kernel.py:jacobi_launch_plan`):
+// Four forms, one launch plan (`ops/pgs_kernel.py:jacobi_launch_plan`):
 //
 // - Resident (`jacobi_kernel`, `block_jacobi_kernel`), B6's design
 //   (csrc/jacobi_packed.cu) with B6c's inputs.  A persistent grid of
@@ -56,9 +56,13 @@
 //   registers.
 // - Cluster (`jacobi_cluster_kernel`, `block_jacobi_cluster_kernel`), B6b's
 //   design (csrc/jacobi_packed_stream.cu), past 128 rows.  One scenario's
-//   rows are split over a cluster of c <= 8 blocks, R rows each (the last
+//   rows are split over a cluster of c blocks, R rows each (the last
 //   block fewer), and read once; the block form splits at multiples of 3,
-//   so no 3-row block straddles two blocks.  Each block keeps the whole
+//   so no 3-row block straddles two blocks.  c is at most 8, the portable
+//   size, up to mp = 664, and 9 to 16 past that (Hopper's non-portable
+//   cluster, `cudaFuncAttributeNonPortableClusterSizeAllowed`), which holds
+//   a scenario's A up to about 944 rows: there one block fills an SM's
+//   shared memory.  Each block keeps the whole
 //   iterate; each sweep a row's new value goes to every block by
 //   `st.async`, completing on the receiving block's mbarrier, with no
 //   cluster barrier inside a scenario.  A row's first 128 columns are held
@@ -71,14 +75,19 @@
 //   (the bits forbid splitting it), and one scenario's A fills an SM's
 //   shared memory at m = 240, so each SM has about 8 warps of rows to hide
 //   that chain with: the form runs at 3.1 to 3.8x its bytes bound there.
+// - Streamed rows (`jacobi_streamed_kernel`, `block_jacobi_streamed_kernel`,
+//   csrc/rows_stream.cuh), past what a cluster of 16 holds: the cluster's
+//   split and exchange, each block streaming its rows from device memory
+//   every sweep through a ring of stages filled by a copy warp.
 // - Global rows (`jacobi_global_kernel`, `block_jacobi_global_kernel`),
-//   past what a cluster of 8 holds: one block a scenario reads A's rows
-//   from device memory every sweep (csrc/rows_global.cuh), bound by those
-//   16 reads.  It stays the reference for the other forms' bits.
+//   past what the streamed form's ring and iterate leave room for: one
+//   block a scenario reads A's rows from device memory every sweep
+//   (csrc/rows_global.cuh), in tiles of 32 columns with two block barriers
+//   each.  It stays the reference for the other forms' bits.
 //
 // Every form sums each row over j in increasing order, one product and one
 // add at a time (--fmad=false), and updates it in the same expressions, so
-// the three return the same bits on any m they all take.
+// the four return the same bits on any m they all take.
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -88,6 +97,7 @@
 #include "block3.cuh"
 #include "jacobi_rows.cuh"
 #include "rows_global.cuh"
+#include "rows_stream.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -157,19 +167,9 @@ template <int RL>
 __device__ __forceinline__ float row_dot(const RegRow<RL>& a, const float* row, const float* x,
                                          int mp) {
   float ax = a.dot(x);
-  if (RL == 128 && mp > RL) {
-    const float4* r4 = reinterpret_cast<const float4*>(row);
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-#pragma unroll 4
-    for (int c = RL / 4; c < mp / 4; ++c) {
-      const float4 v = r4[c];
-      const float4 w = x4[c];
-      ax = ax + v.x * w.x;
-      ax = ax + v.y * w.y;
-      ax = ax + v.z * w.z;
-      ax = ax + v.w * w.w;
-    }
-  }
+  if (RL == 128 && mp > RL)
+    ax = dot4(reinterpret_cast<const float4*>(row), reinterpret_cast<const float4*>(x), RL / 4,
+              mp / 4, ax);
   return ax;
 }
 
@@ -513,7 +513,68 @@ __global__ void block_jacobi_global_kernel(const float* __restrict__ A,
   for (int i = threadIdx.x; i < m; i += T) x_out[s * m + i] = sx[i];
 }
 
-enum Route : int { kResident = 0, kCluster = 1, kGlobalRows = 2 };
+// The streamed form's rows of B6c (kBlock false) and B6c' (true): the
+// inputs and updates of `cluster_body`, with diag and the 3x3 block read
+// from A in device memory once a scenario.
+template <bool kBlockForm>
+struct UnfusedRow {
+  static constexpr bool kBlock = kBlockForm;
+  const float* __restrict__ A;
+  const float* __restrict__ b;
+  const uint8_t* __restrict__ is_eq;
+  const float* __restrict__ lo;
+  const float* __restrict__ hi;
+  float* __restrict__ x_out;
+  int m;
+  float omega, beta;
+
+  struct State {
+    RowIn in;
+    float d, inv_d;
+    float bc[3];
+  };
+
+  __device__ __forceinline__ State load(int64_t s, int i, bool row) const {
+    State st;
+    st.in = row_in(b, is_eq, lo, hi, s, m, row ? i : m);
+    const float* As = A + s * (int64_t)m * m;
+    st.d = row ? As[(int64_t)i * m + i] : 1.f;
+    st.inv_d = 1.f / st.d;
+    st.bc[0] = st.bc[1] = st.bc[2] = 0.f;
+    if (kBlock && row) block_inverse_row(As, m, i / 3, i % 3, st.bc);
+    return st;
+  }
+  __device__ __forceinline__ float x0(const State& st) const {
+    return proj(st.in.b, st.in.eq, st.in.lo, st.in.hi);
+  }
+  __device__ __forceinline__ float residual(const State& st, float ax) const {
+    return st.in.b - ax;
+  }
+  __device__ __forceinline__ float next(const State& st, float rv, float x, float xprev) const {
+    return scalar_update(rv, x, xprev, st.d, st.inv_d, omega, beta, !st.in.eq, st.in.lo,
+                         st.in.hi);
+  }
+  __device__ __forceinline__ float next_block(const State& st, const float* rv3, float x) const {
+    const float y = x + st.bc[0] * rv3[0] + st.bc[1] * rv3[1] + st.bc[2] * rv3[2];
+    return proj((1.f - omega) * x + omega * y, st.in.eq, st.in.lo, st.in.hi);
+  }
+  __device__ __forceinline__ void store(int64_t s, int i, float x) const { x_out[s * m + i] = x; }
+};
+
+#define STREAMED_KERNEL(name, block)                                                          \
+  __global__ void __launch_bounds__(rows_stream::kThreadsMax, 1) name(                        \
+      const __grid_constant__ CUtensorMap tmap, bool use_tmap, const float* __restrict__ A,   \
+      const float* __restrict__ b, const uint8_t* __restrict__ is_eq,                         \
+      const float* __restrict__ lo, const float* __restrict__ hi, float* __restrict__ x_out,  \
+      int64_t B, int m, int R, int w, int stages, int iters, float omega, float beta) {       \
+    const UnfusedRow<block> rw = {A, b, is_eq, lo, hi, x_out, m, omega, beta};                \
+    rows_stream::streamed_body(rw, use_tmap ? &tmap : nullptr, A, B, m, R, w, stages, iters); \
+  }
+
+STREAMED_KERNEL(jacobi_streamed_kernel, false)
+STREAMED_KERNEL(block_jacobi_streamed_kernel, true)
+
+enum Route : int { kResident = 0, kCluster = 1, kGlobalRows = 2, kStreamed = 3 };
 
 int warps(int n) { return ((n + 31) / 32) * 32; }
 
@@ -527,16 +588,44 @@ bool copy_ok(int copy, const float* A, int m, int mp) {
 
 // Launch one form as the caller's launch plan says
 // (`ops/pgs_kernel.py:jacobi_launch_plan`): `route`, `copy`, `rl` (columns
-// of a row in registers: mp rounded up to a warp, at most 128), `cluster` blocks of
-// `rows` rows (cluster route) and `threads` (global-rows route).  A plan
-// this file does not take is refused.
+// of a row in registers: mp rounded up to a warp, at most 128), `cluster`
+// blocks of `rows` rows (cluster and streamed routes), `threads` (global
+// rows; the streamed route's rows rounded up to a warp and its copy warp),
+// and the streamed route's ring, `stages` of `chunk` columns, with at most
+// `inflight` clusters at once (0: as many as fit).  A plan this file does
+// not take is refused.
 int launch(bool block, const float* A, const float* b, const uint8_t* is_eq, const float* lo,
            const float* hi, float* x, int64_t B, int m, int mp, int iters, float omega,
            float beta, int route, int copy, int rl, int cluster, int rows, int threads,
-           void* stream) {
+           int stages, int chunk, int inflight, void* stream) {
   if (B <= 0 || m <= 0) return 0;
   if (mp != (m + 7) / 8 * 8) return (int)cudaErrorInvalidValue;
   cudaError_t e;
+  if (route == kStreamed) {
+    if (copy != kTensorMap && copy != kElements) return (int)cudaErrorInvalidValue;
+    if (copy == kTensorMap && (m % 4 != 0 || reinterpret_cast<uintptr_t>(A) % 16 != 0))
+      return (int)cudaErrorInvalidValue;
+    const void* kernel = block ? (const void*)block_jacobi_streamed_kernel
+                               : (const void*)jacobi_streamed_kernel;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg;
+    const int err = rows_stream::streamed_config(kernel, &cfg, attr, B, m, cluster, rows, threads,
+                                                 chunk, stages, inflight, block, stream);
+    if (err != 0) return err;
+    CUtensorMap tmap = {};
+    if (copy == kTensorMap) {
+      const int enc = encode_rows_map(&tmap, A, B * m, m, chunk, rows_stream::box_rows(rows));
+      if (enc != 0) return enc;
+    }
+    e = block ? cudaLaunchKernelEx(&cfg, block_jacobi_streamed_kernel, tmap, copy == kTensorMap, A,
+                                   b, is_eq, lo, hi, x, B, m, rows, chunk, stages, iters, omega,
+                                   beta)
+              : cudaLaunchKernelEx(&cfg, jacobi_streamed_kernel, tmap, copy == kTensorMap, A, b,
+                                   is_eq, lo, hi, x, B, m, rows, chunk, stages, iters, omega,
+                                   beta);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
   if (route == kGlobalRows) {
     if (threads < 32 || threads > 1024 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)(rows_global::tile_floats(threads) + (block ? 5 : 3) * mp) * 4;
@@ -584,7 +673,7 @@ int launch(bool block, const float* A, const float* b, const uint8_t* is_eq, con
   const OnChipKernel kernel =
       block ? block_jacobi_cluster_kernel_for(rl) : jacobi_cluster_kernel_for(rl);
   // every block holds at least one row, and no 3-row block straddles two
-  if (kernel == nullptr || cluster < 1 || cluster > 8 || rows < 1 ||
+  if (kernel == nullptr || cluster < 1 || cluster > 16 || rows < 1 ||
       (int64_t)rows * cluster < m || (int64_t)rows * (cluster - 1) >= m || (block && rows % 3))
     return (int)cudaErrorInvalidValue;
   const int T = warps(rows);
@@ -592,6 +681,11 @@ int launch(bool block, const float* A, const float* b, const uint8_t* is_eq, con
   const size_t smem = stage_bytes(rows, mp) + 32 + 4 * ((size_t)2 * X + (block ? T : 0));
   e = allow_shared((const void*)kernel, smem);
   if (e != cudaSuccess) return (int)e;
+  if (cluster > 8) {  // Hopper's non-portable cluster sizes, up to 16
+    e = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+    if (e != cudaSuccess) return (int)e;
+  }
 
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -628,19 +722,37 @@ extern "C" int eggshell_jacobi_f32(const float* A, const float* b, const uint8_t
                                    const float* lo, const float* hi, float* x, int64_t B, int m,
                                    int mp, int iters, float omega, float beta, int route,
                                    int copy, int rl, int cluster, int rows, int threads,
-                                   void* stream) {
+                                   int stages, int chunk, int inflight, void* stream) {
   return launch(false, A, b, is_eq, lo, hi, x, B, m, mp, iters, omega, beta, route, copy, rl,
-                cluster, rows, threads, stream);
+                cluster, rows, threads, stages, chunk, inflight, stream);
 }
 
 extern "C" int eggshell_jacobi_block_f32(const float* A, const float* b, const uint8_t* is_eq,
                                          const float* lo, const float* hi, float* x, int64_t B,
                                          int m, int mp, int iters, float omega, int route,
                                          int copy, int rl, int cluster, int rows, int threads,
-                                         void* stream) {
+                                         int stages, int chunk, int inflight, void* stream) {
   if (m % 3 != 0) return (int)cudaErrorInvalidValue;
   return launch(true, A, b, is_eq, lo, hi, x, B, m, mp, iters, omega, 0.f, route, copy, rl,
-                cluster, rows, threads, stream);
+                cluster, rows, threads, stages, chunk, inflight, stream);
+}
+
+// The clusters of the cluster form (`route` 1, the instantiation holding
+// `rl` columns in registers) or the streamed form (3) that fit the card at
+// once with `cluster` blocks of `threads` threads and `smem` bytes, into
+// *out: the blocks in flight are `cluster` times that
+// (tools/jacobi_wide_probe.py).
+extern "C" int eggshell_jacobi_active_clusters(int block, int route, int rl, int cluster,
+                                               int threads, int smem, int* out) {
+  const void* kernel = nullptr;
+  if (route == kCluster)
+    kernel = (const void*)(block ? block_jacobi_cluster_kernel_for(rl)
+                                 : jacobi_cluster_kernel_for(rl));
+  else if (route == kStreamed)
+    kernel = block ? (const void*)block_jacobi_streamed_kernel
+                   : (const void*)jacobi_streamed_kernel;
+  if (kernel == nullptr || cluster < 1 || cluster > 16) return (int)cudaErrorInvalidValue;
+  return rows_stream::active_clusters(kernel, cluster, threads, (size_t)smem, out);
 }
 
 extern "C" const char* eggshell_cuda_error_string(int code) {

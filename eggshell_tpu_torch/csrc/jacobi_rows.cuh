@@ -154,22 +154,39 @@ struct RegRow {
   }
 };
 
-// The same sum for a row kept in shared memory (rows longer than 128),
-// over its mp columns.
-__device__ __forceinline__ float shared_dot(const float* row, const float* x, int mp) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float ax = 0.f;
+// ax + sum over the float4 groups c0..c1-1 of r4[c] . x4[c], added one
+// product at a time in increasing column order, from shared memory.  Each
+// group's two loads are issued a group ahead of its adds, so a load's
+// latency hides behind the previous group's four dependent adds (the row's
+// one add chain is what bounds these sums: it cannot be split without
+// changing the bits).
+__device__ __forceinline__ float dot4(const float4* r4, const float4* x4, int c0, int c1,
+                                      float ax) {
+  if (c0 >= c1) return ax;
+  float4 a = r4[c0], v = x4[c0];
 #pragma unroll 4
-  for (int c = 0; c < mp / 4; ++c) {
-    const float4 a = r4[c];
-    const float4 v = x4[c];
+  for (int c = c0 + 1; c < c1; ++c) {
+    const float4 an = r4[c];
+    const float4 vn = x4[c];
     ax = ax + a.x * v.x;
     ax = ax + a.y * v.y;
     ax = ax + a.z * v.z;
     ax = ax + a.w * v.w;
+    a = an;
+    v = vn;
   }
+  ax = ax + a.x * v.x;
+  ax = ax + a.y * v.y;
+  ax = ax + a.z * v.z;
+  ax = ax + a.w * v.w;
   return ax;
+}
+
+// The same sum for a row kept in shared memory (rows longer than 128),
+// over its mp columns.
+__device__ __forceinline__ float shared_dot(const float* row, const float* x, int mp) {
+  return dot4(reinterpret_cast<const float4*>(row), reinterpret_cast<const float4*>(x), 0,
+              mp / 4, 0.f);
 }
 
 // Row i's inputs of scenario s: its b, diag(A)_i and its lane's masks;

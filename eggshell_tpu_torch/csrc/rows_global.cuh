@@ -1,7 +1,9 @@
 // A x for a dense matrix whose rows are read from device memory on every
-// call, float32: the "global rows" form shared by the Jacobi solves that
-// cannot hold one scenario's A on chip (csrc/jacobi.cu above m = 232 rows,
-// csrc/jacobi_packed_stream.cu above mp = 664).
+// call, float32: the "global rows" form of the Jacobi solves
+// (csrc/jacobi.cu, csrc/jacobi_packed_stream.cu).  Their launch plans take
+// it only past what the streamed form (csrc/rows_stream.cuh) holds, above
+// 6,560 rows; below that it stays the reference that the tests hold the
+// cluster and streamed forms' bits to.
 //
 // One block a scenario, T threads; thread t owns rows t, t + T, ...  The
 // block walks tiles of T rows by 32 columns: each warp copies 32
@@ -15,7 +17,8 @@
 // same bits (up to the sign of a zero).
 //
 // What bounds it: bytes.  A is read once a sweep, from L2 where it fits
-// there (50 MB), else from HBM.
+// there (50 MB), else from HBM; and one block a scenario leaves SMs idle
+// below B = 132 (at m = 672, B = 64, 16 sweeps it read 0.66 TB/s).
 
 #pragma once
 

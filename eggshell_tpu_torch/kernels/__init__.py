@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("narrowphase.cu", "compact.cu", "jacobi.cu", "prep.cu", "jassembly.cu", "amat.cu",
            "jacobi_packed.cu", "jacobi_packed_stream.cu", "integrate.cu", "fdtd2d.cu")
 # Headers the sources include; they count in the library's hash.
-HEADERS = ("block3.cuh", "jacobi_rows.cuh", "rows_global.cuh")
+HEADERS = ("block3.cuh", "jacobi_rows.cuh", "rows_global.cuh", "rows_stream.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --fmad=false: every product and sum is rounded on its own, as in the
 # plain torch versions (see the note in csrc/narrowphase.cu).  -Xptxas -v:
@@ -59,11 +59,11 @@ _SIGNATURES = {
     # B, n, P, pair_stride, K, eps2, cap, stream
     "eggshell_compact_f32": [_P] * 16 + [_I64, _I, _I, _I64, _I, _F, _F, _P],
     # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, beta, route, copy, reg_rows, cluster,
-    # rows, threads, stream
-    "eggshell_jacobi_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F] + [_I] * 6 + [_P],
+    # rows, threads, stages, chunk, inflight, stream
+    "eggshell_jacobi_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F] + [_I] * 9 + [_P],
     # A, b, is_eq, lo, hi, x, B, m, m_pad, iters, omega, route, copy, reg_rows, cluster, rows,
-    # threads, stream
-    "eggshell_jacobi_block_f32": [_P] * 6 + [_I64, _I, _I, _I, _F] + [_I] * 6 + [_P],
+    # threads, stages, chunk, inflight, stream
+    "eggshell_jacobi_block_f32": [_P] * 6 + [_I64, _I, _I, _I, _F] + [_I] * 9 + [_P],
     # q, v, w, ext, inv_mass, Ib, invIb, uhat, invIg, F, B, n, inv_dt, gx, gy, gz, tile, stream
     "eggshell_prep_f32": [_P] * 10 + [_I64, _I, _F, _F, _F, _F, _I, _P],
     # b0, b1, pos, pos1, nrm, dep, act, eq, p, uhat, Jc, rhs, B, K, n, erp_dt2, stream
@@ -74,8 +74,16 @@ _SIGNATURES = {
     "eggshell_jacobi_packed_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _I, _P],
     "eggshell_jacobi_packed_pyramid_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _I, _P],
     "eggshell_jacobi_packed_block_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _F, _I, _P],
-    # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, reg_rows, cluster, stream
-    "eggshell_jacobi_packed_stream_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _I, _I, _P],
+    # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, reg_rows, cluster, rows, stream
+    "eggshell_jacobi_packed_stream_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
+    # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, cluster, rows, threads, stages,
+    # chunk, inflight, stream
+    "eggshell_jacobi_packed_streamed_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F] + [_I] * 6
+    + [_P],
+    # block, route, reg_rows, cluster, threads, shared_bytes, out
+    "eggshell_jacobi_active_clusters": [_I] * 6 + [_P],
+    # streamed, reg_rows, cluster, threads, shared_bytes, out
+    "eggshell_jacobi_packed_active_clusters": [_I] * 5 + [_P],
     # A, diag, rhs, act, eq, x, B, K, mp, iters, mu, omega, beta, threads, stream
     "eggshell_jacobi_packed_rows_f32": [_P] * 6 + [_I64, _I, _I, _I, _F, _F, _F, _I, _P],
     # Jc, lam, b0, b1, p, q, v, w, inv_mass, invIg, F, p_out, q_out, v_out, w_out,

@@ -8,11 +8,16 @@ their wrappers.
   `csrc/jacobi.cu`, in the form `jacobi_launch_plan` names: resident (one
   block a scenario's A, rows in registers behind a TMA stage, on a
   persistent grid: `jacobi_kernel`, `block_jacobi_kernel`), cluster (A's
-  rows split over a thread-block cluster, read once:
-  `jacobi_cluster_kernel`, `block_jacobi_cluster_kernel`) or, past what a
-  cluster holds, global rows (read from device memory every sweep:
-  `jacobi_global_kernel`, `block_jacobi_global_kernel`).  All three return
-  the same bits.
+  rows split over a thread-block cluster of up to 8 blocks, or past
+  mp = 664 of 9 to 16, read once: `jacobi_cluster_kernel`,
+  `block_jacobi_cluster_kernel`), streamed (past what 16 blocks hold, the
+  cluster's split with each block streaming its rows every sweep through
+  a ring of stages: `jacobi_streamed_kernel`,
+  `block_jacobi_streamed_kernel`) or, past what that ring leaves room for
+  (6,560 rows), global rows (one block a scenario, A read from device
+  memory every sweep: `jacobi_global_kernel`,
+  `block_jacobi_global_kernel`, also the tests' reference for the others'
+  bits).  All four return the same bits.
 - `solve_lcp_jacobi_packed`: counterpart of
   `eggshell_tpu.ops.pgs_kernel.solve_lcp_jacobi_packed`, the fused chain's
   solve, with box or Coulomb-pyramid bounds built from the lane masks.
@@ -25,10 +30,12 @@ their wrappers.
   Cluster (B6b, scalar sweeps with box bounds only; the JAX package's
   "streamed" solve): `solve_lcp_jacobi_packed_stream`, kernel
   `csrc/jacobi_packed_stream.cu`, which holds one scenario's A across a
-  thread-block cluster, read once, and returns the resident kernel's bits;
-  where a cluster of 8 cannot hold its rows (mp > 664), it reads them from
-  device memory every sweep (`jacobi_packed_rows_kernel`), with the same
-  bits.  `packed_launch_plan` picks how both run at a given row count and
+  thread-block cluster (up to 8 blocks, 9 to 16 past mp = 664), read
+  once, and returns the resident kernel's bits; past what 16 blocks hold
+  (mp above 944) it streams each block's rows every sweep
+  (`jacobi_packed_streamed_kernel`), and past 6,560 rows it reads them in
+  global-rows form (`jacobi_packed_rows_kernel`), with the same bits.
+  `packed_launch_plan` picks how both run at a given row count and
   `packed_streams` which of the two the solve takes: the crossing measured
   on the card.  What the solve refuses follows the JAX package's rule
   (`streams_a`).
@@ -89,10 +96,27 @@ def packed_streams(mp: int) -> bool:
 # Row lengths for which the packed kernels hold a row of A in registers
 # (their template instantiations); longer rows are read from shared memory.
 REGISTER_ROW_LENGTHS = (32, 64, 96, 128)
-# Blocks of a B6b cluster: at most the portable cluster size, and at most
-# this many rows a block.
-MAX_CLUSTER = 8
+# Blocks of a cluster: up to the portable size 8 while 8 blocks hold a
+# scenario's rows (mp <= 664), and past that up to Hopper's non-portable 16
+# (`cudaFuncAttributeNonPortableClusterSizeAllowed`); a B6b block of the
+# portable sizes holds at most CLUSTER_BLOCK_ROWS rows.
+PORTABLE_CLUSTER = 8
+MAX_CLUSTER = 16
 CLUSTER_BLOCK_ROWS = 64
+# Past the portable sizes, the cluster sizes in the order the plans try
+# them: on the H100, 9 such clusters of 9 blocks fit at once and 7 of any
+# size from 10 to 16, so 9 wherever it holds the rows (B6c 0.4254 ms at
+# m = 672, B = 64, against 0.5192-0.5253 for 10 to 16), else the largest,
+# whose blocks load the fewest rows each (B6b 2.2937 ms at c = 16 against
+# 2.4492 at 15, mp = 888, B = 256; tools/jacobi_wide_probe.py --sizes,
+# PERF.md section 6).
+WIDE_CLUSTERS = (9, 16, 15, 14, 13, 12, 11, 10)
+# The largest mp at which the cluster forms of 9 to 16 blocks are taken;
+# past it the streamed route.  Their reach: the streamed route measured
+# slower at every mp the cluster holds (0.4932 against 0.3838 ms at
+# m = 672; 3.2123 against 2.2937 at mp = 888).
+JACOBI_CLUSTER_MAX_MP = 944
+PACKED_CLUSTER_MAX_MP = 944
 
 
 class ResidentPlan(NamedTuple):
@@ -125,12 +149,29 @@ class RowsPlan(NamedTuple):
     shared_bytes: int
 
 
+class StreamedPlan(NamedTuple):
+    """How a streamed form runs (`csrc/rows_stream.cuh`): `cluster` blocks a
+    scenario of `rows` rows each (the last block fewer), `threads` a block
+    (the rows rounded up to a warp, and the copy warp), a ring of `stages`
+    chunks of `chunk` columns, at most `inflight` clusters at once (0: as
+    many as fit), and `shared_bytes` of shared memory."""
+    cluster: int
+    rows: int
+    threads: int
+    stages: int
+    chunk: int
+    inflight: int
+    shared_bytes: int
+
+
 class PackedPlan(NamedTuple):
     """`resident` is None where B6 does not fit in one block's shared memory;
-    B6b runs on `cluster`, or, where a cluster of 8 cannot hold its rows,
-    on `rows` (exactly one of the two is set)."""
+    B6b runs on `cluster`, or, past what a cluster of 16 holds (or the
+    measured crossing), on `streamed`, or, past what that ring leaves room
+    for, on `rows` (exactly one of the three is set)."""
     resident: ResidentPlan | None
     cluster: ClusterPlan | None
+    streamed: StreamedPlan | None
     rows: RowsPlan | None
 
 
@@ -138,6 +179,56 @@ class PackedPlan(NamedTuple):
 # (csrc/rows_global.cuh: two tiles of threads x 33 floats).
 ROWS_THREADS = 256
 _TILE_COLS = 32
+# The streamed forms: rows a block at most (512 threads), the chunk
+# widths and ring depths tried in this order (the first that fits), and
+# the cluster size, measured on the card (PERF.md section 6).  The
+# clusters in flight are capped at the most scenarios whose A fits in
+# STREAM_L2_BYTES of the 50 MB L2, so that A is read from L2 after the
+# first sweep, where that leaves at least STREAM_MIN_INFLIGHT; otherwise as
+# many as fit the card run.  At m = 1,200, B = 64 (5.76 MB a scenario):
+# 1.3892 ms with 6 in flight (34.6 MB), 1.5336 with 7 (40.3 MB), 1.6201
+# with 5; at 1,400 (7.84 MB): 2.0638 with 5 (39.2 MB), 2.4868 with 6,
+# 2.6807 uncapped (c = 16; tools/jacobi_wide_probe.py --sizes).
+STREAM_MAX_ROWS = 480
+STREAM_CHUNKS = (128, 64, 32)
+STREAM_STAGES = (4, 3)
+STREAM_CLUSTER = 16
+STREAM_L2_BYTES = 40_000_000
+STREAM_MIN_INFLIGHT = 4
+
+
+def _streamed_shared_bytes(rows: int, n: int, chunk: int, stages: int, block: bool) -> int:
+    """`rows_stream::shared_bytes`: the ring (a stage of more than 256 rows
+    filled by boxes of equal rows, a multiple of 8, rounded up), 2 stages +
+    2 mbarriers, two iterates and the block form's residuals."""
+    boxes = -(-rows // 256)
+    box_rows = rows if boxes == 1 else -(-(-(-rows // boxes)) // 8) * 8
+    stage = -(-boxes * box_rows * (chunk + 4) * 4 // 128) * 128
+    residual = 4 * _warps(rows) if block else 0
+    return stages * stage + 8 * (2 * stages + 2) + 8 * _warps(n) + residual
+
+
+def streamed_plan(n: int, block: bool = False, c: int | None = None) -> StreamedPlan | None:
+    """The streamed form at n rows (B6c's m, B6b's mp) over c blocks
+    (default STREAM_CLUSTER), or None where that does not fit: every block
+    holds a row, at most STREAM_MAX_ROWS (the block form splits at
+    multiples of 3), and a ring of at least 3 stages, two iterates and the
+    block form's residuals fit a block's shared memory.  The widest chunk
+    and then the deepest ring that fit; the clusters in flight capped
+    where at least STREAM_MIN_INFLIGHT scenarios' A fit STREAM_L2_BYTES."""
+    c = STREAM_CLUSTER if c is None else c
+    g = 3 if block else 1
+    R = g * -(-n // (g * c))
+    if not 1 <= c <= MAX_CLUSTER or (c - 1) * R >= n or R > STREAM_MAX_ROWS:
+        return None
+    inflight = STREAM_L2_BYTES // (n * n * 4)
+    inflight = inflight if inflight >= STREAM_MIN_INFLIGHT else 0
+    for chunk in STREAM_CHUNKS:
+        for stages in STREAM_STAGES:
+            need = _streamed_shared_bytes(R, n, chunk, stages, block)
+            if need <= MAX_SHARED_BYTES:
+                return StreamedPlan(c, R, _warps(R) + 32, stages, chunk, inflight, need)
+    return None
 
 
 def rows_plan(mp: int, vectors: int) -> RowsPlan:
@@ -171,9 +262,11 @@ def packed_launch_plan(mp: int) -> PackedPlan:
     """The launch plan of the packed Jacobi kernels at mp rows (a multiple
     of 8): row lengths up to 128 held in registers, else read from shared
     memory; B6b's cluster is the smallest c >= 2 that divides mp and leaves
-    at most 64 rows a block, else 8, and where 8 blocks cannot hold mp / 8
-    rows each (mp > 664) B6b reads its rows from device memory every sweep.
-    Raises ValueError for an mp that is not a positive multiple of 8."""
+    at most 64 rows a block, else 8; where 8 blocks cannot hold mp / 8
+    rows each (mp > 664), `packed_wide_cluster` (9 to 16 blocks, up to
+    mp = PACKED_CLUSTER_MAX_MP), then the streamed route, then, past what
+    its ring leaves room for, global rows.  Raises ValueError for an mp
+    that is not a positive multiple of 8."""
     if mp < ROW_BLOCK or mp % ROW_BLOCK:
         raise ValueError(f"mp = {mp} is not a positive multiple of {ROW_BLOCK}")
     T = _warps(mp)
@@ -182,13 +275,44 @@ def packed_launch_plan(mp: int) -> PackedPlan:
     if resident.shared_bytes > MAX_SHARED_BYTES:
         resident = None
 
-    c = next((c for c in range(2, MAX_CLUSTER + 1)
-              if mp % c == 0 and mp // c <= CLUSTER_BLOCK_ROWS), MAX_CLUSTER)
+    c = next((c for c in range(2, PORTABLE_CLUSTER + 1)
+              if mp % c == 0 and mp // c <= CLUSTER_BLOCK_ROWS), PORTABLE_CLUSTER)
     R = mp // c
     need = _stage_shared_bytes(R, mp, 32, 2 * T)
-    if need > MAX_SHARED_BYTES:
-        return PackedPlan(resident, None, rows_plan(mp, 3))
-    return PackedPlan(resident, ClusterPlan(c, R, _warps(R), reg_rows, need), None)
+    if need <= MAX_SHARED_BYTES:
+        return PackedPlan(resident, ClusterPlan(c, R, _warps(R), reg_rows, need), None, None)
+    wide = packed_wide_cluster(mp)
+    if wide is not None:
+        return PackedPlan(resident, wide, None, None)
+    streamed = streamed_plan(mp)
+    if streamed is not None:
+        return PackedPlan(resident, None, streamed, None)
+    return PackedPlan(resident, None, None, rows_plan(mp, 3))
+
+
+def packed_cluster_plan(mp: int, c: int) -> ClusterPlan | None:
+    """B6b's cluster of c blocks at mp rows, R = mp / c rounded up (the
+    last block fewer), or None where that does not fit: every block holds
+    a row, at most 96 (the kernel's launch bound past register rows), and
+    its stage, mbarriers and two iterates fit a block."""
+    R = -(-mp // c)
+    T = _warps(mp)
+    reg_rows = T if T in REGISTER_ROW_LENGTHS else 0
+    need = _stage_shared_bytes(R, mp, 32, 2 * T)
+    if (not 1 <= c <= MAX_CLUSTER or (c - 1) * R >= mp or _warps(R) > (64 if reg_rows else 96)
+            or need > MAX_SHARED_BYTES):
+        return None
+    return ClusterPlan(c, R, _warps(R), reg_rows, need)
+
+
+def packed_wide_cluster(mp: int) -> ClusterPlan | None:
+    """B6b's cluster past the portable sizes, up to mp =
+    PACKED_CLUSTER_MAX_MP: the first size of WIDE_CLUSTERS that fits (the
+    measured rule), or None."""
+    if mp > PACKED_CLUSTER_MAX_MP:
+        return None
+    return next((p for c in WIDE_CLUSTERS if (p := packed_cluster_plan(mp, c)) is not None),
+                None)
 
 
 class JacobiPlan(NamedTuple):
@@ -202,7 +326,11 @@ class JacobiPlan(NamedTuple):
     columns of a row held in registers (mp rounded up to a warp, at most
     128: a cluster form's longer row has its tail read from the stage; 0
     for global rows);
-    `threads` a block and `shared_bytes` of dynamic shared memory."""
+    `threads` a block and `shared_bytes` of dynamic shared memory.  Route
+    "streamed" (`cluster` blocks of `rows` rows streaming them every sweep)
+    copies by "tensor map" (m % 4 == 0) or "element loads", and sets the
+    ring, `stages` chunks of `chunk` columns, and `inflight`, the clusters
+    at most at once (0: as many as fit)."""
     route: str
     mp: int
     copy: str
@@ -211,11 +339,14 @@ class JacobiPlan(NamedTuple):
     rows: int
     threads: int
     shared_bytes: int
+    stages: int = 0
+    chunk: int = 0
+    inflight: int = 0
 
 
 # The C entries' codes of a route and a copy, and the cluster kernels'
 # launch bound (`csrc/jacobi.cu`).
-JACOBI_ROUTES = {"resident": 0, "cluster": 1, "global rows": 2}
+JACOBI_ROUTES = {"resident": 0, "cluster": 1, "global rows": 2, "streamed": 3}
 JACOBI_COPIES = {"tensor map": 0, "bulk rows": 1, "element loads": 2}
 CLUSTER_MAX_THREADS = 96
 # A tensor copy's box is at most 256 floats wide; the stage's rows are mp + 4.
@@ -264,15 +395,23 @@ def jacobi_cluster_plan(m: int, block: bool = False, c: int | None = None) -> Ja
     default c is the size from 2 to 8 that leaves the fewest idle threads
     over the cluster (c T - m), and of those the largest: the fastest size
     at every m measured (m = 192, 240 and 480, both forms;
-    tools/jacobi_probe.py, H100 SXM at 700 W)."""
+    tools/jacobi_probe.py, H100 SXM at 700 W).  Where no portable size
+    holds the rows (mp above 664), the first size of WIDE_CLUSTERS that
+    does, up to mp = JACOBI_CLUSTER_MAX_MP (the measured rule)."""
     if c is None:
-        fits = [p for c in range(2, MAX_CLUSTER + 1) if (p := jacobi_cluster_plan(m, block, c))]
-        return min(fits, key=lambda p: (p.cluster * p.threads - m, -p.cluster), default=None)
+        fits = [p for c in range(2, PORTABLE_CLUSTER + 1)
+                if (p := jacobi_cluster_plan(m, block, c))]
+        if fits:
+            return min(fits, key=lambda p: (p.cluster * p.threads - m, -p.cluster))
+        if round_rows(m) > JACOBI_CLUSTER_MAX_MP:
+            return None
+        return next((p for c in WIDE_CLUSTERS if (p := jacobi_cluster_plan(m, block, c))), None)
     mp = round_rows(m)
     R = jacobi_cluster_rows(m, c, block)
     T = _warps(R)
     need = _stage_shared_bytes(R, mp, 32, 2 * _warps(mp) + (T if block else 0))
-    if (c - 1) * R >= m or T > CLUSTER_MAX_THREADS or need > MAX_SHARED_BYTES:
+    if (not 1 <= c <= MAX_CLUSTER or (c - 1) * R >= m or T > CLUSTER_MAX_THREADS
+            or need > MAX_SHARED_BYTES):
         return None
     return JacobiPlan("cluster", mp, jacobi_copy(m), _register_columns(mp), c, R, T, need)
 
@@ -280,17 +419,35 @@ def jacobi_cluster_plan(m: int, block: bool = False, c: int | None = None) -> Ja
 @functools.lru_cache(maxsize=None)
 def jacobi_launch_plan(m: int, block: bool = False) -> JacobiPlan:
     """The form of B6c (or with `block`, B6c') at m rows: resident up to
-    mp = JACOBI_RESIDENT_MAX_MP, then the cluster; past what 8 blocks hold
-    (mp above about 664), global rows (the block form keeps 5 floats a row
-    on chip, the scalar form 3)."""
+    mp = JACOBI_RESIDENT_MAX_MP, then the cluster (up to 8 blocks while
+    they hold the rows, mp 664; then 9 to 16, up to mp = 944 in the
+    scalar form and somewhat less in the block form, whose rows split at
+    multiples of 3 and which keeps a residual); past that the streamed
+    route, and past what its ring leaves room for (6,560 rows; 6,384 in the
+    block form), global rows (the block form keeps 5 floats a row on chip,
+    the scalar form 3)."""
     if m < 1:
         raise ValueError(f"m = {m}: the solve needs at least one row")
     return (jacobi_resident_plan(m, block) or jacobi_cluster_plan(m, block)
-            or jacobi_global_plan(m, block))
+            or jacobi_streamed_plan(m, block) or jacobi_global_plan(m, block))
+
+
+def jacobi_streamed_plan(m: int, block: bool = False, c: int | None = None) -> JacobiPlan | None:
+    """The streamed form at m rows (`streamed_plan`), copying its stages by
+    one tensor copy where rows are 16-byte aligned, else by element loads;
+    None where it does not fit."""
+    sp = streamed_plan(m, block, c)
+    if sp is None:
+        return None
+    return JacobiPlan("streamed", round_rows(m), "element loads" if m % 4 else "tensor map", 0,
+                      sp.cluster, sp.rows, sp.threads, sp.shared_bytes, sp.stages, sp.chunk,
+                      sp.inflight)
 
 
 def jacobi_global_plan(m: int, block: bool = False) -> JacobiPlan:
-    """The global-rows form at m rows: no stage, `copy` "none"."""
+    """The global-rows form at m rows: no stage, `copy` "none".  The launch
+    plan takes it only past the streamed form's reach; below that the
+    tests force it as the reference for the other forms' bits."""
     mp = round_rows(m)
     rows = rows_plan(mp, 5 if block else 3)
     return JacobiPlan("global rows", mp, "none", 0, 1, 0, rows.threads, rows.shared_bytes)
@@ -358,7 +515,7 @@ def launch_jacobi_plan(fn_name, plan: JacobiPlan, A, b, is_eq, lo, hi, *params):
     out = torch.empty((B, m), dtype=torch.float32, device=A.device)
     kernels.launch(fn_name, A.device, A, b, is_eq, lo, hi, out, B, m, plan.mp, *params,
                    JACOBI_ROUTES[plan.route], JACOBI_COPIES.get(plan.copy, -1), plan.reg_rows,
-                   plan.cluster, plan.rows, plan.threads)
+                   plan.cluster, plan.rows, plan.threads, plan.stages, plan.chunk, plan.inflight)
     return out
 
 
@@ -505,30 +662,44 @@ def _launch_packed(fn_name, A, diag, rhs, act, eq, K, mu, iters, omega, beta, py
     return out
 
 
-def solve_lcp_jacobi_packed_stream(A, diag, rhs, act, eq, K: int, mu: float, iters: int,
-                                   omega: float, beta: float):
-    """B6b: x (B, mp) of the fused chain's LCP with A held across a cluster
-    of blocks (the JAX package streams it), or, where the plan has no
-    cluster, its rows read from device memory every sweep; the arguments
-    and the plain version are those of `solve_lcp_jacobi_packed_plain` (box
-    friction, scalar sweeps)."""
-    if A.device.type == "cpu":
-        return solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K, mu, iters, omega, beta)
-    if A.device.type != "cuda":
-        raise ValueError(f"unsupported device {A.device}")
+def launch_packed_plan(plan, A, diag, rhs, act, eq, K: int, mu: float, iters: int,
+                       omega: float, beta: float):
+    """Launch B6b in the form `plan` names (a ClusterPlan, StreamedPlan or
+    RowsPlan), which need not be the one `packed_launch_plan` picks, and
+    return x (B, mp)."""
     from eggshell_tpu_torch import kernels
 
     _check_packed_args(A, diag, rhs, act, eq, K)
     B, mp = diag.shape
-    plan = packed_launch_plan(mp)
     out = torch.empty((B, mp), dtype=torch.float32, device=A.device)
-    sweep = (int(iters), float(mu), float(omega), float(beta))
-    if plan.cluster is not None:
-        kernels.launch("eggshell_jacobi_packed_stream_f32", A.device, A, diag, rhs, act, eq, out,
-                       B, K, mp, *sweep, plan.cluster.reg_rows, plan.cluster.cluster)
+    head = (A.device, A, diag, rhs, act, eq, out, B, K, mp, int(iters), float(mu), float(omega),
+            float(beta))
+    if isinstance(plan, ClusterPlan):
+        kernels.launch("eggshell_jacobi_packed_stream_f32", *head, plan.reg_rows, plan.cluster,
+                       plan.rows)
+    elif isinstance(plan, StreamedPlan):
+        kernels.launch("eggshell_jacobi_packed_streamed_f32", *head, plan.cluster, plan.rows,
+                       plan.threads, plan.stages, plan.chunk, plan.inflight)
     else:
-        kernels.launch("eggshell_jacobi_packed_rows_f32", A.device, A, diag, rhs, act, eq, out,
-                       B, K, mp, *sweep, plan.rows.threads)
+        kernels.launch("eggshell_jacobi_packed_rows_f32", *head, plan.threads)
+    return out
+
+
+def solve_lcp_jacobi_packed_stream(A, diag, rhs, act, eq, K: int, mu: float, iters: int,
+                                   omega: float, beta: float):
+    """B6b: x (B, mp) of the fused chain's LCP with A held across a cluster
+    of blocks (the JAX package streams it), or, where the plan has no
+    cluster, its rows streamed from device memory every sweep (the
+    streamed route, or past it global rows); the arguments and the plain
+    version are those of `solve_lcp_jacobi_packed_plain` (box friction,
+    scalar sweeps)."""
+    if A.device.type == "cpu":
+        return solve_lcp_jacobi_packed_plain(A, diag, rhs, act, eq, K, mu, iters, omega, beta)
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    plan = packed_launch_plan(diag.shape[1])
+    out = launch_packed_plan(plan.cluster or plan.streamed or plan.rows, A, diag, rhs, act, eq, K,
+                             mu, iters, omega, beta)
     solve_lcp_jacobi_packed_stream.launches += 1
     return out
 

@@ -598,14 +598,16 @@ def test_unfused_jacobi_forms_match_plain_and_global_rows(dev, block):
     """B6c and B6c' in the form their plan picks: resident at m = 30 (rows
     copied by element loads, m % 4 != 0) and 60 (one tensor copy), cluster
     at m = 132 (one tensor copy a block but the last, whose fewer rows
-    come one bulk copy a row), 240 (one tensor copy a block) and 480 (one
-    bulk copy a row), each against the plain version (1e-4 and 1e-5 of
-    max |x|) and bit for bit against the global-rows form; the cluster
-    form forced at m = 60 returns the resident form's bits; past the
-    cluster's limit (m = 672) the plan takes global rows, against the
-    plain version."""
+    come one bulk copy a row), 240 (one tensor copy a block), 480 (one
+    bulk copy a row) and 672 (past the portable 8 blocks: 9 to 16), the
+    streamed form at m = 1,200 (one tensor copy a stage), 1,203 (element
+    loads) and 4,200 (two tensor copies a stage, past a box's 256 rows),
+    each against the plain version (1e-4 and 1e-5 of max |x|) and
+    bit for bit against the global-rows form forced by its plan; the
+    cluster form forced at m = 60, a cluster of 16 forced at m = 96 and the
+    streamed form forced at m = 240 return the plan's form's bits."""
     from eggshell_tpu_torch.ops.pgs_kernel import (jacobi_cluster_plan, jacobi_global_plan,
-                                                   jacobi_launch_plan)
+                                                   jacobi_launch_plan, jacobi_streamed_plan)
 
     rel = 1e-5 if block else 1e-4
     counter = solve_lcp_jacobi_block if block else solve_lcp_jacobi
@@ -618,11 +620,15 @@ def test_unfused_jacobi_forms_match_plain_and_global_rows(dev, block):
                               (256, 60, "resident", "tensor map"),
                               (256, 132, "cluster", "tensor map"),
                               (256, 240, "cluster", "tensor map"),
-                              (64, 480, "cluster", "bulk rows"), (16, 672, "global rows", "none")):
+                              (64, 480, "cluster", "bulk rows"), (64, 672, "cluster", "bulk rows"),
+                              (16, 1200, "streamed", "tensor map"),
+                              (8, 1203, "streamed", "element loads"),
+                              (2, 4200, "streamed", "tensor map")):
         args = _random_lcp(dev, B, m, seed=m)
         plan = jacobi_launch_plan(m, block)
         assert (plan.route, plan.copy) == (route, copy)
         assert m != 132 or plan.cluster * plan.rows > m     # a shorter last block
+        assert m != 672 or plan.cluster > 8                 # Hopper's non-portable sizes
         n0 = counter.launches
         got = solve_lcp_jacobi(*args, 16, 0.3, 0.45, block=block)
         want = plain(*args)
@@ -632,27 +638,42 @@ def test_unfused_jacobi_forms_match_plain_and_global_rows(dev, block):
         assert bool(torch.isfinite(got).all())
         assert float((got - want).abs().max()) <= rel * float(want.abs().max()), m
         assert torch.equal(rows, got), m
-    args = _random_lcp(dev, 256, 60, seed=61)
-    resident = solve_lcp_jacobi(*args, 16, 0.3, 0.45, block=block)
-    cluster = _solve_in(jacobi_cluster_plan(60, block), *args, block)
-    torch.cuda.synchronize()
-    assert torch.equal(cluster, resident)
+    for m, force in ((60, jacobi_cluster_plan(60, block)),
+                     (96, jacobi_cluster_plan(96, block, 16)),
+                     (240, jacobi_streamed_plan(240, block))):
+        args = _random_lcp(dev, 256, m, seed=m + 1)
+        planned = solve_lcp_jacobi(*args, 16, 0.3, 0.45, block=block)
+        forced = _solve_in(force, *args, block)
+        torch.cuda.synchronize()
+        assert torch.equal(forced, planned), m
 
 
 def test_packed_global_rows_matches_plain_and_the_cluster_kernel(dev):
-    """Past mp = 664 B6b reads A's rows from device memory every sweep: at
-    mp = 672 against the plain version (1e-4); at mp = 96 that form
-    returns the cluster kernel's and the resident B6's bits."""
+    """Past mp = 664 B6b holds A on a cluster of 9 to 16 blocks (mp = 672
+    and 888, a shorter last block at 888) and past what 16 blocks hold
+    streams it (mp = 1,200, and 4,200 with two tensor copies a stage): each
+    against the plain version (1e-4) and bit for bit against the
+    global-rows form forced by its plan.  At mp = 96
+    the global-rows form, a forced cluster of 16 and a forced streamed form
+    return the cluster kernel's and the resident B6's bits."""
     from eggshell_tpu_torch import kernels
-    from eggshell_tpu_torch.ops.pgs_kernel import ROWS_THREADS
+    from eggshell_tpu_torch.ops.pgs_kernel import (ROWS_THREADS, launch_packed_plan,
+                                                   packed_cluster_plan, rows_plan, streamed_plan)
 
-    lcp = _random_packed_lcp(dev, B=64, K=224, seed=5)
-    assert packed_launch_plan(672).rows is not None
-    n0 = solve_lcp_jacobi_packed_stream.launches
-    got = solve_lcp_jacobi_packed_stream(*lcp)
-    torch.cuda.synchronize()
-    assert solve_lcp_jacobi_packed_stream.launches == n0 + 1
-    _close((got,), (solve_lcp_jacobi_packed_plain(*lcp),), rel=1e-4)
+    for B, K, route in ((64, 224, "cluster"), (32, 296, "cluster"), (16, 400, "streamed"),
+                        (2, 1400, "streamed")):
+        lcp = _random_packed_lcp(dev, B=B, K=K, seed=5)
+        mp = lcp[1].shape[1]
+        plan = packed_launch_plan(mp)
+        assert (plan.cluster if route == "cluster" else plan.streamed) is not None, mp
+        assert route != "cluster" or plan.cluster.cluster > 8
+        n0 = solve_lcp_jacobi_packed_stream.launches
+        got = solve_lcp_jacobi_packed_stream(*lcp)
+        rows = launch_packed_plan(rows_plan(mp, 3), *lcp)
+        torch.cuda.synchronize()
+        assert solve_lcp_jacobi_packed_stream.launches == n0 + 1
+        _close((got,), (solve_lcp_jacobi_packed_plain(*lcp),), rel=1e-4)
+        assert torch.equal(rows, got), mp
 
     A, diag, rhs, act, eq, K, mu, iters, omega, beta = _random_packed_lcp(dev, B=256, K=32, seed=6)
     cluster = solve_lcp_jacobi_packed_stream(A, diag, rhs, act, eq, K, mu, iters, omega, beta)
@@ -661,8 +682,13 @@ def test_packed_global_rows_matches_plain_and_the_cluster_kernel(dev):
     rows = torch.empty_like(diag)
     kernels.launch("eggshell_jacobi_packed_rows_f32", dev, A, diag, rhs, act, eq, rows, 256, K, 96,
                    iters, mu, omega, beta, min(ROWS_THREADS, 96))
+    sixteen = launch_packed_plan(packed_cluster_plan(96, 16), A, diag, rhs, act, eq, K, mu, iters,
+                                 omega, beta)
+    streamed = launch_packed_plan(streamed_plan(96), A, diag, rhs, act, eq, K, mu, iters, omega,
+                                  beta)
     torch.cuda.synchronize()
     assert torch.equal(rows, cluster) and torch.equal(rows, resident)
+    assert torch.equal(sixteen, resident) and torch.equal(streamed, resident)
 
 
 def _random_packed_lcp(dev, B=256, K=20, seed=2):

@@ -69,7 +69,8 @@ def main() -> int:
             return lambda: kernels.launch("eggshell_jacobi_packed_f32", dev, *head, 0.0, rl)
 
         def cluster(rl, c):
-            return lambda: kernels.launch("eggshell_jacobi_packed_stream_f32", dev, *head, rl, c)
+            return lambda: kernels.launch("eggshell_jacobi_packed_stream_f32", dev, *head, rl, c,
+                                          mp // c)
 
         line = [f"mp={mp}:"]
         rl = plan.resident.reg_rows

@@ -11,7 +11,7 @@ scenario) and its cluster form (the rows over the cluster
 `jacobi_cluster_plan` picks), whatever `jacobi_launch_plan` would take
 there; the two must return the same bits.  The cluster form alone at
 m = 136, 160, 192 and 232 (B6c) and 132, 168, 192 and 228 (B6c').  Then
-the cluster form at every cluster size from 2 to 8 that
+the cluster form at every cluster size from 2 to 16 (`MAX_CLUSTER`) that
 `jacobi_cluster_plan` takes, at m = 192, 240 (B = 4096) and 480
 (B = 512).  These are the measurements behind `JACOBI_RESIDENT_MAX_MP`
 and the plan's cluster size.  First, the resident form at m = 32 and 60
