@@ -46,6 +46,7 @@ from eggshell_tpu_torch.physics import contacts as tcont
 from eggshell_tpu_torch.physics import scenes as ts
 from eggshell_tpu_torch.physics.scene import State
 from eggshell_tpu_torch.utils.config import BENCH, SimConfig
+from torch_limits import time_limit  # noqa: F401
 
 
 def _np(nt):

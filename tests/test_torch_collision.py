@@ -21,6 +21,7 @@ from eggshell_tpu.ops import collision as jc
 from eggshell_tpu.ops import quaternion as jq
 from eggshell_tpu_torch.ops import collision as tc
 from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes
+from torch_limits import time_limit  # noqa: F401
 
 TOL = 1e-9
 

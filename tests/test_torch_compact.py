@@ -53,6 +53,7 @@ from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi_packed,
 from eggshell_tpu_torch.physics import stepper as tstep
 from eggshell_tpu_torch.physics.contacts import depth_cap
 from eggshell_tpu_torch.utils.config import BENCH
+from torch_limits import time_limit  # noqa: F401
 
 B = 1024
 GEOM_TOL = 1e-6

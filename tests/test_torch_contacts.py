@@ -20,6 +20,7 @@ from eggshell_tpu_torch import convert
 from eggshell_tpu_torch.physics import constraints as tcon
 from eggshell_tpu_torch.physics import contacts as tcont
 from eggshell_tpu_torch.utils.config import SimConfig
+from torch_limits import time_limit  # noqa: F401
 
 TOL = 1e-9
 

@@ -46,6 +46,7 @@ from eggshell_tpu_torch.physics import stepper as tstep
 from eggshell_tpu_torch.physics.scene import State
 from eggshell_tpu_torch.utils.config import SimConfig, SolverKind
 from test_lcp import SIZE, gen_spd
+from torch_limits import time_limit  # noqa: F401
 
 ORACLE = os.path.join(os.path.dirname(__file__), "data", "oracle_stack4_f64.npz")
 NUM = 10

@@ -44,6 +44,7 @@ from eggshell_tpu_torch import convert
 from eggshell_tpu_torch.examples import living_room_mpc, push_mpc
 from eggshell_tpu_torch.parallel import mesh as tmesh
 from eggshell_tpu_torch.physics.scene import State
+from torch_limits import time_limit  # noqa: F401
 
 CPU = "cpu"
 # The update's mean and costs, float64 on both sides from one state: 250

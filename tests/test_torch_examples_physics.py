@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from eggshell_tpu_torch.examples import box_drop, chain_swing, fdtd_aperture
+from torch_limits import time_limit  # noqa: F401
 
 CPU = "cpu"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -25,6 +25,7 @@ from eggshell_tpu_torch.examples import (alma_coupler, capacitor_es, cavity_mode
                                          photonic_nanojet, schrodinger_barrier, waveguide_bend,
                                          waveguide_modes, waveguide_s11, waveguide_transition,
                                          wire_polarizer)
+from torch_limits import time_limit  # noqa: F401
 
 CPU = "cpu"
 FEM_REL = 1e-8

@@ -21,6 +21,7 @@ import torch
 from eggshell_tpu.fem import fdtd as jfdtd
 from eggshell_tpu_torch import convert
 from eggshell_tpu_torch.fem import fdtd as tfdtd
+from torch_limits import time_limit  # noqa: F401
 
 TOL_STEP = 1e-12
 TOL_SIM = 1e-10

@@ -23,6 +23,7 @@ from eggshell_tpu.fem import fdtd as jfdtd
 from eggshell_tpu.utils.mat_file import load_mat as jax_load_mat
 from eggshell_tpu_torch.fem import fdtd as tfdtd
 from eggshell_tpu_torch.utils.mat_file import load_mat
+from torch_limits import time_limit  # noqa: F401
 
 TOL = 1e-12
 N, STEPS = 14, 20

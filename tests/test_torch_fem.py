@@ -39,6 +39,7 @@ from eggshell_tpu.fem import shape as jshape
 from eggshell_tpu_torch import convert
 from eggshell_tpu_torch.fem import fields as tfields
 from eggshell_tpu_torch.fem import helmholtz as th
+from torch_limits import time_limit  # noqa: F401
 
 TOL = 1e-10
 CPU = "cpu"

@@ -34,6 +34,7 @@ from eggshell_tpu_torch.fem import ports as tports
 from eggshell_tpu_torch.fem import shape as tshape
 from eggshell_tpu_torch.ops import geometry2d as tgeo
 from eggshell_tpu_torch.utils import dxf as tdxf
+from torch_limits import time_limit  # noqa: F401
 
 
 def _rect_ports(S):

@@ -61,6 +61,7 @@ from eggshell_tpu_torch.physics import scenes as ts
 from eggshell_tpu_torch.physics.scene import State
 from eggshell_tpu_torch.physics.stepper import _fused_step, step_ode_batched
 from eggshell_tpu_torch.utils.config import BENCH
+from torch_limits import time_limit  # noqa: F401
 
 ORACLE = os.path.join(os.path.dirname(__file__), "data", "oracle_stack4_f64.npz")
 TOL = 1e-12

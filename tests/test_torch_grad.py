@@ -46,6 +46,7 @@ from eggshell_tpu_torch.ops.collision_kernel import collide_boxes_lanes_diff
 from eggshell_tpu_torch.physics import stepper as tstep
 from eggshell_tpu_torch.physics.scene import State
 from eggshell_tpu_torch.utils.config import FrictionModel, SimConfig, SolverKind
+from torch_limits import time_limit  # noqa: F401
 
 B = 2
 # tests/test_diff_kernel.py:32-39

@@ -34,6 +34,7 @@ from eggshell_tpu_torch.parallel import rollout as trollout
 from eggshell_tpu_torch.physics import stepper as tstep
 from eggshell_tpu_torch.physics.scene import State
 from eggshell_tpu_torch.utils.config import SimConfig, SolverKind
+from torch_limits import time_limit  # noqa: F401
 
 B = 2
 SOLVERS = {"jacobi": SolverKind.JACOBI, "pgs": SolverKind.PGS, "sor": SolverKind.SOR,

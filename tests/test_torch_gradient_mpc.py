@@ -21,6 +21,7 @@ from eggshell_tpu.utils.config import SimConfig as JaxSimConfig
 from eggshell_tpu_torch import convert
 from eggshell_tpu_torch.mpc import gradient_mpc_update
 from eggshell_tpu_torch.utils.config import SimConfig, SolverKind
+from torch_limits import time_limit  # noqa: F401
 
 # tests/test_mpc_parallel.py:14-17
 CFG = SimConfig(solver=SolverKind.PGS, solver_iters=40, conditional_cfm=False, cfm_always=0.01,

@@ -35,6 +35,7 @@ from eggshell_tpu_torch.ops.integrate_kernel import (INTEGRATE_THREADS, integrat
                                                      integrate_shared_bytes,
                                                      integrate_step_plain, jt_lambda_plain)
 from eggshell_tpu_torch.physics import scenes
+from torch_limits import time_limit  # noqa: F401
 
 f32 = np.float32
 SMS = 132

@@ -57,6 +57,7 @@ from eggshell_tpu_torch.physics.scene import State
 from eggshell_tpu_torch.utils.config import BENCH, SimConfig, SolverKind
 from test_torch_integrate_compact_plan import (COMPACT_CASES, INTEGRATE_CASES, PLAN_SHAPES,
                                                _compact_inputs, _integrate_inputs)
+from torch_limits import time_limit  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

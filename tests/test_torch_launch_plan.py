@@ -21,6 +21,7 @@ from eggshell_tpu_torch.ops.pgs_kernel import (JACOBI_CLUSTER_MAX_MP, JACOBI_RES
                                                STREAM_MAX_ROWS, jacobi_cluster_plan,
                                                jacobi_launch_plan, packed_launch_plan,
                                                packed_streams, streams_a)
+from torch_limits import time_limit  # noqa: F401
 
 # The largest mp of each kernel: B6 holds a scenario's A in one block;
 # B6b spreads it over at most 8 blocks up to CLUSTER_LIMIT, over 9 to 16

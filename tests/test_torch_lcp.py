@@ -14,6 +14,7 @@ from eggshell_tpu.ops import lcp as jlcp
 from eggshell_tpu.ops.pgs_kernel import solve_lcp_jacobi_pallas
 from eggshell_tpu_torch.ops import lcp as tlcp
 from eggshell_tpu_torch.ops.pgs_kernel import solve_lcp_jacobi, solve_lcp_jacobi_plain
+from torch_limits import time_limit  # noqa: F401
 
 TOL = 1e-9
 

@@ -33,6 +33,7 @@ from eggshell_tpu_torch.ops.pgs_kernel import (solve_lcp_jacobi, solve_lcp_jacob
                                                solve_lcp_jacobi_plain)
 from test_torch_fused import TOL_SWEEPS, B, K, _lcp_inputs, _pack_np, _stripes
 from test_torch_lcp import TOL, _problem
+from torch_limits import time_limit  # noqa: F401
 
 TOL_SOLVE = 1e-10
 MU = 0.5

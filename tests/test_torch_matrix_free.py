@@ -40,6 +40,7 @@ from eggshell_tpu_torch.physics import contacts as tcont
 from eggshell_tpu_torch.physics.scene import State
 from eggshell_tpu_torch.physics.stepper import step_ode, step_ode_batched
 from eggshell_tpu_torch.utils.config import BENCH, FrictionModel, SimConfig, SolverKind
+from torch_limits import time_limit  # noqa: F401
 
 TOL = 1e-10
 

@@ -44,6 +44,7 @@ from eggshell_tpu_torch.parallel import mesh as tmesh
 from eggshell_tpu_torch.parallel.rollout import rollout_batched
 from eggshell_tpu_torch.physics.scene import State
 from eggshell_tpu_torch.utils.config import SimConfig, SolverKind
+from torch_limits import time_limit  # noqa: F401
 
 TOL = 1e-12
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -227,7 +228,7 @@ def test_two_ranks_file_store(tmp_path):
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for r in range(2)]
     try:
-        outs = [p.communicate(timeout=240) for p in procs]
+        outs = [p.communicate(timeout=120) for p in procs]
     finally:
         for p in procs:
             p.kill()

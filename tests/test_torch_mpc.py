@@ -50,6 +50,7 @@ from eggshell_tpu_torch.physics.contacts import make_contacts
 from eggshell_tpu_torch.physics.scene import State
 from eggshell_tpu_torch.physics.stepper import step_ode
 from eggshell_tpu_torch.utils.config import BENCH, SimConfig, SolverKind
+from torch_limits import time_limit  # noqa: F401
 
 TOL = 1e-8
 TARGET = (0.0, 0.0, 0.5)

@@ -37,6 +37,7 @@ from eggshell_tpu_torch.ops.collision_kernel import (GROUP_BYTES, LANES_PER_PAIR
 from eggshell_tpu_torch.ops.collision_poses import (POSE_CLASSES, class_agreement,
                                                     degenerate_args, pair_list)
 from eggshell_tpu_torch.ops.quaternion import quat_to_mat
+from torch_limits import time_limit  # noqa: F401
 
 f32 = np.float32
 BIG = f32(1e30)

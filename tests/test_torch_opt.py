@@ -42,6 +42,7 @@ from eggshell_tpu_torch.models import Model, Parameter
 from eggshell_tpu_torch.opt.random_search import _search_from_samples
 from eggshell_tpu_torch.physics.scene import State
 from eggshell_tpu_torch.utils import hashing
+from torch_limits import time_limit  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

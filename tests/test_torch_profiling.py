@@ -10,6 +10,7 @@ import pytest
 
 from eggshell_tpu_torch.utils import profiling
 from eggshell_tpu_torch.utils.profiling import _drop_flush
+from torch_limits import time_limit  # noqa: F401
 
 
 def _events(names):

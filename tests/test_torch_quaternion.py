@@ -13,6 +13,7 @@ import torch
 
 from eggshell_tpu.ops import quaternion as jq
 from eggshell_tpu_torch.ops import quaternion as tq
+from torch_limits import time_limit  # noqa: F401
 
 TOL = 1e-12
 

@@ -37,6 +37,7 @@ from eggshell_tpu_torch.parallel.rollout import (batch_states, capture_refusal,
 from eggshell_tpu_torch.physics import scenes as ts
 from eggshell_tpu_torch.physics.stepper import step_ode_batched
 from eggshell_tpu_torch.utils.config import BENCH, FrictionModel, SimConfig, SolverKind
+from torch_limits import time_limit  # noqa: F401
 
 MONITOR = dict(solver_iters=20, jacobi_omega=0.3, conditional_cfm=False, cfm_always=0.01,
                contact_capacity=20)

@@ -18,6 +18,7 @@ from eggshell_tpu_torch import convert
 from eggshell_tpu_torch.physics import scene as tscene
 from eggshell_tpu_torch.physics import scenes as ts
 from eggshell_tpu_torch.utils import config as tconfig
+from torch_limits import time_limit  # noqa: F401
 
 BUILDERS = {
     "box_stack4": lambda m, **kw: m.box_stack(4, **kw),

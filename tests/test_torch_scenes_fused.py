@@ -31,6 +31,7 @@ from eggshell_tpu_torch.physics import scenes as ts
 from eggshell_tpu_torch.physics import stepper as tstep
 from eggshell_tpu_torch.physics.contacts import drop_joint_contacts, joint_anchors, joint_points
 from eggshell_tpu_torch.utils.config import BENCH
+from torch_limits import time_limit  # noqa: F401
 
 BUILDERS = {
     "chain3_collide": lambda m, **kw: m.chain(3, collide=True, **kw),

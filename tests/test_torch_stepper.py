@@ -45,6 +45,7 @@ from eggshell_tpu_torch.physics import scenes as ts
 from eggshell_tpu_torch.physics import stepper as tstep
 from eggshell_tpu_torch.physics.scene import State, make_scene
 from eggshell_tpu_torch.utils.config import FrictionModel, SimConfig, SolverKind
+from torch_limits import time_limit  # noqa: F401
 
 ORACLE = os.path.join(os.path.dirname(__file__), "data", "oracle_stack4_f64.npz")
 

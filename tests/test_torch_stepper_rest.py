@@ -36,6 +36,7 @@ from eggshell_tpu_torch.physics import contacts as tcont
 from eggshell_tpu_torch.physics import stepper as tstep
 from eggshell_tpu_torch.physics.scene import State
 from eggshell_tpu_torch.utils.config import SimConfig, SolverKind
+from torch_limits import time_limit  # noqa: F401
 
 TOL = 1e-8
 BASE = dict(contact_kernel=False, contact_capacity=16, solver_iters=10)

@@ -31,6 +31,7 @@ from eggshell_tpu_torch.physics import contacts, scenes
 from eggshell_tpu_torch.utils import errors, si_prefix, step_parser, trace
 from eggshell_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from eggshell_tpu_torch.utils.config import SimConfig, SolverKind
+from torch_limits import time_limit  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESUME_TOL = 1e-12          # tests/test_physics.py:283

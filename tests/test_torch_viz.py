@@ -30,6 +30,7 @@ from eggshell_tpu_torch.utils.config import SimConfig, SolverKind  # noqa: E402
 from eggshell_tpu_torch.viz import (Figure, InteractiveViewer, colormap, draw_field,  # noqa: E402
                                     draw_mesh, draw_scene, save_trajectory_animation)
 from eggshell_tpu_torch.viz.camera import Camera, pick_body, ray_obb_distances  # noqa: E402
+from torch_limits import time_limit  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIEWER_TOL = 1e-8
